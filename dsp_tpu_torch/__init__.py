@@ -1,0 +1,50 @@
+"""dsp_tpu_torch — the isolated-word recognizer of ``dsp_tpu`` in PyTorch/CUDA.
+
+A port of the JAX package's main path (VAD -> MFCC + delta/delta-delta ->
+all-pairs windowed Sakoe-Chiba DTW -> argmin / kNN vote) with two
+hand-written CUDA kernels for NVIDIA Hopper: banded DTW
+(``csrc/dtw_banded.cu``) and the fused MFCC front-end
+(``csrc/mfcc_fused.cu``).  Each has a plain PyTorch version beside it,
+which CPU tensors take.  This package imports neither jax nor ``dsp_tpu``.
+
+Quick start::
+
+    from dsp_tpu_torch import KnnDtwRecognizer
+    rec = KnnDtwRecognizer(device="cuda")
+    rec.enroll("yes", [signal1, signal2])
+    label = rec.recognize(test_signal)
+"""
+
+import torch
+
+# Full fp32 in every matrix product.  The records of the JAX package show
+# that reduced precision breaks both kernels' arithmetic: a bf16/TF32 cost
+# GEMM gave 5% DTW distance error and 50% argmin flips
+# (dsp_tpu/kernels/dtw_fused_banded.py:119-122, docs/PERF.md round 2
+# item 4), and reduced-precision DFT GEMMs visibly corrupt the log-mel
+# cepstra (dsp_tpu/kernels/mfcc_pallas.py:72-73).  PyTorch's cuDNN
+# default allows TF32, so both switches are set.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from dsp_tpu_torch.config import (  # noqa: E402
+    DtwConfig,
+    FrontendConfig,
+    HmmConfig,
+    PipelineConfig,
+    VadConfig,
+    VqConfig,
+)
+from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer  # noqa: E402
+from dsp_tpu_torch.pipeline import (  # noqa: E402
+    Features,
+    classify_features,
+    extract_features,
+    recognize_batch,
+)
+
+__all__ = [
+    "FrontendConfig", "VadConfig", "DtwConfig", "HmmConfig", "VqConfig",
+    "PipelineConfig", "KnnDtwRecognizer", "Features",
+    "extract_features", "classify_features", "recognize_batch",
+]

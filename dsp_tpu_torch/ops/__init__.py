@@ -1,0 +1,1 @@
+"""Plain PyTorch ops of the port: front-end, VAD, DTW."""
