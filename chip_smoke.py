@@ -31,13 +31,40 @@ each of which raises on failure (non-zero exit):
              relative); one ``recognize`` call per config must launch the
              DTW kernel once (none on the plain paths) and give the label
              the batch gave.
+6. spot    — the subsequence-DTW kernel against its plain version at the
+             bench_all.py spotting shape (64 recordings of 3 connected
+             digits, 598 frames, against 10 digits x 10 templates of 198
+             frames) and at two long-stream shapes against the same bank,
+             4 streams of 60 s (5,998 frames) each: synthetic recordings
+             of random digits, and standard-normal features; squared off
+             and on.  The BIG/finite pattern must be identical; where the
+             start witnesses agree, norms allclose at rtol 2e-4; where
+             they differ (near-ties rounded apart), the raw costs
+             norm * (tl + span) must agree to 1e-4 relative and such sites
+             stay under 0.1% (tests/test_tpu_device.py:333).
+7. spotter — ``KeywordSpotter(KnnDtwRecognizer(device="cuda"))`` with
+             keywords zero..four x 20 templates: ``calibrate_threshold``
+             once, then ``spot`` over 64 synthetic 8-word streams of the
+             ten digits; the kernel count is reset just before and read
+             just after and must be > 0.  The score fields must match the
+             plain route's (``impl="scan"``) as in phase 6, and the events
+             must be equal except in streams with a witness near-tie.
+             Prints the keyword hit rate, the false alarms and
+             spotting_audio_seconds_per_sec (audio seconds over the median
+             of 3 synchronized ``scores`` passes), and one ``spot`` pass
+             broken into stages (pad + copy, features, kernel, copy back,
+             event extraction).
 
-Kernel timings are CUDA-event medians of 5 runs after a warm-up; the main
+Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
+plain versions' first timed run follows their checked one); the main
 path's alignments/s is the median of 3 synchronized host-clock passes
 after the checked one, and one 256-query chunk is broken into stages
-(pad + copy, features, DTW + argmin, copy back).  The last two
-lines of stdout are the kernel table and the run's result, each one JSON
-object; the line before them is ``nvidia-smi``'s name and power limit.
+(pad + copy, features, DTW + argmin, copy back).  Each kernel's bound is
+the larger of its fp32 operations over 67 TFLOP/s and its bytes (inputs
+read once, outputs written once) over 3.35 TB/s, counted from this run's
+inputs.  The last two lines of stdout are the kernel table and the run's
+result, each one JSON object; the lines before them are ``nvidia-smi``'s
+name and power limit.
 """
 
 from __future__ import annotations
@@ -68,17 +95,33 @@ MFCC_UTTERANCES = 256      # 256 x 198 = 50,688 frames, one main-path chunk
 N_QUERIES = 1024
 TEMPLATES_PER_WORD = 10
 MAIN_PASSES = 3            # timed classify passes after the checked one
+# spotting, against the 10 x 10 digit bank: (name, B, samples per stream,
+# streams).  "bench" is bench_all.py's spotting cell (3 connected digits,
+# one global VAD window, 598 frames); "long" is 60 s (5,998 frames) of
+# random digit sequences, whole-recording features as the spotter takes
+# them; "random" is 60 s of standard-normal features
+SPOT_CASES = [("bench", 64, 96_000, "connected"), ("long", 4, 960_000, "words"),
+              ("random", 4, 960_000, "normal")]
+SPOT_KEYWORDS = ["zero", "one", "two", "three", "four"]
+SPOT_TEMPLATES_PER_WORD = 20
+SPOT_STREAMS = 64
+SPOT_PASSES = 3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up."""
+def time_ms(fn, reps: int = REPS, warmup: bool = True) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up
+    (``warmup=False`` when the caller has just run ``fn``)."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -89,6 +132,12 @@ def time_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(ops: float, n_bytes: float) -> tuple[float, str]:
+    """(least ms the card could take, which of the two binds)."""
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def compare_dtw(got, want, rtol: float):
@@ -120,6 +169,7 @@ def dtw_phase(rng, dev, report):
 
     from dsp_tpu_torch.config import DtwConfig
     from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+    from dsp_tpu_torch.ops import dtw as tdtw
 
     f = 39
     for name, overrides, (b, k, t, u) in DTW_CASES:
@@ -133,13 +183,22 @@ def dtw_phase(rng, dev, report):
         want = kdtw.dtw_batch_plain(q, ql, bk, bl, cfg)
         rel, abs_err, fin = compare_dtw(got, want, 1e-4)
         ms = time_ms(lambda: kdtw.dtw_batch_fused_banded(q, ql, bk, bl, cfg))
-        plain_ms = time_ms(lambda: kdtw.dtw_batch_plain(q, ql, bk, bl, cfg))
+        plain_ms = time_ms(lambda: kdtw.dtw_batch_plain(q, ql, bk, bl, cfg),
+                           warmup=False)
+        # cells the DP must visit for these inputs: in length, band, window
+        cells = sum(int((tdtw.masked_cost(q[lo:lo + 32, :, :1] * 0, ql[lo:lo + 32],
+                                          bk[:, :, :1] * 0, bl, cfg) < 1e20).sum())
+                    for lo in range(0, b, 32))
+        # per cell: F squared differences (2F) and the DP's add and two mins
+        b_ms, b_by = bound(cells * (2 * f + 3), 4 * ((b * t + k * u) * f + b + k + b * k))
         print(f"dtw {name:9s} B={b} K={k} T={t} U={u}: finite {fin:.4f}  "
               f"max rel err {rel:.3e}  max abs err {abs_err:.3e}  "
-              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
+              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by}, {cells} cells)", flush=True)
         report["dtw"][name] = dict(shape=[b, k, t, u, f], finite_share=fin,
                                    max_rel_err=rel, max_abs_err=abs_err,
-                                   ms=ms, plain_ms=plain_ms)
+                                   ms=ms, plain_ms=plain_ms, cells=cells,
+                                   bound_ms=b_ms, bound_by=b_by)
 
 
 def small_phase(rng, dev, report):
@@ -205,14 +264,20 @@ def mfcc_phase(dev, report):
         if not torch.allclose(got, want, rtol=1e-3, atol=1e-3):
             fail(f"mfcc differs: max abs err {err.max().item():.3e}")
         ms = time_ms(lambda: kmf.mfcc_frames_fused(frames, cfg))
-        plain_ms = time_ms(lambda: kmf.mfcc_frames_plain(frames, cfg))
+        plain_ms = time_ms(lambda: kmf.mfcc_frames_plain(frames, cfg),
+                           warmup=False)
+        n, length, bins = frames.shape[0], cfg.frame_len, cfg.n_fft // 2 + 1
+        # window, two DFT GEMMs, power, mel GEMM, log, DCT GEMM, lifter
+        ops = n * (length + 4 * length * bins + 3 * bins + 2 * bins * cfg.n_mels
+                   + cfg.n_mels + 2 * cfg.n_mels * cfg.n_mfcc + cfg.n_mfcc)
+        b_ms, b_by = bound(ops, 4 * n * (length + cfg.n_mfcc))
         key = "use_energy" if use_energy else "default"
-        print(f"mfcc {key:10s} N={frames.shape[0]}: max abs err "
-              f"{err.max().item():.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms",
-              flush=True)
-        report["mfcc"][key] = dict(n_frames=frames.shape[0],
-                                   max_abs_err=err.max().item(), ms=ms,
-                                   plain_ms=plain_ms)
+        print(f"mfcc {key:10s} N={n}: max abs err "
+              f"{err.max().item():.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        report["mfcc"][key] = dict(n_frames=n, max_abs_err=err.max().item(),
+                                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by)
 
 
 def stage_ms(rec, signals, reps: int = 3) -> dict:
@@ -324,6 +389,242 @@ def main_phase(dev, report):
     return out["fused"]["launches"]
 
 
+def compare_spot(got, want, s_lens, b_lens, what: str) -> dict:
+    """Tie-aware comparison of two (norm [B,K,U], start [B,K,U]) fields
+    (numpy): identical BIG pattern; norms at rtol 2e-4 where the witnesses
+    agree; raw costs at 1e-4 where they differ, at under 0.1% of the valid
+    (stream, template, end column) sites."""
+    import numpy as np
+
+    (gn, gs), (wn, ws) = got, want
+    if gn.shape != wn.shape or gs.shape != ws.shape:
+        fail(f"{what}: shapes {gn.shape} vs {wn.shape}")
+    if np.isnan(gn).any():
+        fail(f"{what}: NaN in the kernel's norms")
+    if ((gn >= 1e20) != (wn >= 1e20)).any():
+        fail(f"{what}: BIG/finite pattern differs at {((gn >= 1e20) != (wn >= 1e20)).sum()} sites")
+    j = np.arange(gn.shape[-1])[None, None, :]
+    valid = np.broadcast_to(j < np.asarray(s_lens)[:, None, None], gn.shape)
+    agree, flip = valid & (gs == ws), valid & (gs != ws)
+    abs_err = np.abs(gn - wn)[agree]
+    rel = abs_err / np.maximum(np.abs(wn[agree]), 1e-30)
+    if ((abs_err > 2e-4 * np.abs(wn[agree]) + 1e-5)).any():
+        fail(f"{what}: norms differ where the witnesses agree: max rel err {rel.max():.3e}")
+    tl = np.maximum(np.asarray(b_lens), 1).astype(np.float64)[None, :, None]
+    raw_g, raw_w = gn * (tl + j - gs + 1), wn * (tl + j - ws + 1)
+    raw_rel = np.abs(raw_g - raw_w)[flip] / np.abs(raw_w[flip])
+    if (raw_rel > 1e-4).any():
+        fail(f"{what}: witnesses differ at {int(flip.sum())} sites, raw costs "
+             f"up to {raw_rel.max():.3e} apart (not near-ties)")
+    share = float(flip.sum() / max(1, valid.sum()))
+    if share >= 1e-3:
+        fail(f"{what}: witnesses differ at {share:.2e} of valid sites (>= 0.1%)")
+    return dict(n_sites=int(valid.sum()), max_abs_err=float(abs_err.max()) if abs_err.size else 0.0,
+                max_rel_err=float(rel.max()) if rel.size else 0.0,
+                witness_flips=int(flip.sum()), flip_share=share,
+                max_raw_rel_at_flips=float(raw_rel.max()) if raw_rel.size else 0.0)
+
+
+def spot_phase(rng, dev, report):
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import KnnDtwRecognizer
+    from dsp_tpu_torch import pipeline as pl
+    from dsp_tpu_torch.config import PipelineConfig
+    from dsp_tpu_torch.io import DIGITS, synth_connected, synth_spotting_stream, synth_word
+    from dsp_tpu_torch.kernels import spot_fused as ksp
+
+    cfg = PipelineConfig()
+    rec = KnnDtwRecognizer(cfg, device=dev)
+    for lab in DIGITS:
+        rec.enroll(lab, [synth_word(lab, i) for i in range(TEMPLATES_PER_WORD)])
+    bank, _ = rec.device_bank()
+    k, t, f = bank.feats.shape
+    tl = bank.length.cpu().numpy()
+    for name, b, n_samples, kind in SPOT_CASES:
+        u = 1 + (n_samples - cfg.frontend.frame_len) // cfg.frontend.hop_len
+        if kind == "normal":
+            streams = torch.from_numpy(rng.standard_normal((b, u, f), np.float32)).to(dev)
+            s_lens = torch.full((b,), u, dtype=torch.int32, device=dev)
+        else:
+            if kind == "connected":
+                sigs = [synth_connected([DIGITS[(i + w) % 10] for w in range(3)], 300 + i)
+                        for i in range(b)]
+            else:
+                sigs = [synth_spotting_stream(DIGITS[:5], DIGITS, 7000 + i, n_words=100)[0]
+                        for i in range(b)]
+            x, n = pl.pad_signals(sigs, n_samples, dev)
+            fcfg = dataclasses.replace(cfg, use_vad=kind == "connected")
+            feats = pl.extract_recording_features(x, n, fcfg, u)
+            streams, s_lens = feats.feats, feats.length
+        sl = s_lens.cpu().numpy()
+        cells = int(np.sum(np.minimum(np.maximum(sl, 1), u)[:, None]
+                           * np.maximum(tl, 1)[None, :]))
+        for squared in (False, True):
+            args = (streams, s_lens, bank.feats, bank.length)
+            got = ksp.subseq_dtw_fused(*args, squared=squared)
+            torch.cuda.synchronize()
+            want = ksp.subseq_dtw_batch_plain(*args, squared=squared)
+            key = f"{name}{'_squared' if squared else ''}"
+            cmp = compare_spot([x.cpu().numpy() for x in got],
+                               [x.cpu().numpy() for x in want], sl, tl, f"spot {key}")
+            plain_ms = time_ms(lambda: ksp.subseq_dtw_batch_plain(*args, squared=squared),
+                               warmup=False)
+            ms = time_ms(lambda: ksp.subseq_dtw_fused(*args, squared=squared))
+            # per cell: a F-long dot product (2F) and the DP's adds and min
+            b_ms, b_by = bound(cells * (2 * f + 3),
+                               4 * ((b * u + k * t) * f + b + k) + 8 * b * k * u)
+            print(f"spot {key:14s} B={b} K={k} T={t} U={u}: flips "
+                  f"{cmp['witness_flips']} ({cmp['flip_share']:.2e})  max abs err "
+                  f"{cmp['max_abs_err']:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+                  f"bound {b_ms:.4f} ms ({b_by}, {cells} cells)", flush=True)
+            report["spot"][key] = dict(shape=[b, k, t, u, f], cells=cells, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms,
+                                       bound_by=b_by, **cmp)
+
+
+def spot_stage_ms(spotter, signals, reps: int = 3) -> dict:
+    """Host-clock ms of the stages of one ``spot`` pass over ``signals``,
+    summed over the padded-length groups, each stage ended by a synchronize
+    (median of ``reps``): pad + copy to the card, whole-recording features,
+    the spotting kernel, the score fields back to the host, and event
+    extraction on the host.  Each group is one kernel call, as ``scores``
+    makes it while the group's [B, K, U] outputs fit its budget."""
+    import torch
+
+    from dsp_tpu_torch import pipeline as pl
+    from dsp_tpu_torch.ops import spot as sp
+
+    rec, cfg = spotter.rec, spotter.cfg
+    f = cfg.frontend
+    bank, ids = rec.device_bank()
+    ids = ids.cpu().numpy()
+    times = {k: [] for k in ("pad_h2d", "features", "spot", "d2h", "events")}
+    for _ in range(reps):
+        acc = dict.fromkeys(times, 0.0)
+        for pad_len, idxs in pl.group_by_padded_len(signals, cfg.max_samples).items():
+            t_max = max(1, 1 + (pad_len - f.frame_len) // f.hop_len)
+            t0 = time.perf_counter()
+            x, n = pl.pad_signals([signals[i] for i in idxs], pad_len, rec.device)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            feats = pl.extract_recording_features(x, n, cfg, t_max)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            norm, start = sp.subseq_dtw_batch(feats.feats, feats.length, bank.feats,
+                                              bank.length, squared=cfg.dtw.squared)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            norm, start = norm.cpu().numpy(), start.cpu().numpy()
+            lens = feats.length.cpu().numpy()
+            t4 = time.perf_counter()
+            for row, t_i in enumerate(lens):
+                sp.extract_events(norm[row, :, :t_i], start[row, :, :t_i],
+                                  spotter.threshold, labels=ids)
+            t5 = time.perf_counter()
+            for key, a, b in (("pad_h2d", t0, t1), ("features", t1, t2), ("spot", t2, t3),
+                              ("d2h", t3, t4), ("events", t4, t5)):
+                acc[key] += (b - a) * 1e3
+        for key, v in acc.items():
+            times[key].append(v)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def spotter_phase(seed: int, dev, report) -> int:
+    """The spotting main path; returns the kernel's launch count."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import KeywordSpotter, KnnDtwRecognizer
+    from dsp_tpu_torch.io import DIGITS, synth_spotting_stream, synth_word
+    from dsp_tpu_torch.kernels import spot_fused as ksp
+
+    rec = KnnDtwRecognizer(device=dev)
+    for lab in SPOT_KEYWORDS:
+        rec.enroll(lab, [synth_word(lab, i) for i in range(SPOT_TEMPLATES_PER_WORD)])
+    streams = [synth_spotting_stream(SPOT_KEYWORDS, DIGITS, seed * 1000 + i, n_words=8)
+               for i in range(SPOT_STREAMS)]
+    sigs = [sig for sig, _ in streams]
+    rec.device_bank()
+    torch.cuda.synchronize()
+
+    ksp.LAUNCHES = 0
+    rec.spot_threshold = KeywordSpotter(rec).calibrate_threshold()
+    spotter = KeywordSpotter(rec)
+    events = spotter.spot(sigs)
+    torch.cuda.synchronize()
+    launches = ksp.LAUNCHES
+    if launches == 0:
+        fail("the spotting path never launched the subsequence-DTW kernel")
+
+    plain = KeywordSpotter(rec, impl="scan")
+    thr_plain = plain.calibrate_threshold()
+    if abs(thr_plain - spotter.threshold) > 1e-4 * abs(thr_plain):
+        fail(f"calibrate_threshold {spotter.threshold} vs plain {thr_plain}")
+    fields, plain_fields = spotter.scores(sigs), plain.scores(sigs)
+    _, tl = rec.device_bank()[0]
+    tl = tl.cpu().numpy()
+    flips = sites = 0
+    for i, (got, want) in enumerate(zip(fields, plain_fields)):
+        cmp = compare_spot([x[None] for x in got], [x[None] for x in want],
+                           [got[0].shape[1]], tl, f"spotter stream {i}")
+        flips += cmp["witness_flips"]
+        sites += cmp["n_sites"]
+    plain_events = plain.spot(sigs, threshold=spotter.threshold)
+    def same_events(a, b):
+        return ([ev[:3] for ev in a] == [ev[:3] for ev in b]
+                and all(abs(x[3] - y[3]) <= 2e-4 * abs(y[3]) + 1e-5 for x, y in zip(a, b)))
+
+    differ = [i for i, (a, b) in enumerate(zip(events, plain_events))
+              if not same_events(a, b)]
+    unexplained = [i for i in differ
+                   if (fields[i][1] == plain_fields[i][1]).all()]
+    if unexplained:
+        fail(f"spotter events differ from the plain route's in streams "
+             f"{unexplained} with no witness near-tie")
+
+    hop = rec.cfg.frontend.hop_len
+    n_truth = hits = false_alarms = 0
+    for evs, (_, truth) in zip(events, streams):
+        spans = [(lab, s // hop, e // hop) for lab, s, e in truth]
+        n_truth += len(spans)
+        hits += sum(any(ev[0] == lab and s <= (ev[1] + ev[2]) / 2 <= e for ev in evs)
+                    for lab, s, e in spans)
+        false_alarms += sum(not any(ev[0] == lab and s <= (ev[1] + ev[2]) / 2 <= e
+                                    for lab, s, e in spans) for ev in evs)
+    if n_truth == 0 or hits == 0:
+        fail(f"the spotter found {hits} of {n_truth} keywords")
+
+    passes = []
+    for _ in range(SPOT_PASSES):
+        t0 = time.perf_counter()
+        spotter.scores(sigs)
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t0)
+    seconds = statistics.median(passes)
+    audio_s = sum(len(s) for s in sigs) / rec.cfg.frontend.sample_rate
+    rate = audio_s / seconds
+    stages = spot_stage_ms(spotter, sigs)
+    print(f"spotter: K={rec.n_templates} streams={len(sigs)} ({audio_s:.1f} s audio) "
+          f"threshold {spotter.threshold:.4f}  launches {launches}  keyword hits "
+          f"{hits}/{n_truth} ({hits / n_truth:.4f})  false alarms {false_alarms}  "
+          f"witness flips vs plain {flips} of {sites}  streams with other events "
+          f"{len(differ)}", flush=True)
+    print(f"spotting_audio_seconds_per_sec {rate:.1f} on {'; '.join(report['nvidia_smi'])} "
+          f"(median {seconds:.4f} s of {SPOT_PASSES} scores passes); one spot pass, ms: "
+          + "  ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+    report["spotter"] = dict(
+        n_templates=rec.n_templates, n_streams=len(sigs), audio_seconds=audio_s,
+        threshold=spotter.threshold, launches=launches, keyword_hits=hits,
+        keywords=n_truth, hit_rate=hits / n_truth, false_alarms=false_alarms,
+        witness_flips_vs_plain=flips, witness_sites=sites,
+        streams_with_other_events=len(differ),
+        pass_seconds=passes, spotting_audio_seconds_per_sec=rate, stage_ms=stages,
+        events=[[list(ev) for ev in evs] for evs in events])
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -358,30 +659,34 @@ def main() -> int:
           f"(nvcc {'ran' if _build.build_seconds is not None else 'skipped: cached'})",
           flush=True)
 
-    report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "nvidia_smi": smi}
+    report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
+              "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, dev, report)
     mfcc_phase(dev, report)
     small_phase(rng, dev, report)
     launches = main_phase(dev, report)
+    spot_phase(rng, dev, report)
+    launches["spot_subseq"] = spotter_phase(args.seed, dev, report)
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")
 
+    def entry(name, source, replaces, measured):
+        # no single PyTorch call computes banded DTW, the MFCC chain or
+        # subsequence DTW, so library_ms is null for all three
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": measured["max_abs_err"], "ms": measured["ms"],
+                "plain_ms": measured["plain_ms"], "bound_ms": measured["bound_ms"],
+                "bound_by": measured["bound_by"], "library_ms": None}
+
     kernels = [
-        {"name": "dtw_banded", "route": "cuda",
-         "source": "dsp_tpu_torch/csrc/dtw_banded.cu",
-         "replaces": "dsp_tpu/kernels/dtw_fused_banded.py:415",
-         "launches": launches["dtw_banded"],
-         "max_abs_err": report["dtw"]["default"]["max_abs_err"],
-         "ms": report["dtw"]["default"]["ms"],
-         "plain_ms": report["dtw"]["default"]["plain_ms"]},
-        {"name": "mfcc_fused", "route": "cuda",
-         "source": "dsp_tpu_torch/csrc/mfcc_fused.cu",
-         "replaces": "dsp_tpu/kernels/mfcc_pallas.py:123",
-         "launches": launches["mfcc_fused"],
-         "max_abs_err": report["mfcc"]["default"]["max_abs_err"],
-         "ms": report["mfcc"]["default"]["ms"],
-         "plain_ms": report["mfcc"]["default"]["plain_ms"]},
+        entry("dtw_banded", "dsp_tpu_torch/csrc/dtw_banded.cu",
+              "dsp_tpu/kernels/dtw_fused_banded.py:415", report["dtw"]["default"]),
+        entry("mfcc_fused", "dsp_tpu_torch/csrc/mfcc_fused.cu",
+              "dsp_tpu/kernels/mfcc_pallas.py:123", report["mfcc"]["default"]),
+        entry("spot_subseq", "dsp_tpu_torch/csrc/spot_subseq.cu",
+              "dsp_tpu/kernels/spot_fused.py:231", report["spot"]["bench"]),
     ]
     report["kernels"] = kernels
     if args.out is not None:

@@ -1,18 +1,22 @@
 """dsp_tpu_torch — the isolated-word recognizer of ``dsp_tpu`` in PyTorch/CUDA.
 
 A port of the JAX package's main path (VAD -> MFCC + delta/delta-delta ->
-all-pairs windowed Sakoe-Chiba DTW -> argmin / kNN vote) with two
-hand-written CUDA kernels for NVIDIA Hopper: banded DTW
-(``csrc/dtw_banded.cu``) and the fused MFCC front-end
-(``csrc/mfcc_fused.cu``).  Each has a plain PyTorch version beside it,
-which CPU tensors take.  This package imports neither jax nor ``dsp_tpu``.
+all-pairs windowed Sakoe-Chiba DTW -> argmin / kNN vote) and of its
+offline keyword spotter (subsequence DTW), with three hand-written CUDA
+kernels for NVIDIA Hopper: banded DTW (``csrc/dtw_banded.cu``), the fused
+MFCC front-end (``csrc/mfcc_fused.cu``) and subsequence DTW
+(``csrc/spot_subseq.cu``).  Each has a plain PyTorch version beside it,
+which CPU tensors take.  Entry points run on the card (their ``device``
+defaults to ``"cuda"``) unless the caller asks for the CPU.  This package
+imports neither jax nor ``dsp_tpu``.
 
 Quick start::
 
-    from dsp_tpu_torch import KnnDtwRecognizer
-    rec = KnnDtwRecognizer(device="cuda")
+    from dsp_tpu_torch import KeywordSpotter, KnnDtwRecognizer
+    rec = KnnDtwRecognizer()                 # on the card
     rec.enroll("yes", [signal1, signal2])
     label = rec.recognize(test_signal)
+    events = KeywordSpotter(rec).spot([long_recording])
 """
 
 import torch
@@ -36,6 +40,7 @@ from dsp_tpu_torch.config import (  # noqa: E402
     VqConfig,
 )
 from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer  # noqa: E402
+from dsp_tpu_torch.models.spotter import KeywordSpotter  # noqa: E402
 from dsp_tpu_torch.pipeline import (  # noqa: E402
     Features,
     classify_features,
@@ -45,6 +50,6 @@ from dsp_tpu_torch.pipeline import (  # noqa: E402
 
 __all__ = [
     "FrontendConfig", "VadConfig", "DtwConfig", "HmmConfig", "VqConfig",
-    "PipelineConfig", "KnnDtwRecognizer", "Features",
+    "PipelineConfig", "KnnDtwRecognizer", "KeywordSpotter", "Features",
     "extract_features", "classify_features", "recognize_batch",
 ]

@@ -1,11 +1,13 @@
 """Deterministic synthetic isolated-word utterances.
 
-A copy of ``DIGITS``, ``_fnv``, ``_word_params`` and ``synth_word`` from
+A copy of ``DIGITS``, ``_fnv``, ``_word_params``, ``synth_word``,
+``synth_connected`` and ``synth_spotting_stream`` from
 ``dsp_tpu/io/dataset.py``, byte-equal in output
 (``tests/test_torch_config.py``), so the port can make its test and smoke
 signals on a host without jax.  Each "word" is a fixed pattern of tone
 segments with an amplitude envelope, per-utterance tempo and pitch
-jitter, noise, and random leading silence.
+jitter, noise, and random leading silence; connected recordings and
+spotting streams butt such words together with silence gaps.
 """
 
 from __future__ import annotations
@@ -64,3 +66,66 @@ def synth_word(label: str, seed: int, sr: int = 16000,
     x[lead:end] = speech[: end - lead]
     x += noise * rng.standard_normal(max_samples)
     return x.astype(np.float32)
+
+
+def synth_connected(labels, seed: int, sr: int = 16000,
+                    gap_ms=(250.0, 600.0), lead_ms=(150.0, 400.0),
+                    noise: float = 0.005) -> np.ndarray:
+    """Synthesize one CONNECTED recording of several words -> float32 [N].
+
+    Words from :func:`synth_word` separated by silence gaps drawn from
+    ``gap_ms`` (defaults comfortably above the splitter's
+    ``VadConfig.max_silence_frames`` 150 ms merge threshold, so each word
+    is a separate segment).  Deterministic in (labels, seed).
+    """
+    rng = np.random.default_rng(
+        _fnv(("|".join(labels) + f"|{int(seed)}").encode()) % (2**32))
+    pieces = [np.zeros(int(rng.uniform(*lead_ms) / 1000.0 * sr))]
+    for i, lab in enumerate(labels):
+        w = synth_word(lab, seed * 101 + i, sr,
+                       max_samples=int(2.0 * sr), noise=0.0)
+        nz = np.nonzero(np.abs(w) > 0)[0]
+        w = w[nz[0]: nz[-1] + 1] if len(nz) else w   # strip synth padding
+        pieces.append(w)
+        pieces.append(np.zeros(int(rng.uniform(*gap_ms) / 1000.0 * sr)))
+    x = np.concatenate(pieces)
+    x = x + noise * rng.standard_normal(len(x))
+    return x.astype(np.float32)
+
+
+def synth_spotting_stream(keywords, vocab, seed: int, n_words: int = 8,
+                          sr: int = 16000, gap_ms=(120.0, 300.0),
+                          lead_ms=(150.0, 400.0), noise: float = 0.003):
+    """One continuous stream of random words; keyword spans annotated.
+
+    Draws ``n_words`` words uniformly from ``vocab`` (which should
+    contain the ``keywords`` plus distractors), butts them together
+    with short gaps (well below any VAD merge threshold — the stream is
+    NOT meant to be segmentable), and returns ``(signal float32 [N],
+    events)`` where events are ``(label, start_sample, end_sample)``
+    for each KEYWORD occurrence.  Deterministic in (keywords, vocab,
+    seed).
+    """
+    kw = set(keywords)
+    rng = np.random.default_rng(
+        _fnv(("|".join(sorted(kw)) + "|" + "|".join(vocab)
+              + f"|{int(seed)}").encode()) % (2**32))
+    pieces = [np.zeros(int(rng.uniform(*lead_ms) / 1000.0 * sr))]
+    pos = len(pieces[0])
+    events = []
+    for i in range(n_words):
+        lab = vocab[int(rng.integers(len(vocab)))]
+        w = synth_word(lab, seed * 977 + i, sr,
+                       max_samples=int(2.0 * sr), noise=0.0)
+        nz = np.nonzero(np.abs(w) > 0)[0]
+        w = w[nz[0]: nz[-1] + 1] if len(nz) else w
+        if lab in kw:
+            events.append((lab, pos, pos + len(w)))
+        pieces.append(w)
+        pos += len(w)
+        g = np.zeros(int(rng.uniform(*gap_ms) / 1000.0 * sr))
+        pieces.append(g)
+        pos += len(g)
+    x = np.concatenate(pieces)
+    x = x + noise * rng.standard_normal(len(x))
+    return x.astype(np.float32), events

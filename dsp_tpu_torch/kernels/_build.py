@@ -39,6 +39,7 @@ _SIGNATURES = {
                     _I, _F, _I, _I, _P), _I),
     "mfcc_fused": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                     _F, _I, _P), _I),
+    "spot_subseq": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
 }
 
 _lib = None

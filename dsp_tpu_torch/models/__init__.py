@@ -1,5 +1,6 @@
 """Recognizer models of the port."""
 
 from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer
+from dsp_tpu_torch.models.spotter import KeywordSpotter
 
-__all__ = ["KnnDtwRecognizer"]
+__all__ = ["KnnDtwRecognizer", "KeywordSpotter"]

@@ -29,13 +29,15 @@ def _not_ported(what: str, where: str):
 class KnnDtwRecognizer:
     """Template-bank recognizer: enroll utterances, classify by DTW.
 
-    ``device`` is where features, the bank and all matching live; it is
-    never chosen automatically.  ``mesh``, ``matcher`` other than
+    ``device`` is where features, the bank and all matching live: the
+    card (``"cuda"``) unless the caller passes ``"cpu"``, with no probe
+    and no fallback, so without a card the first tensor moved there
+    raises.  ``mesh``, ``matcher`` other than
     ``"dtw"`` and ``bucketed`` belong to later slices of the port.
     """
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(), k: int = 1,
-                 device: str | torch.device = "cpu", mesh=None,
+                 device: str | torch.device = "cuda", mesh=None,
                  matcher: str = "dtw", bucketed: bool = False):
         if mesh is not None:
             raise _not_ported("mesh (bank-sharded classify)",
@@ -181,7 +183,7 @@ class KnnDtwRecognizer:
     @classmethod
     def from_arrays(cls, bank, lens, label_ids, labels,
                     cfg: PipelineConfig = PipelineConfig(), k: int = 1,
-                    device: str | torch.device = "cpu") -> "KnnDtwRecognizer":
+                    device: str | torch.device = "cuda") -> "KnnDtwRecognizer":
         """A recognizer over an existing bank: numpy ``bank`` [K, U, F],
         ``lens`` [K], ``label_ids`` [K] and the label strings.  The shared
         core of :meth:`load`; takes the JAX package's arrays as they are."""
@@ -199,7 +201,7 @@ class KnnDtwRecognizer:
 
     @classmethod
     def load(cls, path: str, cfg: PipelineConfig = PipelineConfig(),
-             device: str | torch.device = "cpu") -> "KnnDtwRecognizer":
+             device: str | torch.device = "cuda") -> "KnnDtwRecognizer":
         """Read a bank saved by either package."""
         data = np.load(path, allow_pickle=False)
         check_frontend_signature(data, cfg, path)

@@ -1,1 +1,1 @@
-"""Plain PyTorch ops of the port: front-end, VAD, DTW."""
+"""Plain PyTorch ops of the port: front-end, VAD, DTW, spotting."""

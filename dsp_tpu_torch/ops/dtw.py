@@ -49,23 +49,34 @@ def pairwise_sq_cost(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _minplus_combine(e1, e2):
-    """Compose D -> min(A2, (min(A1, D + c1)) + c2); e1 is the earlier op."""
-    a1, c1 = e1
-    a2, c2 = e2
-    return torch.minimum(a2, a1 + c2), c1 + c2
+    """Compose D -> min(A2, (min(A1, D + c1)) + c2); e1 is the earlier op.
+
+    An optional third member is a payload (the spotting DP's start
+    witness) that follows the winning term; a tie keeps the later op's
+    (``take2 = a2 <= a1 + c2``), as ``dsp_tpu/ops/spot.py:_combine``."""
+    a1, c1, *s1 = e1
+    a2, c2, *s2 = e2
+    via1 = a1 + c2
+    out = (torch.minimum(a2, via1), c1 + c2)
+    if s1:
+        out += (torch.where(a2 <= via1, s2[0], s1[0]),)
+    return out
 
 
-def _minplus_scan(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Inclusive Hillis-Steele scan of (a, c) along the last axis -> A part."""
+def _minplus_scan(a: torch.Tensor, c: torch.Tensor,
+                  s: torch.Tensor | None = None):
+    """Inclusive Hillis-Steele scan of (a, c[, s]) along the last axis ->
+    the A part, or (A, payload) when a payload ``s`` is given."""
+    elems = (a, c) if s is None else (a, c, s)
     u = a.shape[-1]
-    s = 1
-    while s < u:
-        na, nc = _minplus_combine((a[..., :-s], c[..., :-s]),
-                                  (a[..., s:], c[..., s:]))
-        a = torch.cat([a[..., :s], na], dim=-1)
-        c = torch.cat([c[..., :s], nc], dim=-1)
-        s *= 2
-    return a
+    step = 1
+    while step < u:
+        new = _minplus_combine(tuple(e[..., :-step] for e in elems),
+                               tuple(e[..., step:] for e in elems))
+        elems = tuple(torch.cat([e[..., :step], n], dim=-1)
+                      for e, n in zip(elems, new))
+        step *= 2
+    return elems[0] if s is None else (elems[0], elems[2])
 
 
 def _start_column(d_prev: torch.Tensor, first_row: bool) -> torch.Tensor:

@@ -119,7 +119,7 @@ def matrices_np(cfg: FrontendConfig):
 
 @functools.lru_cache(maxsize=8)
 def make_matrices(cfg: FrontendConfig = FrontendConfig(),
-                  device: str | torch.device = "cpu") -> FrontendMatrices:
+                  device: str | torch.device = "cuda") -> FrontendMatrices:
     """Front-end constants as contiguous float32 tensors on ``device``.
 
     Cached per (config, device): the tensors are read-only constants."""

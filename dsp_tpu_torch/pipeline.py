@@ -3,7 +3,8 @@
 Padded signals [B, max_samples] -> VAD endpoints -> MFCC + delta/delta-delta
 features [B, max_frames, 39] -> all-pairs banded DTW against the template
 bank -> argmin or kNN vote.  Everything runs on the device the signals lie
-on; no function picks a device by itself.
+on; the entry points that take host signals put them on the card unless
+the caller asks for the CPU, with no probe and no fallback.
 
 Static-shape discipline as in the JAX package: signals are padded to
 ``cfg.max_samples`` and variable lengths travel as integer tensors next to
@@ -33,7 +34,7 @@ class Features(NamedTuple):
     length: torch.Tensor   # [B] valid frame count (int32)
 
 
-def pad_signals(signals, max_samples: int, device="cpu"):
+def pad_signals(signals, max_samples: int, device: str | torch.device = "cuda"):
     """Host list of 1-D signals -> (padded [B, max_samples] f32, lengths [B] i32)."""
     out = np.zeros((len(signals), max_samples), dtype=np.float32)
     lens = np.zeros(len(signals), dtype=np.int32)
@@ -89,25 +90,62 @@ def _finalize_window(c: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
     return Features(feats, length.to(torch.int32))
 
 
+def _endpoints(signals: torch.Tensor, n_samples: torch.Tensor,
+               cfg: PipelineConfig):
+    """Frame window [start, end) per signal: the VAD's, or the whole signal
+    with ``use_vad=False``."""
+    f = cfg.frontend
+    n_samples = n_samples.to(torch.int64)
+    if cfg.use_vad:
+        start, end, _ = tvad.detect_endpoints(signals, f, cfg.vad, n_samples)
+        return start, end
+    end = torch.clamp(1 + torch.div(n_samples - f.frame_len, f.hop_len,
+                                    rounding_mode="floor"), min=0)
+    return torch.zeros_like(n_samples), end
+
+
 def extract_features(signals: torch.Tensor, n_samples: torch.Tensor,
                      cfg: PipelineConfig = PipelineConfig()) -> Features:
     """Padded signal batch [B, max_samples] + true lengths [B] -> Features.
 
     With ``FrontendConfig.impl="pallas"`` the cepstra come from the fused
     MFCC kernel (plain version for CPU tensors)."""
-    f = cfg.frontend
-    n_samples = n_samples.to(torch.int64)
     c = _cepstra(signals, cfg)
-    if cfg.use_vad:
-        start, end, _ = tvad.detect_endpoints(signals, f, cfg.vad, n_samples)
-    else:
-        start = torch.zeros_like(n_samples)
-        end = torch.clamp(1 + torch.div(n_samples - f.frame_len, f.hop_len,
-                                        rounding_mode="floor"), min=0)
-    return _finalize_window(c, start, end, cfg)
+    return _finalize_window(c, *_endpoints(signals, n_samples, cfg), cfg)
 
 
-def extract_signals(signals, cfg: PipelineConfig, device="cpu") -> Features:
+def extract_recording_features(signals: torch.Tensor, n_samples: torch.Tensor,
+                               cfg: PipelineConfig, t_max: int) -> Features:
+    """Padded recordings [B, N] -> whole-recording Features [B, t_max, F].
+
+    One global VAD window (first onset to last offset) per recording, or
+    the whole recording with ``use_vad=False``; CMN over that window and
+    deltas as always.  ``t_max`` must cover the recording's frame count.
+    The cepstra come from the plain MFCC whatever ``FrontendConfig.impl``
+    says, as in the JAX package."""
+    f = cfg.frontend
+    if f.feature_type == "lpcc":
+        raise NotImplementedError(
+            "feature_type='lpcc' is not ported yet (ROADMAP.md queue 1, "
+            "item 14)")
+    c = fe.mfcc(signals, f, fe.make_matrices(f, signals.device))
+    return _finalize_window(c, *_endpoints(signals, n_samples, cfg), cfg, t_max)
+
+
+def group_by_padded_len(signals, quantum: int) -> dict:
+    """Signal indices grouped by padded length ``ceil(len / quantum) *
+    quantum``, shortest first, stable; one batch per group."""
+    order = np.argsort([len(np.asarray(s)) for s in signals], kind="stable")
+    groups: dict = {}
+    for i in order:
+        n_len = max(1, len(np.asarray(signals[i])))
+        pad_len = quantum * -(-n_len // quantum)
+        groups.setdefault(pad_len, []).append(int(i))
+    return groups
+
+
+def extract_signals(signals, cfg: PipelineConfig,
+                    device: str | torch.device = "cuda") -> Features:
     """Host list of 1-D signals -> Features on ``device``."""
     x, n = pad_signals(signals, cfg.max_samples, device)
     return extract_features(x, n, cfg)

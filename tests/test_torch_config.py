@@ -15,12 +15,13 @@ import numpy as np
 import pytest
 
 import dsp_tpu.config as jcfg
+from dsp_tpu.io import dataset as jax_dataset
 from dsp_tpu.io.dataset import synth_word as jax_synth_word
 from dsp_tpu.ops.frontend import _matrices_np
 from dsp_tpu.window_plan import plan_window as jax_plan_window
 
 import dsp_tpu_torch.config as tcfg
-from dsp_tpu_torch.io import synth_word
+from dsp_tpu_torch.io import synth_connected, synth_spotting_stream, synth_word
 from dsp_tpu_torch.ops.frontend import make_matrices, matrices_np
 from dsp_tpu_torch.window_plan import plan_window
 
@@ -83,10 +84,30 @@ def test_synth_word_byte_equal():
                                          noise=0.01).tobytes()
 
 
+@pytest.mark.parametrize("labels,seed", [(["one", "two", "three"], 300),
+                                         (["zero"], 7), (["nine", "yes"], 0)])
+def test_synth_connected_byte_equal(labels, seed):
+    a = synth_connected(labels, seed)
+    b = jax_dataset.synth_connected(labels, seed)
+    assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("seed,n_words", [(0, 8), (11, 6), (5000, 3)])
+def test_synth_spotting_stream_byte_equal(seed, n_words):
+    keywords = ["zero", "one", "two", "three", "four"]
+    vocab = keywords + ["five", "six", "seven", "eight", "nine"]
+    a, ev_a = synth_spotting_stream(keywords, vocab, seed, n_words=n_words)
+    b, ev_b = jax_dataset.synth_spotting_stream(keywords, vocab, seed,
+                                                n_words=n_words)
+    assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert ev_a == ev_b
+
+
 def test_port_imports_neither_jax_nor_dsp_tpu():
     root = Path(__file__).resolve().parent.parent
     code = ("import sys, dsp_tpu_torch, dsp_tpu_torch.kernels.dtw_fused_banded, "
-            "dsp_tpu_torch.kernels.mfcc_fused, dsp_tpu_torch.io; "
+            "dsp_tpu_torch.kernels.mfcc_fused, dsp_tpu_torch.kernels.spot_fused, "
+            "dsp_tpu_torch.ops.spot, dsp_tpu_torch.models.spotter, dsp_tpu_torch.io; "
             "bad = {m.split('.')[0] for m in sys.modules} & {'jax', 'dsp_tpu'}; "
             "print(sorted(bad)); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,

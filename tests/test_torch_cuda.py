@@ -8,6 +8,11 @@ false (decided in the fixture, not at import).  On a machine with a card:
 Tolerances as in chip_smoke.py: DTW rtol 1e-4 with an identical BIG/finite
 pattern (the kernel sums (a-b)^2 directly, the plain version expands
 |a|^2+|b|^2-2ab); MFCC rtol/atol 1e-3 (tests/test_pallas_mfcc.py).
+Spotting: identical BIG/finite pattern; where the start witnesses agree,
+norms at rtol 2e-4; where they differ (a near-tie that the kernel's
+sequential sums and the scan's tree round apart), the raw costs
+norm * (tl + span) agree to 1e-4 relative and such sites stay under 0.1%
+(tests/test_tpu_device.py:333).
 """
 
 import dataclasses
@@ -21,7 +26,9 @@ from dsp_tpu_torch.config import DtwConfig, FrontendConfig, PipelineConfig
 from dsp_tpu_torch.io import synth_word
 from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
 from dsp_tpu_torch.kernels import mfcc_fused as kmf
+from dsp_tpu_torch.kernels import spot_fused as ksp
 from dsp_tpu_torch.ops import frontend as fe
+from dsp_tpu_torch.ops import spot as tsp
 
 pytestmark = pytest.mark.cuda
 
@@ -166,3 +173,115 @@ def test_pipeline_routes_cuda_tensors_through_both_kernels(dev):
     plain = tpl.dtw_pairs(feats.feats, feats.length, bank.feats, bank.length,
                           DtwConfig(impl="scan"))
     _check_dtw(dists, plain)
+
+
+def _spot_inputs(dev, b, k, u, t, f=39, seed=0):
+    rng = np.random.default_rng(seed)
+    streams = torch.from_numpy(rng.standard_normal((b, u, f), np.float32)).to(dev)
+    bank = torch.from_numpy(rng.standard_normal((k, t, f), np.float32)).to(dev)
+    sl = rng.integers(max(1, u // 3), u + 1, b).astype(np.int32)
+    tl = rng.integers(max(1, t // 4), t + 1, k).astype(np.int32)
+    sl[0], tl[0] = u, t
+    return streams, torch.from_numpy(sl).to(dev), bank, torch.from_numpy(tl).to(dev)
+
+
+def _check_spot(got, want, s_lens, b_lens):
+    gn, gs = (x.cpu().numpy() for x in got)
+    wn, ws = (x.cpu().numpy() for x in want)
+    assert gn.shape == wn.shape and not np.isnan(gn).any()
+    assert ((gn >= 1e20) == (wn >= 1e20)).all()
+    u = gn.shape[-1]
+    j = np.arange(u)[None, None, :]
+    valid = np.broadcast_to(j < s_lens.cpu().numpy()[:, None, None], gn.shape)
+    agree = valid & (gs == ws)
+    np.testing.assert_allclose(np.where(agree, gn, 0.0), np.where(agree, wn, 0.0),
+                               rtol=2e-4, atol=1e-5)
+    flip = valid & (gs != ws)
+    tl = b_lens.cpu().numpy().astype(np.float64)[None, :, None]
+    raw_g = gn * (tl + j - gs + 1)
+    raw_w = wn * (tl + j - ws + 1)
+    np.testing.assert_allclose(raw_g[flip], raw_w[flip], rtol=1e-4)
+    assert flip.sum() <= 1e-3 * valid.sum()
+
+
+@pytest.mark.parametrize("squared", [False, True])
+@pytest.mark.parametrize("shape", [(3, 4, 57, 23, 5), (5, 7, 130, 40, 13),
+                                   (4, 6, 300, 198, 39), (2, 3, 2500, 60, 39)])
+def test_spot_kernel_matches_plain(dev, shape, squared):
+    b, k, u, t, f = shape
+    args = _spot_inputs(dev, b, k, u, t, f)
+    before = ksp.LAUNCHES
+    got = ksp.subseq_dtw_fused(*args, squared=squared)
+    torch.cuda.synchronize()
+    assert ksp.LAUNCHES == before + 1
+    _check_spot(got, ksp.subseq_dtw_batch_plain(*args, squared=squared),
+                args[1], args[3])
+
+
+def test_spot_kernel_zero_cost_tie_and_short_lengths(dev):
+    stream = torch.ones((1, 12, 3), device=dev)
+    tmpl = torch.ones((1, 4, 3), device=dev)
+    one = torch.tensor([12], dtype=torch.int32, device=dev)
+    four = torch.tensor([4], dtype=torch.int32, device=dev)
+    _, start = ksp.subseq_dtw_fused(stream, one, tmpl, four)
+    assert start[0, 0].tolist() == [0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8]
+    args = _spot_inputs(dev, 4, 4, 20, 9, 7, seed=3)
+    args[1][:] = torch.tensor([1, 2, 20, 5], dtype=torch.int32)
+    args[3][:] = torch.tensor([1, 9, 2, 4], dtype=torch.int32)
+    _check_spot(ksp.subseq_dtw_fused(*args), ksp.subseq_dtw_batch_plain(*args),
+                args[1], args[3])
+
+
+def test_spot_auto_takes_the_kernel_at_any_stream_length(dev):
+    for u in (5, 200, 6000):
+        args = _spot_inputs(dev, 2, 3, u, 40, seed=u)
+        before = ksp.LAUNCHES
+        got = tsp.subseq_dtw_batch(*args)
+        torch.cuda.synchronize()
+        assert ksp.LAUNCHES == before + 1
+        _check_spot(got, tsp.subseq_dtw_batch(*args, impl="scan"), args[1], args[3])
+
+
+def test_spot_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    streams, sl, bank, tl = _spot_inputs(dev, 2, 2, 30, 10)
+    with pytest.raises(ValueError):
+        ksp.subseq_dtw_fused(streams, sl.long(), bank, tl)
+    with pytest.raises(ValueError):
+        ksp.subseq_dtw_fused(streams.double(), sl, bank, tl)
+    with pytest.raises(ValueError):
+        ksp.subseq_dtw_fused(streams.transpose(1, 2).contiguous().transpose(1, 2),
+                             sl, bank, tl)
+    one = torch.ones((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="fit"):
+        ksp.subseq_dtw_fused(streams, sl, torch.zeros((1, 1100, 39), device=dev), one)
+    # F = 128 at 600 frames needs ~335 KB of shared memory: the launch is
+    # refused, and the refusal does not leak into the next launch's check
+    wide = torch.zeros((2, 30, 128), device=dev)
+    with pytest.raises(RuntimeError, match="spot_subseq"):
+        ksp.subseq_dtw_fused(wide, sl, torch.zeros((1, 600, 128), device=dev), one)
+    _check_spot(ksp.subseq_dtw_fused(streams, sl, bank, tl),
+                ksp.subseq_dtw_batch_plain(streams, sl, bank, tl), sl, tl)
+    norm, start = ksp.subseq_dtw_fused(streams[:0], sl[:0], bank, tl)
+    assert norm.shape == start.shape == (0, 2, 30)
+
+
+def test_keyword_spotter_on_the_card_matches_the_plain_route(dev):
+    from dsp_tpu_torch import KeywordSpotter, KnnDtwRecognizer
+    from dsp_tpu_torch.io import synth_spotting_stream
+
+    rec = KnnDtwRecognizer(PipelineConfig(), device=dev)
+    for lab in ("zero", "one"):
+        rec.enroll(lab, [synth_word(lab, i) for i in range(3)])
+    sigs = [synth_spotting_stream(["zero", "one"], ["zero", "one", "three", "four"],
+                                  seed=s, n_words=5)[0] for s in (2, 7)]
+    before = ksp.LAUNCHES
+    spotter = KeywordSpotter(rec)
+    thr = spotter.calibrate_threshold()
+    got = spotter.scores(sigs)
+    assert ksp.LAUNCHES > before
+    plain = KeywordSpotter(rec, impl="scan")
+    assert thr == pytest.approx(plain.calibrate_threshold(), rel=1e-4)
+    for (gn, gs), (wn, ws) in zip(got, plain.scores(sigs)):
+        agree = gs == ws
+        np.testing.assert_allclose(gn[agree], wn[agree], rtol=2e-4, atol=1e-5)
+        assert (~agree).sum() <= 1e-3 * agree.size

@@ -24,6 +24,7 @@ from dsp_tpu_torch import pipeline as tpl
 from dsp_tpu_torch.config import DtwConfig, FrontendConfig
 from dsp_tpu_torch.io import synth_word
 from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+from dsp_tpu_torch.ops import frontend as tfe
 
 LABELS = ["zero", "one", "two"]
 BANK = {lab: [synth_word(lab, i) for i in range(2)] for lab in LABELS}
@@ -82,7 +83,7 @@ def test_extract_features_without_vad_matches_jax():
 
 
 def test_recognize_batch_matches_jax(jax_rec, port_rec):
-    x, n = tpl.pad_signals(QUERIES, 32000)
+    x, n = tpl.pad_signals(QUERIES, 32000, device="cpu")
     jbank, jids = jax_rec.device_bank()
     want_ids, want_d = jpl.recognize_batch(jnp.asarray(x.numpy()), jnp.asarray(n.numpy()),
                                            jax_rec.mats, jbank, jids, jax_rec.cfg)
@@ -123,7 +124,7 @@ def test_knn_vote_matches_jax():
 
 def test_knn_classify_matches_jax():
     jrec = JaxRecognizer(JPipelineConfig(), k=3)
-    prec = KnnDtwRecognizer(PipelineConfig(), k=3)
+    prec = KnnDtwRecognizer(PipelineConfig(), k=3, device="cpu")
     for lab in LABELS:
         jrec.enroll(lab, BANK[lab])
         prec.enroll(lab, BANK[lab])
@@ -133,7 +134,7 @@ def test_knn_classify_matches_jax():
 def test_jax_bank_loads_in_port(jax_rec, tmp_path):
     path = str(tmp_path / "jax_bank.npz")
     jax_rec.save(path)
-    rec = KnnDtwRecognizer.load(path, PipelineConfig())
+    rec = KnnDtwRecognizer.load(path, PipelineConfig(), device="cpu")
     assert rec.labels == jax_rec.labels and rec.n_templates == jax_rec.n_templates
     assert rec.classify_batch(QUERIES) == jax_rec.classify_batch(QUERIES)
 
@@ -155,11 +156,13 @@ def test_port_bank_loads_in_jax(port_rec, tmp_path):
 def test_from_arrays_equals_enrolled(port_rec):
     bank, lens = np.stack(port_rec._bank_feats), np.asarray(port_rec._bank_lens)
     rec = KnnDtwRecognizer.from_arrays(bank, lens, port_rec._bank_label_ids,
-                                       port_rec.labels, PipelineConfig())
+                                       port_rec.labels, PipelineConfig(),
+                                       device="cpu")
     assert rec.classify_batch(QUERIES) == port_rec.classify_batch(QUERIES)
     with pytest.raises(ValueError, match="bank shape"):
         KnnDtwRecognizer.from_arrays(bank[:, :10], lens, port_rec._bank_label_ids,
-                                     port_rec.labels, PipelineConfig())
+                                     port_rec.labels, PipelineConfig(),
+                                     device="cpu")
 
 
 def test_frontend_signature_mismatch_refused(port_rec, tmp_path):
@@ -167,7 +170,7 @@ def test_frontend_signature_mismatch_refused(port_rec, tmp_path):
     port_rec.save(path)
     other = PipelineConfig(frontend=FrontendConfig(cmn=True))
     with pytest.raises(ValueError, match="different front-end"):
-        KnnDtwRecognizer.load(path, other)
+        KnnDtwRecognizer.load(path, other, device="cpu")
 
 
 def test_auto_on_cpu_runs_the_scan():
@@ -189,18 +192,33 @@ def test_unported_dtw_impls_raise(impl):
         tpl.dtw_pairs(q, lens, q, lens, DtwConfig(impl=impl))
 
 
+def test_default_device_is_the_card():
+    rec = KnnDtwRecognizer(PipelineConfig())
+    assert rec.device.type == "cuda"
+    if torch.cuda.is_available():
+        return
+    # no card: the first tensor moved to the default device raises, with
+    # no fallback to the CPU
+    for call in (lambda: rec.enroll("one", BANK["one"]),
+                 lambda: tpl.pad_signals(QUERIES[:1], 32000),
+                 lambda: tpl.extract_signals(QUERIES[:1], PipelineConfig()),
+                 lambda: tfe.make_matrices(FrontendConfig())):
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
+
+
 def test_unported_recognizer_options_raise(port_rec):
     for kw in ({"matcher": "ltw"}, {"matcher": "cascade"}, {"bucketed": True},
                {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            KnnDtwRecognizer(PipelineConfig(), **kw)
+            KnnDtwRecognizer(PipelineConfig(), device="cpu", **kw)
     for call in (lambda: port_rec.classify_batch(QUERIES, reject=True),
                  port_rec.calibrate_rejection, lambda: port_rec.classify_connected([]),
                  port_rec.condense):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     cfg = dataclasses.replace(PipelineConfig(), dtw=DtwConfig(impl="bogus"))
-    rec = KnnDtwRecognizer(cfg)
+    rec = KnnDtwRecognizer(cfg, device="cpu")
     rec.enroll("one", BANK["one"])
     with pytest.raises(ValueError, match="impl"):
         rec.classify_batch(QUERIES[:1])
