@@ -54,6 +54,39 @@ each of which raises on failure (non-zero exit):
              of 3 synchronized ``scores`` passes), and one ``spot`` pass
              broken into stages (pad + copy, features, kernel, copy back,
              event extraction).
+8. fused   — the unbanded closed-form DTW kernel against its plain version
+             at the main-path shape (B=256, K=100, T=U=198, F=39, seeded
+             lengths in [20, 198]), squared off and on, and against the
+             banded kernel's unbanded mode on the same inputs: identical
+             BIG/finite pattern, allclose at rtol 1e-4 / atol 1e-5
+             (tests/test_pallas_dtw.py:103).
+9. wavefront — the wavefront DP kernel against its plain version on the
+             masked cost of the same shape (25,600 pairs, 4.0 GB) under the
+             default config, ``band_frac=None`` and the pure band
+             (``max_warp_scale=None``): identical BIG pattern, rtol 1e-5
+             (each cell is one exact min and one add, so the bits should
+             agree); the masked-cost build is timed beside the kernel.  Then
+             ``dtw_pairs_pallas`` on a cascade-shaped batch (256 queries x 8
+             candidates) against the plain DP and the paired scan.
+10. matchers — the recognizer's matcher, rejection and evaluation path at
+             full width: a bank of 10 digits x 10 templates, then per route
+             (default: kernel 1; ``band_frac=None``: kernel 1 unbanded;
+             ``impl="fused"``: kernel 4; ``impl="pallas"``: kernel 5;
+             ``matcher="cascade"``: kernel 5 in the rerank; ``matcher="ltw"``:
+             one GEMM; ``bucketed=True``: kernel 1) ``calibrate_rejection``
+             -> ``evaluate`` of 1,024 digit queries plus 3 out-of-vocabulary
+             words x 32 with ``reject=True`` -> ``classify_nbest`` of one
+             256-query chunk.  Launch counts are reset just before each
+             route and read just after; each kernel route must launch its
+             kernel.  Labels of ``fused`` must equal the unbanded route's and
+             labels of ``pallas`` the default route's except at near-ties
+             (plain top-2 within 1e-4 relative), bucketed distances must
+             equal the default route's, the cascade's rerank and the LTW
+             distances must match their plain versions on one chunk, and the
+             n-best top-1 must equal the label.  Prints per route the
+             accuracy, the OOV reject rate, the threshold, queries/s (median
+             of 3 synchronized ``classify_batch(reject=True)`` passes) and
+             the launches per pass.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -106,6 +139,24 @@ SPOT_KEYWORDS = ["zero", "one", "two", "three", "four"]
 SPOT_TEMPLATES_PER_WORD = 20
 SPOT_STREAMS = 64
 SPOT_PASSES = 3
+MAIN_SHAPE = (256, 100, 198, 198)     # (B, K, T, U) of one main-path chunk
+FUSED_CASES = [("default", {}), ("squared", {"squared": True})]   # band_frac=None
+WAVEFRONT_CASES = [("default", {}), ("unbanded", {"band_frac": None}),
+                   ("pure_band", {"max_warp_scale": None})]
+CASCADE_SHORTLIST = 8
+# (name, DtwConfig overrides, recognizer keywords, the kernel it must launch)
+MATCHER_ROUTES = [
+    ("default", {}, {}, "dtw_banded"),
+    ("unbanded", {"band_frac": None}, {}, "dtw_banded"),
+    ("fused", {"impl": "fused", "band_frac": None}, {}, "dtw_fused"),
+    ("pallas", {"impl": "pallas"}, {}, "dtw_wavefront"),
+    ("cascade", {}, {"matcher": "cascade"}, "dtw_wavefront"),
+    ("ltw", {}, {"matcher": "ltw"}, None),
+    ("bucketed", {}, {"bucketed": True}, "dtw_banded"),
+]
+OOV_WORDS = ["papa", "quebec", "victor"]    # tests/test_reject.py:23
+OOV_PER_WORD = 32
+MATCHER_PASSES = 3
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -140,9 +191,9 @@ def bound(ops: float, n_bytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def compare_dtw(got, want, rtol: float):
-    """BIG/finite pattern must match; finite entries allclose at rtol.
-    Returns (max relative error, max absolute error, finite share)."""
+def compare_dtw(got, want, rtol: float, atol: float = 0.0):
+    """BIG/finite pattern must match; finite entries allclose at rtol (and
+    atol).  Returns (max relative error, max absolute error, finite share)."""
     import numpy as np
 
     got, want = got.cpu().numpy(), want.cpu().numpy()
@@ -158,13 +209,26 @@ def compare_dtw(got, want, rtol: float):
         return 0.0, 0.0, 0.0
     abs_err = np.abs(got[fin] - want[fin])
     rel = abs_err / np.abs(want[fin])
-    if (rel > rtol).any():
-        fail(f"dtw distances differ: max rel err {rel.max():.3e} > {rtol}")
+    if (abs_err > atol + rtol * np.abs(want[fin])).any():
+        fail(f"dtw distances differ: max rel err {rel.max():.3e} > {rtol} "
+             f"(max abs err {abs_err.max():.3e}, atol {atol})")
     return float(rel.max()), float(abs_err.max()), float(fin.mean())
 
 
-def dtw_phase(rng, dev, report):
+def dtw_inputs(rng, dev, b: int, k: int, t: int, u: int, f: int = 39):
+    """Standard-normal queries [B,T,F] and bank [K,U,F] with seeded lengths
+    in [20, T] and [20, U], on the card."""
     import numpy as np
+    import torch
+
+    q = torch.from_numpy(rng.standard_normal((b, t, f), np.float32)).to(dev)
+    bk = torch.from_numpy(rng.standard_normal((k, u, f), np.float32)).to(dev)
+    ql = torch.from_numpy(rng.integers(20, t + 1, b).astype(np.int32)).to(dev)
+    bl = torch.from_numpy(rng.integers(20, u + 1, k).astype(np.int32)).to(dev)
+    return q, ql, bk, bl
+
+
+def dtw_phase(rng, dev, report):
     import torch
 
     from dsp_tpu_torch.config import DtwConfig
@@ -174,10 +238,7 @@ def dtw_phase(rng, dev, report):
     f = 39
     for name, overrides, (b, k, t, u) in DTW_CASES:
         cfg = DtwConfig(**overrides)
-        q = torch.from_numpy(rng.standard_normal((b, t, f), np.float32)).to(dev)
-        bk = torch.from_numpy(rng.standard_normal((k, u, f), np.float32)).to(dev)
-        ql = torch.from_numpy(rng.integers(20, t + 1, b).astype(np.int32)).to(dev)
-        bl = torch.from_numpy(rng.integers(20, u + 1, k).astype(np.int32)).to(dev)
+        q, ql, bk, bl = dtw_inputs(rng, dev, b, k, t, u, f)
         got = kdtw.dtw_batch_fused_banded(q, ql, bk, bl, cfg)
         torch.cuda.synchronize()
         want = kdtw.dtw_batch_plain(q, ql, bk, bl, cfg)
@@ -625,6 +686,253 @@ def spotter_phase(seed: int, dev, report) -> int:
     return launches
 
 
+def fused_phase(rng, dev, report):
+    """Kernel 4 (unbanded closed form) against its plain version and the
+    banded kernel's unbanded mode at the main-path shape."""
+    import torch
+
+    from dsp_tpu_torch.config import DtwConfig
+    from dsp_tpu_torch.kernels import dtw_fused as kfu
+    from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+
+    b, k, t, u = MAIN_SHAPE
+    f = 39
+    args = dtw_inputs(rng, dev, b, k, t, u, f)
+    # unbanded: the DP visits every cell inside the lengths
+    cells = int((args[1].long()[:, None] * args[3].long()[None, :]).sum())
+    for name, overrides in FUSED_CASES:
+        cfg = DtwConfig(band_frac=None, **overrides)
+        got = kfu.dtw_batch_fused(*args, cfg)
+        torch.cuda.synchronize()
+        want = kfu.dtw_batch_fused_plain(*args, cfg)
+        rel, abs_err, fin = compare_dtw(got, want, 1e-4, atol=1e-5)
+        rel1, abs1, _ = compare_dtw(got, kdtw.dtw_batch_fused_banded(*args, cfg),
+                                    1e-4, atol=1e-5)
+        ms = time_ms(lambda: kfu.dtw_batch_fused(*args, cfg))
+        plain_ms = time_ms(lambda: kfu.dtw_batch_fused_plain(*args, cfg), warmup=False)
+        # per cell: an F-long dot product (2F) and the DP's add and two mins
+        b_ms, b_by = bound(cells * (2 * f + 3), 4 * ((b * t + k * u) * f + b + k + b * k))
+        print(f"fused {name:8s} B={b} K={k} T={t} U={u}: finite {fin:.4f}  max rel err "
+              f"{rel:.3e}  max abs err {abs_err:.3e} (vs kernel 1 unbanded {rel1:.3e} / "
+              f"{abs1:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by}, {cells} cells)", flush=True)
+        report["fused"][name] = dict(shape=[b, k, t, u, f], finite_share=fin,
+                                     max_rel_err=rel, max_abs_err=abs_err,
+                                     vs_banded_unbanded=dict(max_rel_err=rel1,
+                                                             max_abs_err=abs1),
+                                     ms=ms, plain_ms=plain_ms, cells=cells,
+                                     bound_ms=b_ms, bound_by=b_by)
+
+
+def wavefront_phase(rng, dev, report):
+    """Kernel 5 (wavefront DP over a masked cost) against its plain version
+    at the main-path shape, and its paired entry on a cascade-shaped batch."""
+    import torch
+
+    from dsp_tpu_torch.config import DtwConfig
+    from dsp_tpu_torch.kernels import dtw_pallas as kwf
+    from dsp_tpu_torch.ops import dtw as tdtw
+
+    b, k, t, u = MAIN_SHAPE
+    q, ql, bk, bl = dtw_inputs(rng, dev, b, k, t, u)
+    p = b * k
+    la = ql[:, None].expand(b, k).reshape(-1).contiguous()
+    lb = bl[None, :].expand(b, k).reshape(-1).contiguous()
+    # the kernel reads the cells i < la, j < lb of each pair, once
+    cells = int((la.long() * lb.long()).sum())
+    for name, overrides in WAVEFRONT_CASES:
+        cfg = DtwConfig(**overrides)
+
+        def build():
+            return tdtw.masked_cost(q, ql, bk, bl, cfg).reshape(p, t, u)
+
+        cost = build()
+        torch.cuda.synchronize()
+        build_ms = time_ms(build, warmup=False)
+        got = kwf.dtw_from_cost_pallas(cost, la, lb)
+        torch.cuda.synchronize()
+        want = kwf.dtw_from_cost_plain(cost, la, lb)
+        rel, abs_err, fin = compare_dtw(got, want, 1e-5)
+        bit_equal = bool(torch.equal(got, want))
+        ms = time_ms(lambda: kwf.dtw_from_cost_pallas(cost, la, lb))
+        plain_ms = time_ms(lambda: kwf.dtw_from_cost_plain(cost, la, lb), warmup=False)
+        # per cell an add and two mins; bytes: those cells, lengths in, distances out
+        b_ms, b_by = bound(3 * cells, 4 * cells + 12 * p)
+        print(f"wavefront {name:9s} P={p} T={t} U={u}: finite {fin:.4f}  bit-equal "
+              f"{bit_equal}  max rel err {rel:.3e}  kernel {ms:.3f} ms  plain "
+              f"{plain_ms:.3f} ms  masked-cost build {build_ms:.3f} ms "
+              f"({cost.numel() * 4 / 1e9:.2f} GB)  bound {b_ms:.4f} ms ({b_by}, "
+              f"{cells} cells read of {p * t * u})", flush=True)
+        report["wavefront"][name] = dict(
+            shape=[p, t, u], finite_share=fin, bit_equal=bit_equal, max_rel_err=rel,
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, cost_build_ms=build_ms,
+            cost_bytes=cost.numel() * 4, cells_read=cells, bound_ms=b_ms, bound_by=b_by)
+        del cost
+    cfg = DtwConfig()
+    m = CASCADE_SHORTLIST
+    cand = torch.from_numpy(rng.integers(0, k, b * m)).to(dev)
+    a, la2 = q.repeat_interleave(m, dim=0), ql.repeat_interleave(m)
+    tb, lb2 = bk[cand], bl[cand]
+    got = kwf.dtw_pairs_pallas(a, tb, la2, lb2, cfg)
+    torch.cuda.synchronize()
+    cost = tdtw.masked_cost_pairs(a, la2, tb, lb2, cfg)
+    rel, abs_err, _ = compare_dtw(got, kwf.dtw_from_cost_plain(cost, la2, lb2), 1e-5)
+    rel_s, abs_s, _ = compare_dtw(got, tdtw.dtw_pairs_scan(a, la2, tb, lb2, cfg), 1e-5)
+    ms = time_ms(lambda: kwf.dtw_pairs_pallas(a, tb, la2, lb2, cfg))
+    print(f"wavefront pairs {b}x{m}: max rel err {rel:.3e} (vs paired scan "
+          f"{rel_s:.3e})  dtw_pairs_pallas (cost build + kernel) {ms:.3f} ms", flush=True)
+    report["wavefront"]["cascade_pairs"] = dict(
+        pairs=[b, m], max_rel_err=rel, max_abs_err=abs_err,
+        vs_paired_scan=dict(max_rel_err=rel_s, max_abs_err=abs_s), ms=ms)
+
+
+def near_ties(dists):
+    """Rows whose two smallest distances lie within 1e-4 relative."""
+    import numpy as np
+
+    top2 = np.sort(dists, axis=1)[:, :2]
+    return np.abs(top2[:, 1] - top2[:, 0]) <= 1e-4 * np.abs(top2[:, 0])
+
+
+def matchers_phase(dev, report) -> dict:
+    """The matcher, rejection and evaluation path per route; returns each
+    route's launch counts from its checked run."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import KnnDtwRecognizer
+    from dsp_tpu_torch import pipeline as pl
+    from dsp_tpu_torch.config import DtwConfig, PipelineConfig
+    from dsp_tpu_torch.io import DIGITS, synth_word
+    from dsp_tpu_torch.kernels import dtw_fused as kfu
+    from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+    from dsp_tpu_torch.kernels import dtw_pallas as kwf
+    from dsp_tpu_torch.kernels import mfcc_fused as kmf
+    from dsp_tpu_torch.kernels import spot_fused as ksp
+    from dsp_tpu_torch.models.knn_dtw import NO_MATCH, REJECT
+    from dsp_tpu_torch.ops import dtw as tdtw
+
+    modules = {"dtw_banded": kdtw, "mfcc_fused": kmf, "spot_subseq": ksp,
+               "dtw_fused": kfu, "dtw_wavefront": kwf}
+
+    def reset():
+        for mod in modules.values():
+            mod.LAUNCHES = 0
+
+    def counts():
+        return {name: mod.LAUNCHES for name, mod in modules.items()}
+
+    base = KnnDtwRecognizer(device=dev)
+    for lab in DIGITS:
+        base.enroll(lab, [synth_word(lab, i) for i in range(TEMPLATES_PER_WORD)])
+    arrays = (np.stack(base._bank_feats), base._bank_lens, base._bank_label_ids,
+              base.labels)
+    queries, truth = synth_batch(N_QUERIES, 1000)
+    corpus = {lab: [x for x, y in zip(queries, truth) if y == lab] for lab in DIGITS}
+    for w in OOV_WORDS:
+        corpus[w] = [synth_word(w, 7000 + i) for i in range(OOV_PER_WORD)]
+    sigs = [x for xs in corpus.values() for x in xs]
+    n_oov = OOV_PER_WORD * len(OOV_WORDS)
+    out, launches_of = {}, {}
+    for name, dtw_kw, rec_kw, kernel in MATCHER_ROUTES:
+        cfg = dataclasses.replace(PipelineConfig(), dtw=DtwConfig(**dtw_kw))
+        rec = KnnDtwRecognizer.from_arrays(*arrays, cfg, device=dev, **rec_kw)
+        rec.device_bank()
+        torch.cuda.synchronize()
+        reset()
+        thr = rec.calibrate_rejection()
+        result = rec.evaluate(corpus, reject=True)
+        nbest = rec.classify_nbest(sigs[:256], n=3)
+        torch.cuda.synchronize()
+        launches = counts()
+        if kernel is not None and launches[kernel] == 0:
+            fail(f"matchers route {name!r} never launched {kernel}: {launches}")
+        if kernel is None and any(launches.values()):
+            fail(f"matchers route {name!r} launched a kernel: {launches}")
+        launches_of[name] = launches
+        labels, dists = rec.classify_batch(sigs, return_distances=True)
+        top1 = [row[0][0] if row else NO_MATCH for row in nbest]
+        if top1 != labels[:256]:
+            fail(f"matchers route {name!r}: n-best top-1 differs from the label in "
+                 f"{sum(a != b for a, b in zip(top1, labels))} of 256 queries")
+        if not np.isfinite(dists).all() or dists.shape[0] != len(sigs):
+            fail(f"matchers route {name!r}: distances {dists.shape}, non-finite")
+        passes = []
+        for _ in range(MATCHER_PASSES):
+            reset()
+            t0 = time.perf_counter()
+            rec.classify_batch(sigs, reject=True)
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t0)
+        per_pass = {key: v for key, v in counts().items() if v}
+        seconds = statistics.median(passes)
+        conf = result["confusion"]
+        in_vocab = sum(conf.get(lab, {}).get(lab, 0) for lab in DIGITS) / (len(sigs) - n_oov)
+        oov_reject = conf.get(REJECT, {}).get(REJECT, 0) / n_oov
+        print(f"matchers {name:8s}: threshold {thr:.4f}  accuracy {result['accuracy']:.4f} "
+              f"(in-vocabulary {in_vocab:.4f}, OOV rejected {oov_reject:.4f})  "
+              f"{len(sigs) / seconds:.1f} queries/s (median {seconds:.4f} s of "
+              f"{MATCHER_PASSES} passes over {len(sigs)})  launches per pass {per_pass}  "
+              f"checked run {({k: v for k, v in launches.items() if v})}", flush=True)
+        out[name] = dict(labels=labels, dists=dists, rec=rec)
+        report["matchers"][name] = dict(
+            threshold=thr, accuracy=result["accuracy"], in_vocab_accuracy=in_vocab,
+            oov_reject_rate=oov_reject, n_queries=len(sigs), pass_seconds=passes,
+            queries_per_s=len(sigs) / seconds, launches=launches,
+            launches_per_pass=per_pass)
+    if report["matchers"]["default"]["in_vocab_accuracy"] < 0.9:
+        fail(f"matchers: default route accuracy {report['matchers']['default']}")
+    for name, ref in (("fused", "unbanded"), ("pallas", "default")):
+        diff = np.array([a != b for a, b in zip(out[name]["labels"], out[ref]["labels"])])
+        if (diff & ~near_ties(out[ref]["dists"])).any():
+            fail(f"matchers route {name!r}: {int(diff.sum())} labels differ from route "
+                 f"{ref!r} outside near-ties")
+        rel, abs_err, _ = compare_dtw(torch.from_numpy(out[name]["dists"]),
+                                      torch.from_numpy(out[ref]["dists"]), 1e-4, atol=1e-5)
+        report["matchers"][name].update(reference=ref, label_mismatches=int(diff.sum()),
+                                        max_rel_err_vs_reference=rel)
+    rel, abs_err, _ = compare_dtw(torch.from_numpy(out["bucketed"]["dists"]),
+                                  torch.from_numpy(out["default"]["dists"]), 1e-6)
+    bit_equal = bool(np.array_equal(out["bucketed"]["dists"], out["default"]["dists"]))
+    if out["bucketed"]["labels"] != out["default"]["labels"]:
+        fail("matchers route 'bucketed': labels differ from the default route's")
+    report["matchers"]["bucketed"].update(max_rel_err_vs_default=rel, bit_equal=bit_equal)
+    # one chunk: the cascade's rerank and the LTW distances against their plain versions
+    chunk = sigs[:256]
+    x, n = pl.pad_signals(chunk, PipelineConfig().max_samples, dev)
+    feats = pl.extract_features(x, n, PipelineConfig())
+    rec = out["cascade"]["rec"]
+    bank, ids = rec.device_bank()
+    got_ids, d, cand = pl.classify_features_cascade(feats, bank, ids, rec.shortlist)
+    flat = cand.reshape(-1)
+    want_d = tdtw.dtw_pairs_scan(feats.feats.repeat_interleave(cand.shape[1], 0),
+                                 feats.length.repeat_interleave(cand.shape[1]),
+                                 bank.feats[flat], bank.length[flat],
+                                 DtwConfig()).reshape(d.shape)
+    rel_c, _, _ = compare_dtw(d, want_d, 1e-5)
+    want_ids = ids[torch.take_along_dim(cand, want_d.argmin(1, keepdim=True), 1)[:, 0]]
+    ties = near_ties(want_d.cpu().numpy())
+    if ((got_ids != want_ids).cpu().numpy() & ~ties).any():
+        fail("matchers route 'cascade': labels differ from the plain rerank's")
+    ltw_ids, ltw_d = pl.classify_features_ltw(feats, bank, ids)
+    cpu = lambda f: pl.Features(f.feats.cpu(), f.length.cpu())   # noqa: E731
+    cpu_ids, cpu_d = pl.classify_features_ltw(cpu(feats), cpu(bank), ids.cpu())
+    q = torch.cat([feats.feats.cpu(), bank.feats.cpu()])
+    mag = float((q * q).sum((1, 2)).max()) / (64 * q.shape[-1])
+    ltw_err = float((ltw_d.cpu() - cpu_d).abs().max())
+    if ltw_err > 1e-5 * float(cpu_d.abs().max()) + 8 * float(np.finfo(np.float32).eps) * mag:
+        fail(f"matchers route 'ltw': distances differ from the CPU's by {ltw_err:.3e}")
+    ltw_diff = (ltw_ids.cpu() != cpu_ids).numpy() & ~near_ties(cpu_d.numpy())
+    if ltw_diff.any():
+        fail(f"matchers route 'ltw': {int(ltw_diff.sum())} labels differ from the CPU's")
+    print(f"matchers checks: bucketed vs default distances bit-equal {bit_equal} "
+          f"(max rel err {rel:.3e}); cascade rerank vs paired scan max rel err "
+          f"{rel_c:.3e}; ltw vs CPU max abs err {ltw_err:.3e}", flush=True)
+    report["matchers"]["cascade"]["rerank_max_rel_err_vs_scan"] = rel_c
+    report["matchers"]["ltw"]["max_abs_err_vs_cpu"] = ltw_err
+    return launches_of
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -660,7 +968,7 @@ def main() -> int:
           flush=True)
 
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
-              "nvidia_smi": smi}
+              "fused": {}, "wavefront": {}, "matchers": {}, "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, dev, report)
     mfcc_phase(dev, report)
@@ -668,12 +976,17 @@ def main() -> int:
     launches = main_phase(dev, report)
     spot_phase(rng, dev, report)
     launches["spot_subseq"] = spotter_phase(args.seed, dev, report)
+    fused_phase(rng, dev, report)
+    wavefront_phase(rng, dev, report)
+    routes = matchers_phase(dev, report)
+    launches["dtw_fused"] = routes["fused"]["dtw_fused"]
+    launches["dtw_wavefront"] = routes["pallas"]["dtw_wavefront"]
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")
 
     def entry(name, source, replaces, measured):
-        # no single PyTorch call computes banded DTW, the MFCC chain or
-        # subsequence DTW, so library_ms is null for all three
+        # no single PyTorch call computes banded, unbanded or wavefront DTW,
+        # the MFCC chain or subsequence DTW, so library_ms is null for all
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": measured["max_abs_err"], "ms": measured["ms"],
@@ -687,6 +1000,10 @@ def main() -> int:
               "dsp_tpu/kernels/mfcc_pallas.py:123", report["mfcc"]["default"]),
         entry("spot_subseq", "dsp_tpu_torch/csrc/spot_subseq.cu",
               "dsp_tpu/kernels/spot_fused.py:231", report["spot"]["bench"]),
+        entry("dtw_fused", "dsp_tpu_torch/csrc/dtw_fused.cu",
+              "dsp_tpu/kernels/dtw_fused.py:191", report["fused"]["default"]),
+        entry("dtw_wavefront", "dsp_tpu_torch/csrc/dtw_wavefront.cu",
+              "dsp_tpu/kernels/dtw_pallas.py:126", report["wavefront"]["default"]),
     ]
     report["kernels"] = kernels
     if args.out is not None:

@@ -1,11 +1,14 @@
 """dsp_tpu_torch — the isolated-word recognizer of ``dsp_tpu`` in PyTorch/CUDA.
 
 A port of the JAX package's main path (VAD -> MFCC + delta/delta-delta ->
-all-pairs windowed Sakoe-Chiba DTW -> argmin / kNN vote) and of its
-offline keyword spotter (subsequence DTW), with three hand-written CUDA
-kernels for NVIDIA Hopper: banded DTW (``csrc/dtw_banded.cu``), the fused
-MFCC front-end (``csrc/mfcc_fused.cu``) and subsequence DTW
-(``csrc/spot_subseq.cu``).  Each has a plain PyTorch version beside it,
+all-pairs windowed Sakoe-Chiba DTW -> argmin / kNN vote), its matchers
+(DTW, linear time warp, cascade), out-of-vocabulary rejection and
+evaluation, and its offline keyword spotter (subsequence DTW), with five
+hand-written CUDA kernels for NVIDIA Hopper: banded DTW
+(``csrc/dtw_banded.cu``), the fused MFCC front-end (``csrc/mfcc_fused.cu``),
+subsequence DTW (``csrc/spot_subseq.cu``), unbanded closed-form DTW
+(``csrc/dtw_fused.cu``) and the wavefront DP over a masked cost
+(``csrc/dtw_wavefront.cu``).  Each has a plain PyTorch version beside it,
 which CPU tensors take.  Entry points run on the card (their ``device``
 defaults to ``"cuda"``) unless the caller asks for the CPU.  This package
 imports neither jax nor ``dsp_tpu``.
@@ -16,6 +19,8 @@ Quick start::
     rec = KnnDtwRecognizer()                 # on the card
     rec.enroll("yes", [signal1, signal2])
     label = rec.recognize(test_signal)
+    rec.calibrate_rejection()
+    label = rec.recognize(other_signal, reject=True)   # "<reject>" if OOV
     events = KeywordSpotter(rec).spot([long_recording])
 """
 

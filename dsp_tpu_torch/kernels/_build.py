@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``*.cu`` under ``dsp_tpu_torch/csrc/`` is compiled by ``nvcc`` into
+Every ``*.cu`` under ``dsp_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` process, all started together, and the objects are linked into
 one shared library with a plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/libdsp_tpu_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o build/<hash>/<name>.o csrc/<name>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/libdsp_tpu_torch_<hash>.so build/<hash>/*.o
 
 No ``-use_fast_math``: it would change ``sqrtf`` and the f32 band rule of
 the DTW kernel.  The library goes into ``build/`` at the repository root
@@ -27,8 +30,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +43,8 @@ _SIGNATURES = {
     "mfcc_fused": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                     _F, _I, _P), _I),
     "spot_subseq": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
+    "dtw_fused": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
+    "dtw_wavefront": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
 }
 
 _lib = None
@@ -79,20 +84,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = Path(tempfile.mkdtemp(prefix=out.stem + "_", dir=BUILD_DIR))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+
+    def run(cmds):
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in cmds]
+        outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+        bad = [f"{' '.join(cmd)}\n{text}" for cmd, text, rc in outs if rc != 0]
+        if bad:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(bad))
+
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        cus = [p for p in _sources() if p.suffix == ".cu"]
+        run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(objs / f"{p.stem}.o"), str(p)]
+             for p in cus])
+        run([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+              *(str(objs / f"{p.stem}.o") for p in cus)]])
         os.replace(tmp, out)     # atomic: concurrent builders never see a partial file
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+        shutil.rmtree(objs, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -1,7 +1,9 @@
-"""Plain all-pairs DTW in PyTorch (port of ``dsp_tpu/ops/dtw.py``).
+"""Plain DTW in PyTorch (port of ``dsp_tpu/ops/dtw.py``): all pairs
+(:func:`dtw_batch`) and paired (:func:`dtw_pairs_scan`).
 
-This is the port's CPU path and, on the card, the oracle that the banded
-DTW kernel (kernels/dtw_fused_banded.py) is held to.
+This is the port's CPU path and, on the card, the oracle that the DTW
+kernels are held to (kernels/dtw_fused_banded.py; the wavefront kernel of
+kernels/dtw_pallas.py reads :func:`masked_cost` / :func:`masked_cost_pairs`).
 
 * **Local cost.**  Euclidean cost expands to ``|a|^2 + |b|^2 - 2 a.b``;
   the cross term is one batched fp32 GEMM over every (query, template)
@@ -196,26 +198,47 @@ def window_valid(t: int, u: int, len_a: torch.Tensor, len_b: torch.Tensor,
     return (j >= off_i) & (j < off_i + w)
 
 
-def masked_cost(queries: torch.Tensor, q_lens: torch.Tensor,
-                bank: torch.Tensor, bank_lens: torch.Tensor,
-                cfg: DtwConfig = DtwConfig()) -> torch.Tensor:
-    """All-pairs local cost [B, K, T, U] with length, band and window masks."""
-    sq = pairwise_sq_cost(queries[:, None], bank[None])
+def _mask_cost(sq: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
+               cfg: DtwConfig) -> torch.Tensor:
+    """Squared costs [*P, T, U] + lengths broadcastable to P -> local cost
+    (sqrt unless ``cfg.squared``) with BIG at cells outside the lengths,
+    the integer band and the window schedule."""
     cost = sq if cfg.squared else torch.sqrt(sq)
     t, u = cost.shape[-2:]
     dev = cost.device
-    la = q_lens.to(torch.int32)[:, None]                      # [B, 1]
-    lb = bank_lens.to(torch.int32)[None, :]                   # [1, K]
+    la, lb = la.to(torch.int32), lb.to(torch.int32)
     j = torch.arange(u, dtype=torch.int32, device=dev)
     invalid = (j >= lb[..., None, None]).expand(cost.shape)
     if cfg.band_frac is not None:
         i = torch.arange(t, dtype=torch.int32, device=dev)[:, None]
         lam1 = torch.clamp(la - 1, min=1)[..., None, None]
         lbm1 = (lb - 1)[..., None, None]
-        r2 = band_r2(la, lb, cfg.band_frac)                   # [B, K]
+        r2 = band_r2(la, lb, cfg.band_frac)                   # [*P]
         invalid = invalid | (torch.abs(j * lam1 - i * lbm1) > r2[..., None, None])
         invalid = invalid | ~window_valid(t, u, la, lb, r2, cfg)
     return torch.where(invalid, torch.full_like(cost, BIG), cost)
+
+
+def masked_cost(queries: torch.Tensor, q_lens: torch.Tensor,
+                bank: torch.Tensor, bank_lens: torch.Tensor,
+                cfg: DtwConfig = DtwConfig()) -> torch.Tensor:
+    """All-pairs local cost [B, K, T, U] with length, band and window masks."""
+    return _mask_cost(pairwise_sq_cost(queries[:, None], bank[None]),
+                      q_lens[:, None], bank_lens[None, :], cfg)
+
+
+def masked_cost_pairs(a: torch.Tensor, len_a: torch.Tensor,
+                      b: torch.Tensor, len_b: torch.Tensor,
+                      cfg: DtwConfig = DtwConfig()) -> torch.Tensor:
+    """Paired local cost: a [P,T,F] x b [P,U,F] -> [P,T,U], pair p of
+    a[p] against b[p], with the masks of :func:`masked_cost`."""
+    return _mask_cost(pairwise_sq_cost(a, b), len_a, len_b, cfg)
+
+
+def _dp_for(cfg: DtwConfig):
+    if cfg.slope not in (None, "itakura"):
+        raise ValueError(f"unknown DtwConfig.slope {cfg.slope!r}")
+    return dtw_from_cost_itakura if cfg.slope == "itakura" else dtw_from_cost
 
 
 def dtw_batch(queries: torch.Tensor, q_lens: torch.Tensor,
@@ -225,9 +248,7 @@ def dtw_batch(queries: torch.Tensor, q_lens: torch.Tensor,
 
     Queries run in chunks so that at most ``_MAX_COST_CELLS`` cost cells
     exist at once; chunking changes no result."""
-    if cfg.slope not in (None, "itakura"):
-        raise ValueError(f"unknown DtwConfig.slope {cfg.slope!r}")
-    dp = dtw_from_cost_itakura if cfg.slope == "itakura" else dtw_from_cost
+    dp = _dp_for(cfg)
     b, t, _ = queries.shape
     k, u, _ = bank.shape
     step = max(1, _MAX_COST_CELLS // max(1, k * t * u))
@@ -237,4 +258,21 @@ def dtw_batch(queries: torch.Tensor, q_lens: torch.Tensor,
         cost = masked_cost(queries[lo:lo + step], ql, bank, bank_lens, cfg)
         outs.append(dp(cost, ql[:, None].to(torch.int64),
                        bank_lens[None, :].to(torch.int64)))
+    return torch.cat(outs, dim=0)
+
+
+def dtw_pairs_scan(a: torch.Tensor, len_a: torch.Tensor,
+                   b: torch.Tensor, len_b: torch.Tensor,
+                   cfg: DtwConfig = DtwConfig()) -> torch.Tensor:
+    """Paired DTW: a [P,T,F] vs b [P,U,F] -> distances [P] (the JAX
+    package's ``dtw_distance`` per pair), in chunks of at most
+    ``_MAX_COST_CELLS`` cost cells."""
+    dp = _dp_for(cfg)
+    p, t, _ = a.shape
+    step = max(1, _MAX_COST_CELLS // max(1, t * b.shape[1]))
+    outs = [torch.zeros((0,), dtype=a.dtype, device=a.device)]
+    for lo in range(0, p, step):
+        la, lb = len_a[lo:lo + step], len_b[lo:lo + step]
+        cost = masked_cost_pairs(a[lo:lo + step], la, b[lo:lo + step], lb, cfg)
+        outs.append(dp(cost, la.to(torch.int64), lb.to(torch.int64)))
     return torch.cat(outs, dim=0)

@@ -219,6 +219,27 @@ def mfcc(x: torch.Tensor, cfg: FrontendConfig = FrontendConfig(),
     return mfcc_from_frames(frames_, mats, cfg)
 
 
+def time_normalize(feats: torch.Tensor, length: torch.Tensor,
+                   target_len: int) -> torch.Tensor:
+    """Linear time normalisation: [..., T, F] + true lengths [...] ->
+    [..., L, F].
+
+    Resamples every utterance to ``target_len`` frames by linear
+    interpolation on the grid p = linspace(0, length-1, L), as
+    numpy.interp would (the linear-time-warp matcher's front half)."""
+    t = feats.shape[-2]
+    scale = (torch.clamp(length - 1, min=0).to(torch.float32)
+             / max(target_len - 1, 1))
+    pos = (torch.arange(target_len, dtype=torch.float32, device=feats.device)
+           * scale[..., None])                                  # [..., L]
+    lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, t - 1)
+    hi = torch.clamp(lo + 1, 0, t - 1)
+    frac = (pos - lo.to(torch.float32))[..., None]
+    f_lo = torch.take_along_dim(feats, lo[..., None], dim=-2)
+    f_hi = torch.take_along_dim(feats, hi[..., None], dim=-2)
+    return f_lo + frac * (f_hi - f_lo)
+
+
 # --------------------------------------------------------------- delta / CMN
 def _delta_denom(width: int) -> float:
     return 2.0 * sum(n * n for n in range(1, width + 1))

@@ -1,10 +1,13 @@
 """Isolated-word pipeline in PyTorch (port of ``dsp_tpu/pipeline.py``).
 
 Padded signals [B, max_samples] -> VAD endpoints -> MFCC + delta/delta-delta
-features [B, max_frames, 39] -> all-pairs banded DTW against the template
-bank -> argmin or kNN vote.  Everything runs on the device the signals lie
-on; the entry points that take host signals put them on the card unless
-the caller asks for the CPU, with no probe and no fallback.
+features [B, max_frames, 39] -> all-pairs DTW against the template bank
+(routed by ``DtwConfig.impl``: :func:`dtw_pairs`) -> argmin or kNN vote.
+Beside it: the linear-time-warp matcher, the LTW-shortlist cascade with a
+DTW rerank, length-bucketed classify, and the host readouts (n-best,
+edit distance, corpus evaluation).  Everything runs on the device the
+signals lie on; the entry points that take host signals put them on the
+card unless the caller asks for the CPU, with no probe and no fallback.
 
 Static-shape discipline as in the JAX package: signals are padded to
 ``cfg.max_samples`` and variable lengths travel as integer tensors next to
@@ -154,33 +157,46 @@ def extract_signals(signals, cfg: PipelineConfig,
 def dtw_pairs(q_feats: torch.Tensor, q_lens: torch.Tensor,
               bank_feats: torch.Tensor, bank_lens: torch.Tensor,
               dtw_cfg: DtwConfig) -> torch.Tensor:
-    """All-pairs DTW distances [B, K], routed to the production impl.
+    """All-pairs DTW distances [B, K], routed by ``dtw_cfg.impl``.
 
-    ``impl="auto"`` takes the DTW kernel for CUDA tensors at every batch
-    size, single-utterance ``recognize`` included: the device is the only
-    switch.  (The JAX package keeps small batches on its scan; on a CUDA
-    card the plain row loop is thousands of tiny launches and loses even
-    at one pair, PERF.md section 6.)  The pure band without a warp-scale
-    window (``max_warp_scale=None``) has no kernel and runs the scan, as
-    do CPU tensors.
+    One line per route (each kernel's wrapper takes CPU tensors to its
+    plain PyTorch version):
+
+    - ``"fused_banded"``: the banded DTW kernel (windowed band, unbanded,
+      either slope).
+    - ``"pallas"``: the masked cost in PyTorch, then the wavefront DP
+      kernel; any band, no slope.
+    - ``"fused"``: the unbanded closed-form kernel; no band, no slope.
+    - ``"scan"``: the plain row scan (``ops/dtw.py``).
+    - ``"auto"``: for CUDA tensors, the banded kernel whenever it computes
+      the config (every batch size: the device is the only switch), the
+      wavefront kernel for the pure band (``max_warp_scale=None``,
+      ``slope=None``), and the scan for the pure band with
+      ``slope="itakura"``, which no kernel computes; CPU tensors take the
+      scan.
     """
     impl = dtw_cfg.impl
     if impl == "auto":
-        kernel_takes = (dtw_cfg.band_frac is None
-                        or dtw_cfg.max_warp_scale is not None)
-        impl = ("fused_banded"
-                if q_feats.device.type == "cuda" and kernel_takes else "scan")
-    if impl == "fused_banded":
-        from dsp_tpu_torch.kernels.dtw_fused_banded import dtw_batch_fused_banded
-        return dtw_batch_fused_banded(
-            q_feats.contiguous(), q_lens.to(torch.int32).contiguous(),
-            bank_feats.contiguous(), bank_lens.to(torch.int32).contiguous(),
-            dtw_cfg)
-    if impl in ("pallas", "fused"):
-        raise NotImplementedError(
-            f"DtwConfig.impl={impl!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 14: TPU kernels 4 and 5); use impl='auto', 'scan' or "
-            "'fused_banded'")
+        windowed = (dtw_cfg.band_frac is None
+                    or dtw_cfg.max_warp_scale is not None)
+        if q_feats.device.type != "cuda":
+            impl = "scan"
+        elif windowed:
+            impl = "fused_banded"
+        else:
+            impl = "pallas" if dtw_cfg.slope is None else "scan"
+    if impl in ("fused_banded", "fused"):
+        if impl == "fused":
+            from dsp_tpu_torch.kernels.dtw_fused import dtw_batch_fused as run
+        else:
+            from dsp_tpu_torch.kernels.dtw_fused_banded import (
+                dtw_batch_fused_banded as run)
+        return run(q_feats.contiguous(), q_lens.to(torch.int32).contiguous(),
+                   bank_feats.contiguous(), bank_lens.to(torch.int32).contiguous(),
+                   dtw_cfg)
+    if impl == "pallas":
+        from dsp_tpu_torch.kernels.dtw_pallas import dtw_batch_pallas
+        return dtw_batch_pallas(q_feats, q_lens, bank_feats, bank_lens, dtw_cfg)
     if impl != "scan":
         raise ValueError(f"unknown DtwConfig.impl {impl!r}")
     return tdtw.dtw_batch(q_feats, q_lens, bank_feats, bank_lens, dtw_cfg)
@@ -241,9 +257,184 @@ def vote_topk(top_d: torch.Tensor, top_labels: torch.Tensor,
     return torch.where(any_live, ids, torch.full_like(ids, -1))
 
 
+def classify_features_ltw(feats: Features, bank: Features,
+                          bank_label_ids: torch.Tensor, target_len: int = 64):
+    """Linear-time-warp matching: resample queries and templates to
+    ``target_len`` frames, then the whole bank comparison is one
+    [B, L*F] @ [L*F, K] fp32 product (squared-Euclidean expansion), per
+    element.  Returns (label_ids [B], distances [B, K])."""
+    q = fe.time_normalize(feats.feats, feats.length, target_len)   # [B, L, F]
+    t = fe.time_normalize(bank.feats, bank.length, target_len)     # [K, L, F]
+    b, l, f = q.shape
+    qf = q.reshape(b, l * f)
+    tf = t.reshape(t.shape[0], l * f)
+    cross = torch.matmul(qf, tf.T)
+    d = ((qf * qf).sum(dim=-1, keepdim=True) + (tf * tf).sum(dim=-1)[None, :]
+         - 2.0 * cross) / (l * f)
+    d = torch.clamp(d, min=0.0)
+    return bank_label_ids[torch.argmin(d, dim=-1)], d
+
+
+def _smallest(d: torch.Tensor, m: int) -> torch.Tensor:
+    """Indices of the m smallest entries per row, ascending; equal values
+    keep column order (``lax.top_k`` of -d)."""
+    return torch.argsort(d, dim=-1, stable=True)[:, :m]
+
+
+def rerank_pairs(feats: Features, bank: Features, cand: torch.Tensor,
+                 dtw_cfg: DtwConfig) -> torch.Tensor:
+    """DTW of query b against templates ``cand[b]`` [B, M] -> [B, M].
+
+    CUDA tensors with ``slope=None`` take the wavefront kernel's paired
+    entry (the JAX package's per-pair scan, same function); the Itakura
+    slope and CPU tensors take the paired scan."""
+    b, m = cand.shape
+    flat = cand.reshape(-1)
+    a = feats.feats.repeat_interleave(m, dim=0)
+    la = feats.length.repeat_interleave(m, dim=0)
+    tb, lb = bank.feats[flat], bank.length[flat]
+    if a.device.type == "cuda" and dtw_cfg.slope is None:
+        from dsp_tpu_torch.kernels.dtw_pallas import dtw_pairs_pallas
+        d = dtw_pairs_pallas(a, tb, la, lb, dtw_cfg)
+    else:
+        d = tdtw.dtw_pairs_scan(a, la, tb, lb, dtw_cfg)
+    return d.reshape(b, m)
+
+
+def classify_features_cascade(feats: Features, bank: Features,
+                              bank_label_ids: torch.Tensor,
+                              shortlist: int = 8, k: int = 1,
+                              n_labels: int | None = None, target_len: int = 64,
+                              cfg: PipelineConfig = PipelineConfig()):
+    """Two-stage matcher: the LTW distances shortlist ``shortlist``
+    templates per query, then DTW reranks them (:func:`rerank_pairs`).
+
+    Cost scales with B*M instead of B*K, at the price of exactness: a true
+    nearest template outside the LTW top-M is lost.  Returns (label_ids
+    [B], DTW distances of the shortlist [B, M], candidate indices [B, M])."""
+    _, ltw_d = classify_features_ltw(feats, bank, bank_label_ids, target_len)
+    m = min(shortlist, bank.feats.shape[0])
+    cand = _smallest(ltw_d, m)                                     # [B, M]
+    d = rerank_pairs(feats, bank, cand, cfg.dtw)
+    cand_labels = bank_label_ids[cand]                             # [B, M]
+    if k <= 1:
+        best_d, best = torch.min(d, dim=-1)
+        ids = torch.take_along_dim(cand_labels, best[:, None], dim=1)[:, 0]
+        return torch.where(best_d < DEAD, ids, torch.full_like(ids, -1)), d, cand
+    if n_labels is None:
+        raise ValueError("n_labels required for k > 1")
+    sel = _smallest(d, min(k, m))
+    ids = vote_topk(torch.take_along_dim(d, sel, dim=1),
+                    torch.take_along_dim(cand_labels, sel, dim=1), n_labels)
+    return ids, d, cand
+
+
+def classify_features_bucketed(feats: Features, bank: Features,
+                               bank_label_ids: torch.Tensor,
+                               n_labels: int | None = None, k: int = 1,
+                               cfg: PipelineConfig = PipelineConfig(),
+                               pad_to: int = 64):
+    """:func:`classify_features` with host-side length bucketing.
+
+    Queries are grouped into the query-length buckets (t_max, t_max/2,
+    t_max/4); each bucket runs :func:`classify_features` on features cut
+    to the bucket length, so short utterances pay a smaller DTW.  Rows
+    beyond a query's length are never read and the window plan depends on
+    max(T, U) = U while the bank's U covers every bucket, so each pair's
+    distance equals the unbucketed one.  Bucket batches are padded to
+    multiples of ``pad_to`` by repeating their last row.  Returns host
+    numpy (label_ids [B] int64, distances [B, K] float32)."""
+    t_max = feats.feats.shape[1]
+    # the window plan's radius is band_frac * max(t, u): invariant under
+    # cutting the query axis only while the bank's U covers t_max
+    if bank.feats.shape[1] < t_max:
+        raise ValueError(
+            f"bucketed classify requires bank U ({bank.feats.shape[1]}) >= "
+            f"query t_max ({t_max}); use classify_features instead")
+    lens = feats.length.cpu().numpy()
+    b = len(lens)
+    buckets = sorted({t_max, max(t_max // 2, 1), max(t_max // 4, 1)})
+    out_ids = np.zeros(b, np.int64)
+    out_d = np.zeros((b, bank.feats.shape[0]), np.float32)
+    assigned = np.full(b, t_max, np.int64)
+    for tb in buckets:
+        assigned = np.where(lens <= tb, np.minimum(assigned, tb), assigned)
+    for tb in buckets:
+        sel = np.where(assigned == tb)[0]
+        if sel.size == 0:
+            continue
+        bsz = -(-sel.size // pad_to) * pad_to
+        idx = torch.from_numpy(np.concatenate(
+            [sel, np.full(bsz - sel.size, sel[-1])])).to(feats.feats.device)
+        fb = Features(feats.feats[idx, :tb].contiguous(), feats.length[idx])
+        lid, d = classify_features(fb, bank, bank_label_ids,
+                                   n_labels=n_labels, k=k, cfg=cfg)
+        out_ids[sel] = lid.cpu().numpy()[: sel.size]
+        out_d[sel] = d.cpu().numpy()[: sel.size]
+    return out_ids, out_d
+
+
 def recognize_batch(signals: torch.Tensor, n_samples: torch.Tensor,
                     bank: Features, bank_label_ids: torch.Tensor,
                     cfg: PipelineConfig = PipelineConfig()):
     """Padded signals -> (label_ids [B], distances [B, K]) on their device."""
     feats = extract_features(signals, n_samples, cfg)
     return classify_features(feats, bank, bank_label_ids, cfg=cfg)
+
+
+# ------------------------------------------------------------ host readouts
+def nbest_from_scores(scores, labels, n: int = 3,
+                      higher_better: bool = False):
+    """Per-row top-n hypotheses: ``[B, n_labels] -> [[(label, score,
+    weight)]]`` sorted best-first (host numpy, as the JAX package).
+
+    Scores keep their native orientation (DTW distances: lower better;
+    ``higher_better`` for log-likelihoods).  ``weight`` is a softmax over
+    the row's z-scored scores: a relative confidence, not a calibrated
+    posterior.  Dead entries (|score| >= 1e20) are dropped, so a row may
+    carry fewer than ``n`` hypotheses and an all-dead row returns []."""
+    scores = np.asarray(scores, np.float64)
+    out = []
+    for row in scores:
+        live = np.abs(row) < DEAD
+        k = int(live.sum())
+        if k == 0:
+            out.append([])
+            continue
+        s = row[live] if higher_better else -row[live]
+        std = s.std()
+        z = (s - s.mean()) / (std if std > 0 else 1.0)
+        w = np.exp(z - z.max())
+        w /= w.sum()
+        idx_live = np.flatnonzero(live)
+        order = np.argsort(-s, kind="stable")[: min(n, k)]
+        out.append([(labels[int(idx_live[j])], float(row[idx_live[j]]),
+                     float(w[j])) for j in order])
+    return out
+
+
+def edit_distance(a, b) -> int:
+    """Levenshtein distance between two label sequences (host metric)."""
+    d = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        prev, d[0] = d[0], i
+        for j, y in enumerate(b, 1):
+            prev, d[j] = d[j], min(d[j] + 1, d[j - 1] + 1, prev + (x != y))
+    return int(d[len(b)])
+
+
+def evaluate_corpus(classify_batch, corpus: dict) -> dict:
+    """{label: [signals]} -> accuracy + per-label confusion counts, with
+    ``classify_batch`` the recognizer's list-of-signals -> labels call."""
+    sigs, want = [], []
+    for lab, xs in corpus.items():
+        sigs.extend(xs)
+        want.extend([lab] * len(xs))
+    got = classify_batch(sigs)
+    correct = sum(g == w for g, w in zip(got, want))
+    confusion: dict = {}
+    for g, w in zip(got, want):
+        confusion.setdefault(w, {}).setdefault(g, 0)
+        confusion[w][g] += 1
+    return {"accuracy": correct / max(len(want), 1),
+            "n": len(want), "confusion": confusion}

@@ -13,6 +13,11 @@ norms at rtol 2e-4; where they differ (a near-tie that the kernel's
 sequential sums and the scan's tree round apart), the raw costs
 norm * (tl + span) agree to 1e-4 relative and such sites stay under 0.1%
 (tests/test_tpu_device.py:333).
+Unbanded closed-form DTW (kernel ``dtw_fused``): rtol 1e-4 / atol 1e-5
+against its plain version and the banded kernel's unbanded mode
+(tests/test_pallas_dtw.py:103).  Wavefront DTW (kernel ``dtw_wavefront``):
+equal bits to its plain version on the same masked cost (one exact min and
+one add per cell).
 """
 
 import dataclasses
@@ -24,7 +29,9 @@ import torch
 from dsp_tpu_torch import pipeline as tpl
 from dsp_tpu_torch.config import DtwConfig, FrontendConfig, PipelineConfig
 from dsp_tpu_torch.io import synth_word
+from dsp_tpu_torch.kernels import dtw_fused as kfu
 from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+from dsp_tpu_torch.kernels import dtw_pallas as kwf
 from dsp_tpu_torch.kernels import mfcc_fused as kmf
 from dsp_tpu_torch.kernels import spot_fused as ksp
 from dsp_tpu_torch.ops import frontend as fe
@@ -87,9 +94,9 @@ def test_auto_takes_the_kernel_at_any_batch_size(dev, b, k):
     torch.cuda.synchronize()
     assert kdtw.LAUNCHES == before + 1
     _check_dtw(got, tpl.dtw_pairs(*args, DtwConfig(impl="scan")))
-    before = kdtw.LAUNCHES
-    tpl.dtw_pairs(*args, DtwConfig(max_warp_scale=None))     # no kernel: the scan
-    assert kdtw.LAUNCHES == before
+    before, k5 = kdtw.LAUNCHES, kwf.LAUNCHES
+    tpl.dtw_pairs(*args, DtwConfig(max_warp_scale=None))     # the wavefront kernel
+    assert kdtw.LAUNCHES == before and kwf.LAUNCHES == k5 + 1
 
 
 def test_dtw_kernel_short_lengths_and_empty(dev):
@@ -285,3 +292,101 @@ def test_keyword_spotter_on_the_card_matches_the_plain_route(dev):
         agree = gs == ws
         np.testing.assert_allclose(gn[agree], wn[agree], rtol=2e-4, atol=1e-5)
         assert (~agree).sum() <= 1e-3 * agree.size
+
+
+@pytest.mark.parametrize("squared", [False, True])
+@pytest.mark.parametrize("shape", [(5, 3, 25, 31, 13), (3, 2, 40, 40, 8),
+                                   (2, 4, 9, 126, 5), (6, 5, 198, 198, 39),
+                                   (2, 3, 60, 300, 70)])
+def test_fused_kernel_matches_plain_and_banded_unbanded(dev, shape, squared):
+    b, k, t, u, f = shape
+    args = _dtw_inputs(dev, b, k, t, u, f=f, seed=7)
+    cfg = DtwConfig(band_frac=None, squared=squared)
+    before = kfu.LAUNCHES
+    got = kfu.dtw_batch_fused(*args, cfg)
+    torch.cuda.synchronize()
+    assert kfu.LAUNCHES == before + 1
+    for want in (kfu.dtw_batch_fused_plain(*args, cfg),
+                 kdtw.dtw_batch_fused_banded(*args, cfg)):
+        got_n, want_n = got.cpu().numpy(), want.cpu().numpy()
+        assert ((got_n >= 1e20) == (want_n >= 1e20)).all()
+        np.testing.assert_allclose(got_n, want_n, rtol=1e-4, atol=1e-5)
+
+
+def test_fused_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q, ql, bk, bl = _dtw_inputs(dev, 2, 2, 10, 10)
+    unbanded = DtwConfig(band_frac=None)
+    for bad in (DtwConfig(), DtwConfig(band_frac=None, slope="itakura")):
+        with pytest.raises(ValueError):
+            kfu.dtw_batch_fused(q, ql, bk, bl, bad)
+    with pytest.raises(ValueError):
+        kfu.dtw_batch_fused(q, ql.long(), bk, bl, unbanded)
+    with pytest.raises(ValueError, match="fit"):
+        kfu.dtw_batch_fused(q, ql, torch.zeros((2, 1100, 39), device=dev), bl, unbanded)
+    # a query of 2,000 frames x 40 features needs 320 KB of shared memory:
+    # the launch is refused and the refusal does not leak into the next launch
+    with pytest.raises(RuntimeError, match="dtw_fused"):
+        kfu.dtw_batch_fused(torch.zeros((1, 2000, 39), device=dev), ql[:1], bk, bl,
+                            unbanded)
+    _check_dtw(kfu.dtw_batch_fused(q, ql, bk, bl, unbanded),
+               kfu.dtw_batch_fused_plain(q, ql, bk, bl, unbanded))
+    assert kfu.dtw_batch_fused(q[:0], ql[:0], bk, bl, unbanded).shape == (0, 2)
+
+
+@pytest.mark.parametrize("kw", [{}, {"band_frac": None}, {"max_warp_scale": None},
+                                {"band_frac": 0.1}, {"squared": True}])
+@pytest.mark.parametrize("shape", [(5, 7, 40, 46), (3, 4, 198, 198), (2, 3, 70, 33)])
+def test_wavefront_kernel_matches_plain(dev, kw, shape):
+    b, k, t, u = shape
+    q, ql, bk, bl = _dtw_inputs(dev, b, k, t, u, seed=8)
+    cfg = DtwConfig(**kw)
+    from dsp_tpu_torch.ops import dtw as tdtw
+
+    cost = tdtw.masked_cost(q, ql, bk, bl, cfg).reshape(b * k, t, u).contiguous()
+    la = ql[:, None].expand(b, k).reshape(-1).contiguous()
+    lb = bl[None, :].expand(b, k).reshape(-1).contiguous()
+    before = kwf.LAUNCHES
+    got = kwf.dtw_from_cost_pallas(cost, la, lb)
+    torch.cuda.synchronize()
+    assert kwf.LAUNCHES == before + 1
+    want = kwf.dtw_from_cost_plain(cost, la, lb)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    _check_dtw(kwf.dtw_batch_pallas(q, ql, bk, bl, cfg),
+               tpl.dtw_pairs(q, ql, bk, bl, DtwConfig(impl="scan", **kw)))
+
+
+def test_wavefront_pairs_and_wrapper_refusals(dev):
+    q, ql, bk, bl = _dtw_inputs(dev, 4, 4, 50, 50, seed=9)
+    cfg = DtwConfig()
+    got = kwf.dtw_pairs_pallas(q, bk, ql, bl, cfg)
+    from dsp_tpu_torch.ops import dtw as tdtw
+
+    _check_dtw(got, tdtw.dtw_pairs_scan(q, ql, bk, bl, cfg))
+    cost = tdtw.masked_cost_pairs(q, ql, bk, bl, cfg)
+    with pytest.raises(ValueError):
+        kwf.dtw_from_cost_pallas(cost, ql.long(), bl)
+    with pytest.raises(ValueError):
+        kwf.dtw_from_cost_pallas(cost.transpose(1, 2), ql, bl)
+    with pytest.raises(ValueError, match="slope"):
+        kwf.dtw_pairs_pallas(q, bk, ql, bl, DtwConfig(slope="itakura"))
+    assert kwf.dtw_from_cost_pallas(cost[:0], ql[:0], bl[:0]).shape == (0,)
+
+
+def test_matchers_on_the_card_match_the_plain_routes(dev):
+    from dsp_tpu_torch import KnnDtwRecognizer
+
+    words = ("zero", "one", "two")
+    recs = {}
+    for name, device, kw in (("card", dev, {}), ("cpu", "cpu", {})):
+        rec = KnnDtwRecognizer(PipelineConfig(), device=device, matcher="cascade",
+                               shortlist=4, **kw)
+        for w in words:
+            rec.enroll(w, [synth_word(w, i) for i in range(3)])
+        recs[name] = rec
+    sigs = [synth_word(w, 40 + i) for i, w in enumerate(words * 2)]
+    before = kwf.LAUNCHES
+    got, d = recs["card"].classify_batch(sigs, return_distances=True)
+    assert kwf.LAUNCHES > before                 # the rerank went through kernel 5
+    want, want_d = recs["cpu"].classify_batch(sigs, return_distances=True)
+    assert got == want == list(words * 2)
+    np.testing.assert_allclose(d, want_d, rtol=1e-3)
