@@ -87,6 +87,18 @@ each of which raises on failure (non-zero exit):
              accuracy, the OOV reject rate, the threshold, queries/s (median
              of 3 synchronized ``classify_batch(reject=True)`` passes) and
              the launches per pass.
+11. mb_wavefront — kernels 6-10: ``dsp_tpu_torch.scripts.mb_wavefront``'s
+             experiments E0-E4 at the JAX script's shapes (launch counts
+             reset just before and read just after; each of the six
+             kernels must launch), then each kernel against its plain
+             version on seeded inputs at those shapes: ``dp_diet`` on
+             standard-normal costs with 5 % BIG cells, ktarget in [-1, D]
+             and la in [0, T+1], bit-equal; the fetch at rtol 1e-6;
+             anatomy bit-equal at 64 steps for 0-2 rolls (timed at 4000);
+             trivial, transpose and skew bit-equal.  The library calls
+             ``x * 2.0`` and ``x.transpose(1, 2).contiguous()`` are timed
+             beside the trivial and transpose kernels.  E4's fp32 einsum
+             is held to float64 on two queries x three templates.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -169,20 +181,9 @@ def fail(msg: str):
 def time_ms(fn, reps: int = REPS, warmup: bool = True) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up
     (``warmup=False`` when the caller has just run ``fn``)."""
-    import torch
+    from dsp_tpu_torch.utils import timing
 
-    if warmup:
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return timing.time_ms(fn, reps, warmup)
 
 
 def bound(ops: float, n_bytes: float) -> tuple[float, str]:
@@ -933,6 +934,128 @@ def matchers_phase(dev, report) -> dict:
     return launches_of
 
 
+def mb_wavefront_phase(seed: int, dev, report) -> dict:
+    """Kernels 6-10: the microbenchmark entry point at its full shapes, then
+    each kernel against its plain version on seeded inputs; returns the
+    launch counts of the entry point's run."""
+    import torch
+
+    from dsp_tpu_torch.kernels import mb_wavefront as kmb
+    from dsp_tpu_torch.scripts import mb_wavefront as mbw
+
+    torch.cuda.synchronize()
+    kmb.reset_launches()
+    runs = mbw.run("all", dev)
+    torch.cuda.synchronize()
+    launches = dict(kmb.LAUNCHES)
+    if not all(launches.values()):
+        fail(f"the mb_wavefront entry point left a kernel unlaunched: {launches}")
+    rep = report["mb_wavefront"]
+    rep["entry_point"] = runs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p, d, t, u = mbw.P, mbw.D_PAD, mbw.T_PAD, mbw.U_PAD
+
+    def check(name, got, want, *, fn, plain, ops, n_bytes, rtol=0.0, library=None,
+              **extra):
+        """got vs want (equal bits, or rtol), then the kernel's time (median of
+        5), the plain version's (once), the library call's and the bound."""
+        if got.shape != want.shape:
+            fail(f"mb_wavefront {name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+        same = bool(torch.equal(got, want))
+        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        if not same and (rtol == 0.0 or not torch.allclose(got, want, rtol=rtol, atol=0.0)):
+            fail(f"mb_wavefront {name}: kernel differs from its plain version "
+                 f"(max abs err {err:.3e}, rtol {rtol})")
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain, reps=1, warmup=False)
+        library_ms = None if library is None else time_ms(library)
+        b_ms, b_by = bound(ops, n_bytes)
+        lib = ("none (no single PyTorch call computes it)" if library_ms is None
+               else f"{library_ms:.3f} ms")
+        print(f"mb_wavefront {name:9s}: bit-equal {same}  max abs err {err:.3e}  "
+              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  library {lib}  "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        rep[name] = dict(bit_equal=same, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, **extra)
+
+    # 6, 7: one seeded array, standard normal with 5 % BIG cells; ktarget in
+    # [-1, D], la in [0, T+1], so some pairs never match and some read no lane
+    skew = torch.randn((p, d, t), generator=g, device=dev)
+    skew.masked_fill_(torch.rand((p, d, t), generator=g, device=dev) < 0.05, mbw.BIG)
+    ktarget = torch.randint(-1, d + 1, (p, 1), generator=g, device=dev, dtype=torch.int32)
+    la = torch.randint(0, t + 2, (p, 1), generator=g, device=dev, dtype=torch.int32)
+    read = 4 * skew.numel()
+    # no single PyTorch call computes the DP, the fetch's strided sum, the
+    # anatomy loop or the skew, so they have no library time
+    check("dp_diet", kmb.dp_diet(skew, ktarget, la), kmb.dp_diet_plain(skew, ktarget, la),
+          fn=lambda: kmb.dp_diet(skew, ktarget, la),
+          plain=lambda: kmb.dp_diet_plain(skew, ktarget, la),
+          ops=6 * skew.numel(), n_bytes=read + 12 * p,
+          pairs_answered=int(((ktarget >= 0) & (ktarget < d) & (la >= 1) & (la <= t)).sum()))
+    check("dma_fetch", kmb.dma_fetch(skew, ktarget), kmb.dma_fetch_plain(skew, ktarget),
+          fn=lambda: kmb.dma_fetch(skew, ktarget),
+          plain=lambda: kmb.dma_fetch_plain(skew, ktarget), rtol=1e-6,
+          ops=2 * p * (d // 8), n_bytes=read + 8 * p)
+    del skew, ktarget, la
+
+    # 8: anatomy bit-equal at 64 steps for 0-2 rolls; timed at the entry
+    # point's largest shape; and the trivial kernel with its library call
+    pt, width = max(mbw.ANATOMY_SHAPES)
+    x = torch.randn((pt, width), generator=g, device=dev)
+    for n_rolls in mbw.ROLLS[:-1]:
+        got = kmb.anatomy(x, n_rolls, 64)
+        if not torch.equal(got, kmb.anatomy_plain(x, n_rolls, 64)):
+            fail(f"mb_wavefront anatomy: rolls={n_rolls} differs from its plain version")
+    steps = mbw.ANATOMY_STEPS
+    cyc = runs["anatomy"]["rows"][f"{pt}x{width}_rolls2"]["cycles_per_step"]
+    check("anatomy", kmb.anatomy(x, 2, 64), kmb.anatomy_plain(x, 2, 64),
+          fn=lambda: kmb.anatomy(x, 2, steps), plain=lambda: kmb.anatomy_plain(x, 2, steps),
+          ops=3 * steps * x.numel(), n_bytes=8 * x.numel(), shape=[pt, width, 2, steps],
+          cycles_per_step=cyc)
+    print(f"mb_wavefront anatomy  : {cyc:.1f} SM cycles a step at [{pt},{width}], 2 rolls "
+          f"(clock64, the entry point's run)", flush=True)
+    x0 = torch.randn((8, 128), generator=g, device=dev)
+    check("trivial", kmb.trivial(x0), kmb.trivial_plain(x0), fn=lambda: kmb.trivial(x0),
+          plain=lambda: kmb.trivial_plain(x0), library=lambda: x0 * 2.0,
+          ops=x0.numel(), n_bytes=8 * x0.numel())
+    del x, x0
+
+    # 9: transpose at E2's shape; its plain version is the library call
+    x = torch.randn((p, t, d), generator=g, device=dev)
+    check("transpose", kmb.transpose(x), kmb.transpose_plain(x),
+          fn=lambda: kmb.transpose(x), plain=lambda: kmb.transpose_plain(x),
+          library=lambda: x.transpose(1, 2).contiguous(), ops=0, n_bytes=8 * x.numel())
+    del x
+
+    # 10: skew at E3's shape
+    cost = torch.randn((p, t, u), generator=g, device=dev)
+    check("skew", kmb.skew(cost, d), kmb.skew_plain(cost, d),
+          fn=lambda: kmb.skew(cost, d), plain=lambda: kmb.skew_plain(cost, d),
+          ops=0, n_bytes=4 * (cost.numel() + p * d * t))
+    del cost
+
+    # E4 (no kernel): finite, and two queries x three templates against float64
+    q = torch.randn((mbw.COST_B, t, mbw.COST_F), generator=g, device=dev)
+    b = torch.randn((mbw.COST_K, u, mbw.COST_F), generator=g, device=dev)
+    got = kmb.cost(q, b)
+    if got.shape != (p, t, u) or not torch.isfinite(got).all():
+        fail(f"mb_wavefront cost: shape {tuple(got.shape)} or non-finite values")
+    want = kmb.cost(q[:2].double(), b[:3].double())
+    part = got.reshape(mbw.COST_B, mbw.COST_K, t, u)[:2, :3].reshape(6, t, u).double()
+    cost_err = float((part - want).abs().max())
+    if not torch.allclose(part, want, rtol=1e-5, atol=1e-4):
+        fail(f"mb_wavefront cost: fp32 differs from float64 by {cost_err:.3e}")
+    del got
+    ms = time_ms(lambda: kmb.cost(q, b))
+    b_ms, b_by = bound(2 * p * t * u * mbw.COST_F,
+                       4 * (q.numel() + b.numel() + p * t * u))
+    print(f"mb_wavefront cost (E4, fp32 einsum, no kernel): max abs err vs float64 "
+          f"{cost_err:.3e}  {ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+    rep["cost"] = dict(max_abs_err_vs_float64=cost_err, ms=ms, bound_ms=b_ms, bound_by=b_by)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -968,7 +1091,8 @@ def main() -> int:
           flush=True)
 
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
-              "fused": {}, "wavefront": {}, "matchers": {}, "nvidia_smi": smi}
+              "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
+              "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, dev, report)
     mfcc_phase(dev, report)
@@ -981,17 +1105,23 @@ def main() -> int:
     routes = matchers_phase(dev, report)
     launches["dtw_fused"] = routes["fused"]["dtw_fused"]
     launches["dtw_wavefront"] = routes["pallas"]["dtw_wavefront"]
+    launches.update(mb_wavefront_phase(args.seed, dev, report))
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")
 
     def entry(name, source, replaces, measured):
         # no single PyTorch call computes banded, unbanded or wavefront DTW,
-        # the MFCC chain or subsequence DTW, so library_ms is null for all
+        # the MFCC chain, subsequence DTW or kernels 6-8 and 10: library_ms
+        # is null for them
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": measured["max_abs_err"], "ms": measured["ms"],
                 "plain_ms": measured["plain_ms"], "bound_ms": measured["bound_ms"],
-                "bound_by": measured["bound_by"], "library_ms": None}
+                "bound_by": measured["bound_by"],
+                "library_ms": measured.get("library_ms")}
+
+    mb = report["mb_wavefront"]
+    mb_src = "dsp_tpu_torch/csrc/mb_wavefront.cu"
 
     kernels = [
         entry("dtw_banded", "dsp_tpu_torch/csrc/dtw_banded.cu",
@@ -1004,6 +1134,12 @@ def main() -> int:
               "dsp_tpu/kernels/dtw_fused.py:191", report["fused"]["default"]),
         entry("dtw_wavefront", "dsp_tpu_torch/csrc/dtw_wavefront.cu",
               "dsp_tpu/kernels/dtw_pallas.py:126", report["wavefront"]["default"]),
+        entry("dp_diet", mb_src, "scripts/mb_wavefront.py:78", mb["dp_diet"]),
+        entry("dma_fetch", mb_src, "scripts/mb_wavefront.py:125", mb["dma_fetch"]),
+        entry("anatomy", mb_src, "scripts/mb_wavefront.py:194", mb["anatomy"]),
+        entry("trivial", mb_src, "scripts/mb_wavefront.py:179", mb["trivial"]),
+        entry("transpose", mb_src, "scripts/mb_wavefront.py:216", mb["transpose"]),
+        entry("skew", mb_src, "scripts/mb_wavefront.py:256", mb["skew"]),
     ]
     report["kernels"] = kernels
     if args.out is not None:

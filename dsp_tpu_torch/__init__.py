@@ -8,8 +8,10 @@ hand-written CUDA kernels for NVIDIA Hopper: banded DTW
 (``csrc/dtw_banded.cu``), the fused MFCC front-end (``csrc/mfcc_fused.cu``),
 subsequence DTW (``csrc/spot_subseq.cu``), unbanded closed-form DTW
 (``csrc/dtw_fused.cu``) and the wavefront DP over a masked cost
-(``csrc/dtw_wavefront.cu``).  Each has a plain PyTorch version beside it,
-which CPU tensors take.  Entry points run on the card (their ``device``
+(``csrc/dtw_wavefront.cu``), plus the six kernels of the wavefront
+microbenchmarks (``csrc/mb_wavefront.cu``, run by
+``python -m dsp_tpu_torch.scripts.mb_wavefront``).  Each kernel has a
+plain PyTorch version beside it, which CPU tensors take.  Entry points run on the card (their ``device``
 defaults to ``"cuda"``) unless the caller asks for the CPU.  This package
 imports neither jax nor ``dsp_tpu``.
 

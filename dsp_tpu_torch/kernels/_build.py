@@ -36,6 +36,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C signatures: (argtypes, restype).  Pointers and the stream are c_void_p.
 _SIGNATURES = {
     "dtw_banded": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -45,6 +46,12 @@ _SIGNATURES = {
     "spot_subseq": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "dtw_fused": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "dtw_wavefront": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "mb_dp_diet": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "mb_dma_fetch": ((_P, _P, _P, _P, _U, _I, _I, _I, _I, _P), _I),
+    "mb_anatomy": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "mb_trivial": ((_P, _P, _I, _P), _I),
+    "mb_transpose": ((_P, _P, _I, _I, _I, _I, _P), _I),
+    "mb_skew": ((_P, _P, _I, _I, _I, _I, _I, _P), _I),
 }
 
 _lib = None

@@ -17,7 +17,10 @@ Unbanded closed-form DTW (kernel ``dtw_fused``): rtol 1e-4 / atol 1e-5
 against its plain version and the banded kernel's unbanded mode
 (tests/test_pallas_dtw.py:103).  Wavefront DTW (kernel ``dtw_wavefront``):
 equal bits to its plain version on the same masked cost (one exact min and
-one add per cell).
+one add per cell).  Wavefront microbenchmark kernels (``mb_*``): equal bits
+to their plain versions (dp_diet: exact mins and one add a cell; anatomy:
+product and sum rounded apart, as the plain version rounds them; trivial,
+transpose and skew move values), the fetch's accumulator at rtol 1e-6.
 """
 
 import dataclasses
@@ -32,6 +35,7 @@ from dsp_tpu_torch.io import synth_word
 from dsp_tpu_torch.kernels import dtw_fused as kfu
 from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
 from dsp_tpu_torch.kernels import dtw_pallas as kwf
+from dsp_tpu_torch.kernels import mb_wavefront as kmb
 from dsp_tpu_torch.kernels import mfcc_fused as kmf
 from dsp_tpu_torch.kernels import spot_fused as ksp
 from dsp_tpu_torch.ops import frontend as fe
@@ -390,3 +394,103 @@ def test_matchers_on_the_card_match_the_plain_routes(dev):
     want, want_d = recs["cpu"].classify_batch(sigs, return_distances=True)
     assert got == want == list(words * 2)
     np.testing.assert_allclose(d, want_d, rtol=1e-3)
+
+
+def _mb_dp_inputs(dev, p, d, t, seed=0):
+    rng = np.random.default_rng(seed)
+    skew = rng.standard_normal((p, d, t)).astype(np.float32)
+    skew[rng.random(skew.shape) < 0.1] = kmb.BIG
+    ktarget = rng.integers(-1, d + 1, (p, 1)).astype(np.int32)
+    la = rng.integers(0, t + 2, (p, 1)).astype(np.int32)
+    return (torch.from_numpy(skew).to(dev), torch.from_numpy(ktarget).to(dev),
+            torch.from_numpy(la).to(dev))
+
+
+@pytest.mark.parametrize("p,d,t,warps", [(16, 16, 32, 4), (37, 13, 256, 3),
+                                         (5, 40, 64, 1), (9, 7, 128, 16), (3, 9, 512, 2)])
+def test_mb_dp_diet_and_fetch_match_plain(dev, p, d, t, warps):
+    skew, ktarget, la = _mb_dp_inputs(dev, p, d, t, seed=p)
+    before = dict(kmb.LAUNCHES)
+    got = kmb.dp_diet(skew, ktarget, la, warps=warps)
+    fetched = kmb.dma_fetch(skew, ktarget, warps=warps)
+    torch.cuda.synchronize()
+    assert kmb.LAUNCHES["dp_diet"] == before["dp_diet"] + 1
+    assert kmb.LAUNCHES["dma_fetch"] == before["dma_fetch"] + 1
+    assert torch.equal(got, kmb.dp_diet_plain(skew, ktarget, la))
+    torch.testing.assert_close(fetched, kmb.dma_fetch_plain(skew, ktarget),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n_rolls", [0, 1, 2])
+@pytest.mark.parametrize("rows,width,warps", [(8, 32, 4), (13, 256, 3), (5, 512, 1),
+                                              (6, 64, 2)])
+def test_mb_anatomy_matches_plain(dev, rows, width, warps, n_rolls):
+    x = torch.from_numpy(np.random.default_rng(rows).standard_normal(
+        (rows, width)).astype(np.float32)).to(dev)
+    cycles = torch.zeros((rows,), dtype=torch.int64, device=dev)
+    before = kmb.LAUNCHES["anatomy"]
+    got = kmb.anatomy(x, n_rolls, 7, warps=warps, cycles=cycles)
+    torch.cuda.synchronize()
+    assert kmb.LAUNCHES["anatomy"] == before + 1
+    assert torch.equal(got, kmb.anatomy_plain(x, n_rolls, 7))
+    assert (cycles > 0).all()
+    assert torch.equal(kmb.anatomy(x, n_rolls, 0), x + x)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 1000, 7), (1,)])
+def test_mb_trivial_matches_plain(dev, shape):
+    x = torch.randn(shape, device=dev)
+    before = kmb.LAUNCHES["trivial"]
+    got = kmb.trivial(x)
+    assert kmb.LAUNCHES["trivial"] == before + 1
+    assert torch.equal(got, kmb.trivial_plain(x))
+
+
+@pytest.mark.parametrize("shape,block_rows", [((4, 8, 16), 8), ((3, 45, 70), 5),
+                                              ((2, 256, 512), 32)])
+def test_mb_transpose_matches_plain(dev, shape, block_rows):
+    x = torch.randn(shape, device=dev)
+    before = kmb.LAUNCHES["transpose"]
+    got = kmb.transpose(x, block_rows=block_rows)
+    assert kmb.LAUNCHES["transpose"] == before + 1
+    assert torch.equal(got, kmb.transpose_plain(x))
+
+
+@pytest.mark.parametrize("q,t,u,d_pad,block_rows", [(4, 16, 16, 32, 8), (3, 45, 70, 130, 5),
+                                                    (2, 256, 256, 512, 16)])
+def test_mb_skew_matches_plain_and_skew_cost(dev, q, t, u, d_pad, block_rows):
+    x = torch.randn((q, t, u), device=dev)
+    before = kmb.LAUNCHES["skew"]
+    got = kmb.skew(x, d_pad, block_rows=block_rows)
+    assert kmb.LAUNCHES["skew"] == before + 1
+    assert torch.equal(got, kmb.skew_plain(x, d_pad))
+    ref = kwf.skew_cost(x)
+    assert torch.equal(got[:, : t + u - 1], ref)
+    assert (got[:, t + u - 1:] == kmb.BIG).all()
+
+
+def test_mb_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    skew, ktarget, la = _mb_dp_inputs(dev, 4, 8, 32)
+    flat = torch.zeros(1 + skew.numel(), device=dev)
+    for call in (
+            lambda: kmb.dp_diet(skew.transpose(0, 1).contiguous().transpose(0, 1),
+                                ktarget, la),                         # not contiguous
+            lambda: kmb.dp_diet(skew.double(), ktarget, la),           # dtype
+            lambda: kmb.dp_diet(skew, ktarget.long(), la),
+            lambda: kmb.dp_diet(torch.zeros((4, 8, 48), device=dev), ktarget, la),  # T
+            lambda: kmb.dp_diet(flat[1:].view(skew.shape), ktarget, la),  # misaligned
+            lambda: kmb.dp_diet(skew, ktarget, la, warps=0),
+            lambda: kmb.dma_fetch(torch.zeros((4, 8, 100), device=dev), ktarget),
+            lambda: kmb.dma_fetch(skew, ktarget.cpu()),                # mixed devices
+            lambda: kmb.anatomy(torch.zeros((2, 48), device=dev), 1, 3),
+            lambda: kmb.anatomy(torch.zeros((2, 32), device=dev), 3, 3),
+            lambda: kmb.anatomy(torch.zeros((2, 32), device=dev), 1, 3,
+                                cycles=torch.zeros(2, dtype=torch.int32, device=dev)),
+            lambda: kmb.trivial(torch.zeros(4, device=dev, dtype=torch.float16)),
+            lambda: kmb.transpose(torch.zeros((2, 8, 8), device=dev).transpose(1, 2)),
+            lambda: kmb.transpose(torch.zeros((2, 8, 8), device=dev), block_rows=33),
+            lambda: kmb.skew(torch.zeros((2, 16, 16), device=dev), 31)):
+        with pytest.raises(ValueError):
+            call()
+    assert torch.equal(kmb.dp_diet(skew, ktarget, la), kmb.dp_diet_plain(skew, ktarget, la))
+    assert kmb.dp_diet(skew[:, :0].contiguous(), ktarget, la).eq(0).all()
