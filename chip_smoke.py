@@ -97,8 +97,15 @@ each of which raises on failure (non-zero exit):
              anatomy bit-equal at 64 steps for 0-2 rolls (timed at 4000);
              trivial, transpose and skew bit-equal.  The library calls
              ``x * 2.0`` and ``x.transpose(1, 2).contiguous()`` are timed
-             beside the trivial and transpose kernels.  E4's fp32 einsum
-             is held to float64 on two queries x three templates.
+             beside the trivial and transpose kernels (the trivial kernel
+             and ``x * 2.0`` over 1,001 single calls: they are host-bound).
+             E4's fp32 einsum is held to float64 on two queries x three
+             templates.  Then where a launch's host time goes: each piece of
+             the wrapper path (stream getters, the ctypes call, the output
+             allocation, the checks, ``_build.launch``) over 10,000 calls,
+             and host µs a call of ``trivial(x)`` against ``x * 2.0`` and of
+             the banded DTW kernel at B = K = 1, over 1,000 back-to-back
+             calls ended by one synchronize.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -169,6 +176,11 @@ MATCHER_ROUTES = [
 OOV_WORDS = ["papa", "quebec", "victor"]    # tests/test_reject.py:23
 OOV_PER_WORD = 32
 MATCHER_PASSES = 3
+MB_KERNELS = ("dp_diet", "dma_fetch", "anatomy", "trivial", "transpose", "skew")
+LAUNCH_PIECE_CALLS = 10_000   # host breakdown of a launch, per piece
+LAUNCH_CALLS = 1_000          # back-to-back wrapper calls, then one synchronize
+LAUNCH_REPS = 1_001           # timed single calls of the trivial kernel and x * 2.0:
+                              # a ~20 µs call is host-bound, so its median needs many
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -253,14 +265,33 @@ def dtw_phase(rng, dev, report):
                     for lo in range(0, b, 32))
         # per cell: F squared differences (2F) and the DP's add and two mins
         b_ms, b_by = bound(cells * (2 * f + 3), 4 * ((b * t + k * u) * f + b + k + b * k))
+        walked = walked_cells(ql, bl, cfg, t, u) if name == "default" else None
         print(f"dtw {name:9s} B={b} K={k} T={t} U={u}: finite {fin:.4f}  "
               f"max rel err {rel:.3e}  max abs err {abs_err:.3e}  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by}, {cells} cells)", flush=True)
+              f"bound {b_ms:.4f} ms ({b_by}, {cells} cells)"
+              + ("" if walked is None else
+                 f"; the kernel computes {walked} costs, {walked / cells:.3f}x those"),
+              flush=True)
         report["dtw"][name] = dict(shape=[b, k, t, u, f], finite_share=fin,
                                    max_rel_err=rel, max_abs_err=abs_err,
                                    ms=ms, plain_ms=plain_ms, cells=cells,
-                                   bound_ms=b_ms, bound_by=b_by)
+                                   walked_cells=walked, bound_ms=b_ms, bound_by=b_by)
+
+
+def walked_cells(q_lens, bank_lens, cfg, t: int, u: int) -> int:
+    """Costs the banded DTW kernel computes for these lengths: per strip of
+    ``strip_columns``, chunks of 32 steps x 32 lanes, a chunk's last steps
+    in whole groups of 8 (``csrc/dtw_banded.cu``)."""
+    from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+
+    total = 0
+    for la in q_lens.tolist():
+        for lb in bank_lens.tolist():
+            for r0, r1, jlo, jhi in kdtw.strip_columns(la, lb, cfg, t, u):
+                steps = (jhi - jlo + 1) + (r1 - r0)
+                total += kdtw.STRIP * (steps // 32 * 32 + -(-(steps % 32) // 8) * 8)
+    return total
 
 
 def small_phase(rng, dev, report):
@@ -269,7 +300,7 @@ def small_phase(rng, dev, report):
 
     from dsp_tpu_torch import pipeline as pl
     from dsp_tpu_torch.config import DtwConfig
-    from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+    from dsp_tpu_torch.kernels import _build
 
     auto, scan = DtwConfig(), DtwConfig(impl="scan")
     t, f = 198, 39
@@ -278,12 +309,12 @@ def small_phase(rng, dev, report):
         bk = torch.from_numpy(rng.standard_normal((k, t, f), np.float32)).to(dev)
         ql = torch.from_numpy(rng.integers(20, t + 1, b).astype(np.int32)).to(dev)
         bl = torch.from_numpy(rng.integers(20, t + 1, k).astype(np.int32)).to(dev)
-        before = kdtw.LAUNCHES
+        before = _build.LAUNCHES["dtw_banded"]
         got = pl.dtw_pairs(q, ql, bk, bl, auto)
         torch.cuda.synchronize()
-        if kdtw.LAUNCHES != before + 1:
+        if _build.LAUNCHES["dtw_banded"] != before + 1:
             fail(f"dtw_pairs(impl='auto') on B={b}, K={k} launched "
-                 f"{kdtw.LAUNCHES - before} kernels, want 1")
+                 f"{_build.LAUNCHES['dtw_banded'] - before} kernels, want 1")
         rel, abs_err, _ = compare_dtw(got, pl.dtw_pairs(q, ql, bk, bl, scan), 1e-4)
         ms = time_ms(lambda: pl.dtw_pairs(q, ql, bk, bl, auto))
         plain_ms = time_ms(lambda: pl.dtw_pairs(q, ql, bk, bl, scan))
@@ -378,8 +409,7 @@ def main_phase(dev, report):
     from dsp_tpu_torch import KnnDtwRecognizer
     from dsp_tpu_torch.config import DtwConfig, FrontendConfig, PipelineConfig
     from dsp_tpu_torch.io import DIGITS, synth_word
-    from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
-    from dsp_tpu_torch.kernels import mfcc_fused as kmf
+    from dsp_tpu_torch.kernels import _build
 
     base = PipelineConfig()
     configs = {
@@ -396,11 +426,10 @@ def main_phase(dev, report):
         for lab in DIGITS:
             rec.enroll(lab, bank_sigs[lab])
         torch.cuda.synchronize()
-        kdtw.LAUNCHES = 0
-        kmf.LAUNCHES = 0
+        _build.reset_launches()
         labels, dists = rec.classify_batch(queries, return_distances=True, chunk=256)
         torch.cuda.synchronize()
-        launches = {"dtw_banded": kdtw.LAUNCHES, "mfcc_fused": kmf.LAUNCHES}
+        launches = {k: _build.LAUNCHES[k] for k in ("dtw_banded", "mfcc_fused")}
         passes = []
         for _ in range(MAIN_PASSES):
             t0 = time.perf_counter()
@@ -408,11 +437,12 @@ def main_phase(dev, report):
             torch.cuda.synchronize()
             passes.append(time.perf_counter() - t0)
         seconds = statistics.median(passes)
-        kdtw.LAUNCHES = 0
+        _build.reset_launches()
         single = rec.recognize(queries[0])
-        if single != labels[0] or kdtw.LAUNCHES != int(name != "plain"):
+        n_dtw = _build.LAUNCHES["dtw_banded"]
+        if single != labels[0] or n_dtw != int(name != "plain"):
             fail(f"main path {name!r}: recognize() gave {single!r} with "
-                 f"{kdtw.LAUNCHES} DTW launches; the batch gave {labels[0]!r}")
+                 f"{n_dtw} DTW launches; the batch gave {labels[0]!r}")
         acc = float(np.mean([a == b for a, b in zip(labels, truth)]))
         rate = len(queries) * rec.n_templates / seconds
         stages = stage_ms(rec, queries[:256])
@@ -600,7 +630,7 @@ def spotter_phase(seed: int, dev, report) -> int:
 
     from dsp_tpu_torch import KeywordSpotter, KnnDtwRecognizer
     from dsp_tpu_torch.io import DIGITS, synth_spotting_stream, synth_word
-    from dsp_tpu_torch.kernels import spot_fused as ksp
+    from dsp_tpu_torch.kernels import _build
 
     rec = KnnDtwRecognizer(device=dev)
     for lab in SPOT_KEYWORDS:
@@ -611,12 +641,12 @@ def spotter_phase(seed: int, dev, report) -> int:
     rec.device_bank()
     torch.cuda.synchronize()
 
-    ksp.LAUNCHES = 0
+    _build.reset_launches()
     rec.spot_threshold = KeywordSpotter(rec).calibrate_threshold()
     spotter = KeywordSpotter(rec)
     events = spotter.spot(sigs)
     torch.cuda.synchronize()
-    launches = ksp.LAUNCHES
+    launches = _build.LAUNCHES["spot_subseq"]
     if launches == 0:
         fail("the spotting path never launched the subsequence-DTW kernel")
 
@@ -805,23 +835,15 @@ def matchers_phase(dev, report) -> dict:
     from dsp_tpu_torch import pipeline as pl
     from dsp_tpu_torch.config import DtwConfig, PipelineConfig
     from dsp_tpu_torch.io import DIGITS, synth_word
-    from dsp_tpu_torch.kernels import dtw_fused as kfu
-    from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
-    from dsp_tpu_torch.kernels import dtw_pallas as kwf
-    from dsp_tpu_torch.kernels import mfcc_fused as kmf
-    from dsp_tpu_torch.kernels import spot_fused as ksp
+    from dsp_tpu_torch.kernels import _build
     from dsp_tpu_torch.models.knn_dtw import NO_MATCH, REJECT
     from dsp_tpu_torch.ops import dtw as tdtw
 
-    modules = {"dtw_banded": kdtw, "mfcc_fused": kmf, "spot_subseq": ksp,
-               "dtw_fused": kfu, "dtw_wavefront": kwf}
-
-    def reset():
-        for mod in modules.values():
-            mod.LAUNCHES = 0
+    names = ("dtw_banded", "mfcc_fused", "spot_subseq", "dtw_fused", "dtw_wavefront")
+    reset = _build.reset_launches
 
     def counts():
-        return {name: mod.LAUNCHES for name, mod in modules.items()}
+        return {name: _build.LAUNCHES[name] for name in names}
 
     base = KnnDtwRecognizer(device=dev)
     for lab in DIGITS:
@@ -940,14 +962,15 @@ def mb_wavefront_phase(seed: int, dev, report) -> dict:
     launch counts of the entry point's run."""
     import torch
 
+    from dsp_tpu_torch.kernels import _build
     from dsp_tpu_torch.kernels import mb_wavefront as kmb
     from dsp_tpu_torch.scripts import mb_wavefront as mbw
 
     torch.cuda.synchronize()
-    kmb.reset_launches()
+    _build.reset_launches()
     runs = mbw.run("all", dev)
     torch.cuda.synchronize()
-    launches = dict(kmb.LAUNCHES)
+    launches = {k: _build.LAUNCHES["mb_" + k] for k in MB_KERNELS}
     if not all(launches.values()):
         fail(f"the mb_wavefront entry point left a kernel unlaunched: {launches}")
     rep = report["mb_wavefront"]
@@ -957,9 +980,9 @@ def mb_wavefront_phase(seed: int, dev, report) -> dict:
     p, d, t, u = mbw.P, mbw.D_PAD, mbw.T_PAD, mbw.U_PAD
 
     def check(name, got, want, *, fn, plain, ops, n_bytes, rtol=0.0, library=None,
-              **extra):
+              reps=REPS, **extra):
         """got vs want (equal bits, or rtol), then the kernel's time (median of
-        5), the plain version's (once), the library call's and the bound."""
+        ``reps``), the plain version's (once), the library call's and the bound."""
         if got.shape != want.shape:
             fail(f"mb_wavefront {name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
         same = bool(torch.equal(got, want))
@@ -967,9 +990,9 @@ def mb_wavefront_phase(seed: int, dev, report) -> dict:
         if not same and (rtol == 0.0 or not torch.allclose(got, want, rtol=rtol, atol=0.0)):
             fail(f"mb_wavefront {name}: kernel differs from its plain version "
                  f"(max abs err {err:.3e}, rtol {rtol})")
-        ms = time_ms(fn)
+        ms = time_ms(fn, reps)
         plain_ms = time_ms(plain, reps=1, warmup=False)
-        library_ms = None if library is None else time_ms(library)
+        library_ms = None if library is None else time_ms(library, reps)
         b_ms, b_by = bound(ops, n_bytes)
         lib = ("none (no single PyTorch call computes it)" if library_ms is None
                else f"{library_ms:.3f} ms")
@@ -1018,7 +1041,7 @@ def mb_wavefront_phase(seed: int, dev, report) -> dict:
     x0 = torch.randn((8, 128), generator=g, device=dev)
     check("trivial", kmb.trivial(x0), kmb.trivial_plain(x0), fn=lambda: kmb.trivial(x0),
           plain=lambda: kmb.trivial_plain(x0), library=lambda: x0 * 2.0,
-          ops=x0.numel(), n_bytes=8 * x0.numel())
+          ops=x0.numel(), n_bytes=8 * x0.numel(), reps=LAUNCH_REPS)
     del x, x0
 
     # 9: transpose at E2's shape; its plain version is the library call
@@ -1053,7 +1076,79 @@ def mb_wavefront_phase(seed: int, dev, report) -> dict:
     print(f"mb_wavefront cost (E4, fp32 einsum, no kernel): max abs err vs float64 "
           f"{cost_err:.3e}  {ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
     rep["cost"] = dict(max_abs_err_vs_float64=cost_err, ms=ms, bound_ms=b_ms, bound_by=b_by)
+    launch_host(seed, dev, report)
     return launches
+
+
+def host_us(fn, n: int) -> float:
+    """Host-clock µs a call of ``fn`` over ``n`` back-to-back calls ended by
+    one synchronize (time.perf_counter_ns)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t0) / n / 1e3
+
+
+def launch_host(seed: int, dev, report):
+    """Where a launch's host time goes: each piece of the wrapper path over
+    LAUNCH_PIECE_CALLS calls, then trivial(x) against x * 2.0 and kernel 1
+    at B = K = 1 over LAUNCH_CALLS calls each."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.config import DtwConfig
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+    from dsp_tpu_torch.kernels import mb_wavefront as kmb
+
+    x = torch.randn((8, 128), device=dev)
+    out = torch.empty_like(x)
+    lib = _build.lib()
+    idx = dev.index
+    ptr, optr, n = x.data_ptr(), out.data_ptr(), x.numel()
+    raw = torch._C._cuda_getCurrentRawStream(idx)
+
+    def checks():   # trivial's checks, as the wrapper makes them
+        return (x.dtype != torch.float32 or not kmb._on_card("trivial", x)
+                or x.numel() >= 2**31)
+
+    pieces = {
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(index)":
+            lambda: torch._C._cuda_getCurrentRawStream(idx),
+        # 19 arguments converted by argtypes; rb = 0 returns before any CUDA call
+        "ctypes call, 19 args, no launch (dtw_banded, rb=0)":
+            lambda: lib.dtw_banded(ptr, ptr, ptr, ptr, optr, 1, 1, 1, 1, 1, 1, 0, 0,
+                                   0, 0, 0.0, 0, 0, raw),
+        "ctypes call + launch (mb_trivial)": lambda: lib.mb_trivial(ptr, optr, n, raw),
+        "torch.empty_like(x)": lambda: torch.empty_like(x),
+        "trivial's checks": checks,
+        "_build.launch('mb_trivial')":
+            lambda: _build.launch("mb_trivial", dev, ptr, optr, n),
+        "kmb.trivial(x)": lambda: kmb.trivial(x),
+        "x * 2.0": lambda: x * 2.0,
+    }
+    breakdown = {name: host_us(fn, LAUNCH_PIECE_CALLS) for name, fn in pieces.items()}
+    for name, us in breakdown.items():
+        print(f"launch host {name:52s}: {us:.3f} us a call "
+              f"({LAUNCH_PIECE_CALLS} calls)", flush=True)
+    trivial_us = host_us(lambda: kmb.trivial(x), LAUNCH_CALLS)
+    library_us = host_us(lambda: x * 2.0, LAUNCH_CALLS)
+    q, ql, bk, bl = dtw_inputs(np.random.default_rng(seed), dev, 1, 1, 198, 198)
+    cfg = DtwConfig()
+    dtw_us = host_us(lambda: kdtw.dtw_batch_fused_banded(q, ql, bk, bl, cfg), LAUNCH_CALLS)
+    print(f"launch host: trivial(x) {trivial_us:.3f} us a call against x * 2.0 "
+          f"{library_us:.3f} us ({trivial_us / library_us:.3f}x); "
+          f"dtw_batch_fused_banded at B=K=1 (T=U=198) {dtw_us:.3f} us a call "
+          f"({LAUNCH_CALLS} back-to-back calls, one synchronize)", flush=True)
+    report["launch_host"] = dict(pieces_us=breakdown, piece_calls=LAUNCH_PIECE_CALLS,
+                                 trivial_us=trivial_us, x_times_2_us=library_us,
+                                 dtw_banded_1x1_us=dtw_us, calls=LAUNCH_CALLS)
 
 
 def main() -> int:

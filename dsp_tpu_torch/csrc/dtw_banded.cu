@@ -1,4 +1,4 @@
-// All-pairs windowed Sakoe-Chiba DTW, one thread block per (query, template).
+// All-pairs windowed Sakoe-Chiba DTW, one warp per (query, template) pair.
 //
 // Replaces the TPU kernel dsp_tpu/kernels/dtw_fused_banded.py
 // (dtw_batch_fused_banded / _kernel): queries [B,T,F] x bank [K,U,F] ->
@@ -14,27 +14,48 @@
 //   (W, S_MAX, rb) come from window_plan.plan_window on the padded shapes.
 //   Invalid cells are exactly BIG = 1e30.
 //
-// The TPU kernel's lane rolls, 128-lane window extraction, prefix-summed
-// closed-form row DP and revolving output block are not carried over.
-// Here each block stages the two feature matrices in shared memory and
-// computes every valid cell's cost directly as sum((a-b)^2) in fp32
-// (sqrt unless `squared`).  Standard DTW walks anti-diagonals: the cells
-// of one diagonal are independent, so the block's threads share them,
-// with three rolling diagonal buffers and one barrier per diagonal.  The
-// Itakura DP (every step advances the query row) walks rows instead, with
-// two rolling rows of its two states.
+// The local cost is the exact sqrt(sum (a-b)^2) in fp32 (its square with
+// `squared`), not the TPU's |a|^2 + |b|^2 - 2ab expansion, whose rounding
+// residue the MXU GEMM leaves; a self-pair comes out exactly 0.  With
+// `itakura` the DP is the Itakura slope recursion (steps (1,0), (1,1),
+// (1,2), no two (1,0) in a row) over the same valid cells.
 //
-// What bounds it on the H100: latency and the shared-memory load rate,
-// not device memory.  At the main-path shape (T = U = 198, F = 39, band
-// 0.17) a pair has about 13.5k in-band cells x 39 FMAs with two shared
-// loads each, spread over ~400 dependent diagonal steps, while a chunk of
-// 256 queries x 100 templates reads only ~11 MB of features.  The design
-// keeps all per-pair traffic in shared memory and touches only the in-band
-// cells of each diagonal (about 34 at this shape).  Each cell gets SUB
-// threads that sum strided slices of the features and combine them with
-// warp shuffles, so one diagonal step is ~F/SUB dependent loads deep and a
-// 256-thread block covers 64 cells per pass.  Occupancy is bounded by the
-// ~65 KB of staged features per block: three blocks, 24 warps, per SM.
+// What bounds it on the H100: instruction issue and the shared-memory load
+// rate, not device memory.  At the main-path shape (256 queries x 100
+// templates, T = U = 198, F = 39, band 0.17) the in-band cells cost 39
+// squared differences each (about 0.16 ms of fp32 work over the card),
+// while one chunk reads ~11 MB of features.  The DP itself is a chain of
+// ~la + lb dependent min/add steps a pair.  The first design (one block a
+// pair, the cells of an anti-diagonal shared by 256 threads, a block
+// barrier between diagonals) spent ~7 of its 10.8 ms in that per-diagonal
+// skeleton: ~395 barrier-separated steps a pair with ~34 cells each.
+//
+// Design, after kernel 5 (csrc/dtw_wavefront.cu) and the microbenchmarks
+// of csrc/mb_wavefront.cu:
+// * One warp a pair; lanes own rows.  A pair runs in strips of 32 rows:
+//   lane l owns row r0 + l and at step s works on column jlo + s - l, so
+//   D(i-1, j) arrives from lane l-1 by one __shfl_up_sync and no block
+//   barrier separates the steps.  The last row of a strip is handed to
+//   lane 0 of the next through shared memory.
+// * Only the band is walked.  Row i's valid columns form one interval
+//   [lo(i), hi(i)] whose ends never decrease with i, so a strip walks
+//   columns lo(r0) .. hi(last row), ~67 + 31 steps at the main shape, not
+//   lb + 31.  kernels/dtw_fused_banded.py:strip_columns is the same rule
+//   in Python, tested against the reference's valid-cell mask.
+// * The cost is out of the dependent chain.  For each chunk of 32 steps
+//   every lane first computes its row's 32 costs (independent FMAs, eight
+//   at a time) into a 32 x 33 shared tile, then the 32 dependent steps run
+//   over the tile: one shuffle, two mins and an add a step.  The query row
+//   stays in the lane's registers for the whole strip (F <= 40; wider
+//   features are summed 40 at a time into the tile); template rows come
+//   from shared memory at an odd row stride, so the 32 lanes, on 32
+//   consecutive template rows, hit 32 banks.
+// * A block holds up to 8 warps = 8 queries against one template, which
+//   is staged once (31 KB at U = 198); query rows come from device memory
+//   (a chunk's features sit in L2).  The host takes fewer warps a block
+//   where shared memory or the batch is short: at one warp a block and
+//   F = 39 the template may have ~1,400 frames, and T is not bounded by
+//   shared memory at all.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,106 +63,108 @@
 namespace {
 
 constexpr float BIG = 1e30f;
-constexpr int SUB = 4;                  // threads per cell
-constexpr int THREADS = 256;
-constexpr int CELLS = THREADS / SUB;    // cells per pass
+constexpr int MAX_WARPS = 8;            // pairs per block, one warp each
+constexpr int TILE = 32;                // rows per strip = steps per cost chunk
+constexpr int TS = TILE + 1;            // tile row stride
+constexpr int QF = 40;                  // query features held in registers
+constexpr int G = 8;                    // costs summed side by side
+constexpr unsigned FULL = 0xffffffffu;
 
-struct PairGeometry {
-  int la, lb, lam1, lbm1, r2;
+struct Pair {
+  int la, lb, lam1, lbm1, r2, w, rb_shift;
   bool banded, windowed;
-  int w, rb_shift;
-  const int* offs;  // [nb] window starts (shared memory), when windowed
+  const int* offs;  // [nb] window starts, when windowed
 
-  __device__ bool valid(int i, int j) const {
-    if (i < 0 || j < 0 || i >= la || j >= lb) return false;
-    if (banded && abs(j * lam1 - i * lbm1) > r2) return false;
-    if (windowed) {
-      int off = offs[i >> rb_shift];
-      if (j < off || j >= off + w) return false;
+  // Valid columns [lo, hi] of row i (empty: lo > hi).  Both ends never
+  // decrease with i.  Mirrors kernels/dtw_fused_banded.py:_row_columns.
+  __device__ void row(int i, int& lo, int& hi) const {
+    if (i >= la) { lo = 1; hi = 0; return; }
+    lo = 0;
+    hi = lb - 1;
+    if (banded) {
+      const int num = i * lbm1 - r2;
+      if (num > 0) lo = (num + lam1 - 1) / lam1;
+      hi = min(hi, (i * lbm1 + r2) / lam1);
     }
-    return true;
+    if (windowed) {
+      const int off = offs[i >> rb_shift];
+      lo = max(lo, off);
+      hi = min(hi, off + w - 1);
+    }
   }
 };
 
-// Squared distance of feature rows a and b, summed by the SUB threads of a
-// cell group (lanes sub = 0..SUB-1 of one warp); every lane gets the sum.
-// All lanes of the warp must call it.
-// The first UNROLL slices are unrolled so their loads issue back to back.
-constexpr int UNROLL = 10;              // covers F <= 40 (F = 39 on the main path)
+// Column c of the row above a strip (the previous strip's last row, held in
+// `edge` for columns lo..hi; BIG elsewhere and above row 0).  The load is
+// clamped in bounds and made by every lane, so no lane branches.
+__device__ __forceinline__ float row_above(const float* edge, int c, int lo, int hi,
+                                           int u_pad) {
+  const float v = edge[min(max(c, 0), u_pad - 1)];
+  return (c >= lo && c <= hi) ? v : BIG;
+}
 
-__device__ __forceinline__ float group_sq_dist(const float* a, const float* b,
-                                               int f_dim, int sub, bool active) {
-  float s = 0.f;
-  if (active) {
-#pragma unroll
-    for (int m = 0; m < UNROLL; ++m) {
-      int f = sub + m * SUB;
-      if (f < f_dim) {
-        float d = a[f] - b[f];
-        s = fmaf(d, d, s);
-      }
-    }
-    for (int f = sub + UNROLL * SUB; f < f_dim; f += SUB) {
-      float d = a[f] - b[f];
-      s = fmaf(d, d, s);
-    }
-  }
-#pragma unroll
-  for (int o = 1; o < SUB; o *= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
+// Template row stride: the features rounded up to whole blocks of QF (zero
+// filled, so the cost loop needs no bound) and odd, so that 32 lanes on 32
+// consecutive rows fall on 32 banks.
+__host__ __device__ __forceinline__ int feature_stride(int f_dim) {
+  return (((f_dim + QF - 1) / QF) * QF) | 1;
 }
 
 template <bool ITAKURA>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MAX_WARPS * 32, 2)
 dtw_banded_kernel(const float* __restrict__ queries, const int* __restrict__ q_lens,
                   const float* __restrict__ bank, const int* __restrict__ bank_lens,
-                  float* __restrict__ out, int n_templates, int t_pad, int u_pad,
-                  int f_dim, int w, int s_max, int rb, int banded, int windowed,
-                  float band_frac, int squared) {
+                  float* __restrict__ out, int n_queries, int n_templates, int t_pad,
+                  int u_pad, int f_dim, int w, int s_max, int rb, int banded,
+                  int windowed, float band_frac, int squared) {
+  constexpr int NS = ITAKURA ? 2 : 1;   // DP states handed from strip to strip
   extern __shared__ float smem[];
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int k = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int sub = tid % SUB;
-  const int cell = tid / SUB;
-  const int fs = f_dim | 1;  // odd row stride: rows fall on other banks
+  const int b = blockIdx.y * warps + warp;
+  const int fs = feature_stride(f_dim);
   const int nb = (t_pad + rb - 1) / rb;
 
-  float* q_s = smem;                       // [t_pad, fs]
-  float* b_s = q_s + t_pad * fs;           // [u_pad, fs]
-  int* offs = reinterpret_cast<int*>(b_s + u_pad * fs);  // [nb]
-  float* bufs = reinterpret_cast<float*>(offs + nb);
+  Pair g;
+  g.lb = min(max(bank_lens[k], 1), u_pad);
 
-  PairGeometry g;
-  g.la = max(q_lens[b], 1);
-  g.lb = max(bank_lens[k], 1);
+  // stage the template once for the block's warps, zero past f_dim
+  float* tmpl = smem;                   // [u_pad][fs]
+  const float* bg = bank + (size_t)k * u_pad * f_dim;
+  for (int idx = threadIdx.x; idx < g.lb * fs; idx += blockDim.x) {
+    const int r = idx / fs, f = idx - r * fs;
+    tmpl[idx] = f < f_dim ? bg[r * f_dim + f] : 0.f;
+  }
+  __syncthreads();
+  if (b >= n_queries) return;           // whole warp: no block barrier follows
+
+  const size_t per_warp = TILE * TS + NS * TILE + NS * u_pad + nb;
+  float* tile = tmpl + (size_t)u_pad * fs + warp * per_warp;  // [TILE][TS] costs
+  float* stage = tile + TILE * TS;      // [NS][TILE] the last row's chunk
+  float* edge = stage + NS * TILE;      // [NS][u_pad] D (and N) of row r0 - 1
+  int* offs = reinterpret_cast<int*>(edge + NS * u_pad);  // [nb]
+
+  g.la = min(max(q_lens[b], 1), t_pad);
   g.lam1 = max(g.la - 1, 1);
   g.lbm1 = g.lb - 1;
   g.banded = banded != 0;
   g.windowed = windowed != 0;
   g.w = w;
-  g.rb_shift = __ffs(rb) - 1;  // rb is a power of two (plan_window: 16 or 32)
+  g.rb_shift = __ffs(rb) - 1;           // rb is a power of two (plan_window: 16 or 32)
   g.offs = offs;
   g.r2 = 0;
   if (g.banded) {
     // f32 multiply + floor, as ops/dtw.py:band_r2 (no contraction, no fast math)
-    float radius = fmaxf(1.0f, __fmul_rn(band_frac, (float)max(g.la, g.lb)));
+    const float radius = fmaxf(1.0f, __fmul_rn(band_frac, (float)max(g.la, g.lb)));
     g.r2 = (int)floorf(__fmul_rn(radius, (float)g.lam1));
   }
-
-  const float* qg = queries + (size_t)b * t_pad * f_dim;
-  const float* bg = bank + (size_t)k * u_pad * f_dim;
-  const int warp = tid / 32, lane = tid % 32, n_warps = THREADS / 32;
-  for (int r = warp; r < g.la; r += n_warps)
-    for (int f = lane; f < f_dim; f += 32) q_s[r * fs + f] = qg[r * f_dim + f];
-  for (int r = warp; r < g.lb; r += n_warps)
-    for (int f = lane; f < f_dim; f += 32) b_s[r * fs + f] = bg[r * f_dim + f];
-  if (g.windowed && tid == 0) {
+  if (g.windowed && lane == 0) {
     int prev = 0;
-    int clip8 = ((max(g.lb - w, 0) + 7) / 8) * 8;
+    const int clip8 = ((max(g.lb - w, 0) + 7) / 8) * 8;
     for (int blk = 0; blk < nb; ++blk) {
-      int num = max(blk * rb * g.lbm1 - g.r2, 0);
-      int jlo = (num + g.lam1 - 1) / g.lam1;
+      const int num = max(blk * rb * g.lbm1 - g.r2, 0);
+      const int jlo = (num + g.lam1 - 1) / g.lam1;
       int off = max((jlo / 8) * 8 - 8, 0);
       off = min(off, clip8);
       off = min(off, prev + s_max);
@@ -149,98 +172,128 @@ dtw_banded_kernel(const float* __restrict__ queries, const int* __restrict__ q_l
       prev = off;
     }
   }
+  __syncwarp();
 
-  float dist;
-  if (!ITAKURA) {
-    // three diagonal buffers indexed by row i + 1 (index 0 is row -1)
-    const int len = t_pad + 2;
-    for (int idx = tid; idx < 3 * len; idx += THREADS) bufs[idx] = BIG;
-    __syncthreads();
-    // Rows of diagonal d inside the band: i*span in [d*lam1 - r2, d*lam1 + r2].
-    // Both ends grow by lam1 <= span per diagonal, so the bounds
-    // blo = ceil(max(num_lo, 0) / span) and bhi = floor(num_hi / span)
-    // advance by at most one row each step: no division in the loop.
-    const int span = g.lam1 + g.lbm1;
-    const int last = g.la + g.lb - 2;
-    int num_lo = -g.r2, num_hi = g.r2, blo = 0, bhi = g.r2 / span;
-    for (int d = 0; d <= last; ++d) {
-      int lo = max(0, d - g.lbm1);
-      int hi = min(g.la - 1, d);
-      if (g.banded) {
-        if (blo * span < num_lo) ++blo;
-        if ((bhi + 1) * span <= num_hi) ++bhi;
-        lo = max(lo, blo);
-        hi = min(hi, bhi);
-        num_lo += g.lam1;
-        num_hi += g.lam1;
-      }
-      float* cur = bufs + (d % 3) * len;
-      const float* p1 = bufs + ((d + 2) % 3) * len;  // diagonal d-1
-      const float* p2 = bufs + ((d + 1) % 3) * len;  // diagonal d-2
-      // also rewrite one row either side: the next two diagonals read there
-      for (int base = lo - 1; base <= hi + 1; base += CELLS) {  // block-uniform
-        int i = base + cell;
-        int j = d - i;
-        bool in = i <= hi + 1;
-        bool ok = in && i >= lo && i <= hi && g.valid(i, j);
-        float sq = group_sq_dist(q_s + i * fs, b_s + j * fs, f_dim, sub, ok);
-        if (sub == 0 && in) {
-          float val = BIG;
-          if (ok) {
-            float pred = (d == 0) ? 0.f : fminf(fminf(p1[i], p1[i + 1]), p2[i]);
-            val = (squared ? sq : sqrtf(sq)) + pred;
+  const float* qg = queries + (size_t)b * t_pad * f_dim;
+  float result = BIG;
+  int pjlo = 0, pjhi = -1;              // columns of row r0 - 1 in `edge` (none above row 0)
+  for (int r0 = 0; r0 < g.la; r0 += TILE) {
+    const int i = r0 + lane;
+    const int r_last = min(r0 + TILE, g.la) - 1;
+    int lo, hi, jlo, jhi, unused;
+    g.row(i, lo, hi);
+    g.row(r0, jlo, unused);
+    g.row(r_last, unused, jhi);
+    if (jhi < jlo) break;               // every row of the strip is empty: unreachable
+    const float* qrow = qg + (size_t)min(i, g.la - 1) * f_dim;
+    float q[QF];
+    if (f_dim <= QF) {
+#pragma unroll
+      for (int f = 0; f < QF; ++f) q[f] = f < f_dim ? qrow[f] : 0.f;
+    }
+    const int n_steps = (jhi - jlo + 1) + (r_last - r0);
+    // DP state: D(i, j-1); the values this lane sent at the previous step;
+    // D(i-1, j-1) and D(i-1, j-2), i.e. what it received one and two steps ago
+    // (lane 0: the row above, read from `edge`)
+    float left = BIG, last = BIG, last_n = BIG;
+    float up1 = lane == 0 ? row_above(edge, jlo - 1, pjlo, pjhi, u_pad) : BIG;
+    float up2 = lane == 0 ? row_above(edge, jlo - 2, pjlo, pjhi, u_pad) : BIG;
+    const bool origin = lane == 0 && r0 == 0;  // lane 0 of row 0 starts from D(-1,-1) = 0
+    for (int s0 = 0; s0 < n_steps; s0 += TILE) {
+      const int jc = jlo + s0 - lane;   // this lane's column at step s0
+      const int n_here = min(TILE, n_steps - s0);
+      // 1. this lane's 32 costs of the chunk, off the dependent chain
+      for (int fb = 0; fb < f_dim; fb += QF) {
+        if (f_dim > QF) {
+#pragma unroll
+          for (int f = 0; f < QF; ++f) q[f] = fb + f < f_dim ? qrow[fb + f] : 0.f;
+        }
+        const bool last_block = fb + QF >= f_dim;
+        for (int s = 0; s < n_here; s += G) {
+          float acc[G];
+          int at[G];
+#pragma unroll
+          for (int e = 0; e < G; ++e) {
+            at[e] = min(max(jc + s + e, 0), g.lb - 1) * fs + fb;
+            acc[e] = fb == 0 ? 0.f : tile[lane * TS + s + e];
           }
-          cur[i + 1] = val;
+          // features past f_dim are 0 in both q and the template: d = 0 adds 0
+#pragma unroll
+          for (int f = 0; f < QF; ++f) {
+#pragma unroll
+            for (int e = 0; e < G; ++e) {
+              const float d = q[f] - tmpl[at[e] + f];
+              acc[e] = fmaf(d, d, acc[e]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < G; ++e)
+            tile[lane * TS + s + e] = (last_block && !squared) ? sqrtf(acc[e]) : acc[e];
         }
       }
-      __syncthreads();
-    }
-    dist = bufs[(last % 3) * len + g.la];
-  } else {
-    // two rows of the D and N states, indexed by column j + 2
-    const int len = u_pad + 2;
-    float* d_prev = bufs;
-    float* n_prev = bufs + len;
-    float* d_cur = bufs + 2 * len;
-    float* n_cur = bufs + 3 * len;
-    for (int idx = tid; idx < 4 * len; idx += THREADS) bufs[idx] = BIG;
-    __syncthreads();
-    for (int i = 0; i < g.la; ++i) {
-      for (int base = 0; base < g.lb; base += CELLS) {  // block-uniform
-        int j = base + cell;
-        bool in = j < g.lb;
-        bool ok = in && g.valid(i, j);
-        float sq = group_sq_dist(q_s + i * fs, b_s + j * fs, f_dim, sub, ok);
-        if (sub == 0 && in) {
-          float nv = BIG, dv = BIG;
+      // 2. the 32 dependent steps over the tile
+#pragma unroll 8
+      for (int s = 0; s < n_here; ++s) {
+        const int j = jc + s;
+        const bool ok = j >= lo && j <= hi;
+        const float c = tile[lane * TS + s];
+        const float up_e = row_above(edge, j, pjlo, pjhi, u_pad);
+        float up = __shfl_up_sync(FULL, last, 1);      // D(i-1, j) from lane l-1
+        if (lane == 0) up = up_e;
+        const float d1 = (origin && j == 0) ? 0.f : up1;  // D(i-1, j-1)
+        float val;
+        if (!ITAKURA) {
+          val = ok ? c + fminf(left, fminf(up, d1)) : BIG;
+          left = val;
+          if (lane == TILE - 1) stage[s] = val;
+        } else {
+          const float up_ne = row_above(edge + u_pad, j, pjlo, pjhi, u_pad);
+          float up_n = __shfl_up_sync(FULL, last_n, 1);  // N(i-1, j)
+          if (lane == 0) up_n = up_ne;
+          const float d2 = up2;                          // D(i-1, j-2)
+          float nv = BIG;
+          val = BIG;
           if (ok) {
-            float c = squared ? sq : sqrtf(sq);
-            float s1 = (i == 0 && j == 0) ? 0.f : d_prev[j + 1];  // D(i-1, j-1)
-            float s2 = d_prev[j];                                 // D(i-1, j-2)
-            nv = c + fminf(s1, s2);
-            dv = fminf(nv, c + n_prev[j + 2]);  // (1,0) after a non-(1,0) step
+            nv = c + fminf(d1, d2);
+            val = fminf(nv, c + up_n);   // one (1,0) step after a non-(1,0) one
           }
-          d_cur[j + 2] = dv;
-          n_cur[j + 2] = nv;
+          last_n = nv;
+          if (lane == TILE - 1) {
+            stage[s] = val;
+            stage[TILE + s] = nv;
+          }
         }
+        if (i == g.la - 1 && j == g.lb - 1) result = val;
+        up2 = up1;
+        up1 = up;
+        last = val;
       }
-      __syncthreads();
-      float* t0 = d_prev; d_prev = d_cur; d_cur = t0;
-      float* t1 = n_prev; n_prev = n_cur; n_cur = t1;
+      // 3. hand the last row's chunk (columns jlo+s0-31 .. jlo+s0) to the
+      // next strip; lane 0 of this strip reads only columns > jlo+s0 from
+      // here on, so the overwrite is safe
+      __syncwarp();
+      const int col = jlo + s0 + lane - (TILE - 1);
+      if (col >= 0 && col < u_pad) {
+        edge[col] = stage[lane];
+        if (ITAKURA) edge[u_pad + col] = stage[TILE + lane];
+      }
+      __syncwarp();
     }
-    dist = d_prev[g.lb + 1];
+    pjlo = jlo;
+    pjhi = jhi;
   }
-  if (tid == 0) {
-    if (!g.valid(g.la - 1, g.lb - 1)) dist = BIG;  // answer cell outside the window
-    out[(size_t)b * n_templates + k] = dist / (float)(q_lens[b] + bank_lens[k]);
-  }
+  // the lane that owns row la-1 holds the answer
+  result = __shfl_sync(FULL, result, (g.la - 1) % TILE);
+  if (lane == 0)
+    out[(size_t)b * n_templates + k] = result / (float)(q_lens[b] + bank_lens[k]);
 }
 
-size_t dtw_banded_smem_bytes(int t_pad, int u_pad, int f_dim, int rb) {
-  int fs = f_dim | 1;
-  int nb = (t_pad + rb - 1) / rb;
-  int bufs = max(3 * (t_pad + 2), 4 * (u_pad + 2));
-  return sizeof(float) * ((size_t)(t_pad + u_pad) * fs + bufs) + sizeof(int) * nb;
+size_t dtw_banded_smem_bytes(int warps, int t_pad, int u_pad, int f_dim, int rb,
+                             bool itakura) {
+  const int ns = itakura ? 2 : 1;
+  const size_t nb = (t_pad + rb - 1) / rb;
+  const size_t per_warp = TILE * TS + ns * TILE + (size_t)ns * u_pad + nb;
+  return sizeof(float) * ((size_t)u_pad * feature_stride(f_dim) + warps * per_warp);
 }
 
 }  // namespace
@@ -250,16 +303,30 @@ extern "C" int dtw_banded(const void* queries, const void* q_lens, const void* b
                           int n_templates, int t_pad, int u_pad, int f_dim, int w,
                           int s_max, int rb, int banded, int windowed,
                           float band_frac, int squared, int itakura, void* stream) {
-  if (rb <= 0 || (rb & (rb - 1)) != 0) return (int)cudaErrorInvalidValue;
-  size_t smem = dtw_banded_smem_bytes(t_pad, u_pad, f_dim, rb);
-  auto kernel = itakura ? dtw_banded_kernel<true> : dtw_banded_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rb <= 0 || (rb & (rb - 1)) != 0 || t_pad < 1 || u_pad < 1 || f_dim < 1)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_templates, n_queries);
-  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  // fewest idle warps for short batches; fewer warps where shared memory is short
+  int warps = MAX_WARPS;
+  while (warps > 1 && warps / 2 >= n_queries) warps /= 2;
+  while (warps > 1 &&
+         dtw_banded_smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura) > (size_t)optin)
+    warps /= 2;
+  const size_t smem = dtw_banded_smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura);
+  auto kernel = itakura ? dtw_banded_kernel<true> : dtw_banded_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so it cannot surface at the next launch
+    return (int)err;
+  }
+  dim3 grid(n_templates, (n_queries + warps - 1) / warps);
+  kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
       (const float*)queries, (const int*)q_lens, (const float*)bank,
-      (const int*)bank_lens, (float*)out, n_templates, t_pad, u_pad, f_dim, w,
-      s_max, rb, banded, windowed, band_frac, squared);
+      (const int*)bank_lens, (float*)out, n_queries, n_templates, t_pad, u_pad, f_dim,
+      w, s_max, rb, banded, windowed, band_frac, squared);
   return (int)cudaGetLastError();
 }

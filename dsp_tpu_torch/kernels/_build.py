@@ -13,8 +13,12 @@ No ``-use_fast_math``: it would change ``sqrtf`` and the f32 band rule of
 the DTW kernel.  The library goes into ``build/`` at the repository root
 and its name carries a hash of the sources and flags, so a second run
 loads it without rebuilding and an edited source builds anew.  The build
-happens at first use, never at import.  Every C entry point returns
-``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
+happens at first use, never at import.
+
+Every wrapper launches through :func:`launch`, which binds each C entry
+point once, passes PyTorch's current stream of the tensors' device, raises
+on the error code every entry point returns (``cudaGetLastError()`` after
+its launch) and counts the launch in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -55,6 +59,10 @@ _SIGNATURES = {
 }
 
 _lib = None
+_fns: dict = {}              # bound C entry points, filled on first launch
+_raw_stream = None           # PyTorch's current-stream getter, bound on first launch
+# kernel launches since the last reset, per C entry point (main-path proof)
+LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
 build_seconds: float | None = None   # wall time of the last nvcc run (None: cached)
 
 
@@ -134,8 +142,29 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a C entry point returned a CUDA error code."""
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {err}")
+def _bind(name: str):
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+
+        # the raw ``cudaStream_t`` of the current stream as an int: the
+        # getter PyTorch's own Triton launcher uses, with no Stream object
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    fn = _fns[name] = getattr(lib(), name)
+    return fn
+
+
+def launch(name: str, device, *args) -> None:
+    """Call C entry point ``name`` with ``args`` and the current stream of
+    CUDA ``device`` (a ``torch.device`` with an index, as a tensor's is);
+    raise if it returns an error, else count the launch."""
+    fn = _fns.get(name) or _bind(name)
+    err = fn(*args, _raw_stream(device.index))
+    if err:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

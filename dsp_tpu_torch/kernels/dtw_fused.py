@@ -31,7 +31,6 @@ from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.ops import dtw as tdtw
 
 BIG = tdtw.BIG
-LAUNCHES = 0                 # kernel launches since the last reset (main-path proof)
 MAX_TEMPLATE_FRAMES = 1024   # one thread per template column
 MAX_FEATURES = 128           # the widest instantiation of the kernel
 
@@ -101,7 +100,6 @@ def dtw_batch_fused(queries: torch.Tensor, q_lens: torch.Tensor,
     TPU kernel does), beyond 1,024 template frames or 128 features, and
     where the query's shared memory (T x round_up(F, 4) floats) exceeds
     227 KB the launch fails and this raises RuntimeError."""
-    global LAUNCHES
     _check_config(cfg)
     if queries.device.type == "cpu":
         return dtw_batch_fused_plain(queries, q_lens, bank, bank_lens, cfg)
@@ -132,10 +130,7 @@ def dtw_batch_fused(queries: torch.Tensor, q_lens: torch.Tensor,
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b == 0 or k == 0:
         return out
-    err = _build.lib().dtw_fused(
-        queries.data_ptr(), q_lens.data_ptr(), bank.data_ptr(),
-        bank_lens.data_ptr(), out.data_ptr(), b, k, t, u, f, int(cfg.squared),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "dtw_fused")
-    LAUNCHES += 1
+    _build.launch("dtw_fused", dev, queries.data_ptr(), q_lens.data_ptr(),
+                  bank.data_ptr(), bank_lens.data_ptr(), out.data_ptr(), b, k, t, u,
+                  f, int(cfg.squared))
     return out

@@ -22,7 +22,6 @@ from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.ops import dtw as tdtw
 
 BIG = tdtw.BIG
-LAUNCHES = 0    # kernel launches since the last reset (main-path proof)
 
 
 def _check_slope(cfg: DtwConfig) -> None:
@@ -78,7 +77,6 @@ def dtw_from_cost_pallas(cost: torch.Tensor, len_a: torch.Tensor,
     ``cost`` must be BIG (1e30) at masked cells, as ``ops/dtw.py``'s
     ``masked_cost`` builds it; only cells i < len_a, j < len_b are read.
     Lengths are clamped to [1, T] and [1, U]."""
-    global LAUNCHES
     if cost.device.type == "cpu":
         return dtw_from_cost_plain(cost, len_a, len_b)
     if cost.device.type != "cuda":
@@ -101,11 +99,8 @@ def dtw_from_cost_pallas(cost: torch.Tensor, len_a: torch.Tensor,
         return out
     if t == 0 or u == 0:
         raise ValueError(f"empty cost matrices {tuple(cost.shape)}")
-    err = _build.lib().dtw_wavefront(
-        cost.data_ptr(), len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(),
-        p, t, u, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "dtw_wavefront")
-    LAUNCHES += 1
+    _build.launch("dtw_wavefront", dev, cost.data_ptr(), len_a.data_ptr(),
+                  len_b.data_ptr(), out.data_ptr(), p, t, u)
     return out
 
 

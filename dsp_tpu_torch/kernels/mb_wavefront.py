@@ -9,10 +9,10 @@ whose header says what bounds each and what its design does about it.
 
 Each wrapper takes CUDA tensors to its kernel and CPU tensors to its plain
 version (``*_plain``, the same function in PyTorch); it never falls back
-from one to the other.  ``LAUNCHES`` counts each kernel's launches.  The
-knobs ``warps`` (warps a block, one warp a pair or row) and
-``block_rows`` (thread rows of a 32-wide tile block) change the launch
-geometry, never the result.
+from one to the other.  ``_build.LAUNCHES["mb_<name>"]`` counts each
+kernel's launches.  The knobs ``warps`` (warps a block, one warp a pair or
+row) and ``block_rows`` (thread rows of a 32-wide tile block) change the
+launch geometry, never the result.
 """
 
 from __future__ import annotations
@@ -26,9 +26,6 @@ WARPS = 4
 BLOCK_ROWS = 4          # fastest of 4, 8 and 16 for E2 and E3 on an H100 (PERF.md)
 CELL_WIDTHS = (32, 64, 128, 256, 512)   # T or width: T / 32 cells a lane
 MAX_ROLLS = 2
-# kernel launches since the last reset (main-path proof), per kernel
-LAUNCHES = dict.fromkeys(("dp_diet", "dma_fetch", "anatomy", "trivial",
-                          "transpose", "skew"), 0)
 
 
 def _want(name: str, x: torch.Tensor, dtype: torch.dtype, shape) -> None:
@@ -44,17 +41,19 @@ def _want_3d(name: str, x: torch.Tensor) -> tuple[int, int, int]:
     return tuple(x.shape)
 
 
-def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+def _on_card(name: str, x: torch.Tensor, *rest: torch.Tensor) -> bool:
     """False for CPU tensors (the plain version), True for contiguous CUDA
     tensors (the kernel); raises on anything else."""
-    dev = tensors[0].device
-    if any(x.device != dev for x in tensors):
-        raise ValueError(f"{name}: tensors on {[str(x.device) for x in tensors]}")
-    if dev.type == "cpu":
+    if rest:
+        dev = x.device
+        if any(y.device != dev for y in rest):
+            raise ValueError(f"{name}: tensors on "
+                             f"{[str(y.device) for y in (x, *rest)]}")
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"{name}: unsupported device {x.device}")
         return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if not all(x.is_contiguous() for x in tensors):
+    if not x.is_contiguous() or (rest and not all(y.is_contiguous() for y in rest)):
         raise ValueError(f"{name}: inputs must be contiguous")
     return True
 
@@ -73,18 +72,6 @@ def _aligned(name: str, x: torch.Tensor) -> None:
 def _knob(name: str, what: str, v: int, hi: int) -> None:
     if not 1 <= v <= hi:
         raise ValueError(f"{name}: {what} = {v}, want 1..{hi}")
-
-
-def _launch(kernel: str, dev: torch.device, *args) -> None:
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(_build.lib(), "mb_" + kernel)(*args, stream)
-    _build.check(err, "mb_" + kernel)
-    LAUNCHES[kernel] += 1
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------- E1: DP
@@ -127,8 +114,8 @@ def dp_diet(skew: torch.Tensor, ktarget: torch.Tensor, la: torch.Tensor,
     if p == 0 or d == 0:     # no diagonal: acc stays 0
         return torch.zeros((p, 1), dtype=torch.float32, device=skew.device)
     out = torch.empty((p, 1), dtype=torch.float32, device=skew.device)
-    _launch("dp_diet", skew.device, skew.data_ptr(), ktarget.data_ptr(),
-            la.data_ptr(), out.data_ptr(), p, d, t, warps)
+    _build.launch("mb_dp_diet", skew.device, skew.data_ptr(), ktarget.data_ptr(),
+                  la.data_ptr(), out.data_ptr(), p, d, t, warps)
     return out
 
 
@@ -163,8 +150,8 @@ def dma_fetch(skew: torch.Tensor, ktarget: torch.Tensor,
         return torch.zeros((p, 1), dtype=torch.float32, device=skew.device)
     out = torch.empty((p, 1), dtype=torch.float32, device=skew.device)
     sink = torch.empty((1,), dtype=torch.int32, device=skew.device)
-    _launch("dma_fetch", skew.device, skew.data_ptr(), ktarget.data_ptr(),
-            out.data_ptr(), sink.data_ptr(), _SALT, p, d, t, warps)
+    _build.launch("mb_dma_fetch", skew.device, skew.data_ptr(), ktarget.data_ptr(),
+                  out.data_ptr(), sink.data_ptr(), _SALT, p, d, t, warps)
     return out
 
 
@@ -208,9 +195,9 @@ def anatomy(x: torch.Tensor, n_rolls: int, steps: int, warps: int = WARPS,
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    _launch("anatomy", x.device, x.data_ptr(), out.data_ptr(),
-            None if cycles is None else cycles.data_ptr(), rows, width,
-            n_rolls, steps, warps)
+    _build.launch("mb_anatomy", x.device, x.data_ptr(), out.data_ptr(),
+                  None if cycles is None else cycles.data_ptr(), rows, width,
+                  n_rolls, steps, warps)
     return out
 
 
@@ -225,11 +212,12 @@ def trivial(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"trivial: want float32, got {x.dtype}")
     if not _on_card("trivial", x):
         return trivial_plain(x)
-    if x.numel() >= 2**31:
-        raise ValueError(f"trivial: {x.numel()} elements, want < 2**31")
+    n = x.numel()
+    if n >= 2**31:
+        raise ValueError(f"trivial: {n} elements, want < 2**31")
     out = torch.empty_like(x)
-    if x.numel():
-        _launch("trivial", x.device, x.data_ptr(), out.data_ptr(), x.numel())
+    if n:
+        _build.launch("mb_trivial", x.device, x.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -252,8 +240,8 @@ def transpose(x: torch.Tensor, block_rows: int = BLOCK_ROWS) -> torch.Tensor:
     _tiles_ok("transpose", p * -(-r // 32) * -(-c // 32))
     out = torch.empty((p, c, r), dtype=x.dtype, device=x.device)
     if out.numel():
-        _launch("transpose", x.device, x.data_ptr(), out.data_ptr(), p, r, c,
-                block_rows)
+        _build.launch("mb_transpose", x.device, x.data_ptr(), out.data_ptr(), p, r,
+                      c, block_rows)
     return out
 
 
@@ -287,8 +275,8 @@ def skew(x: torch.Tensor, d_pad: int, block_rows: int = BLOCK_ROWS) -> torch.Ten
     _tiles_ok("skew", q * -(-t // 32) * -(-d_pad // 32))
     out = torch.empty((q, d_pad, t), dtype=x.dtype, device=x.device)
     if out.numel():
-        _launch("skew", x.device, x.data_ptr(), out.data_ptr(), q, t, u, d_pad,
-                block_rows)
+        _build.launch("mb_skew", x.device, x.data_ptr(), out.data_ptr(), q, t, u,
+                      d_pad, block_rows)
     return out
 
 

@@ -19,8 +19,6 @@ from dsp_tpu_torch.config import FrontendConfig
 from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.ops import frontend as fe
 
-LAUNCHES = 0    # kernel launches since the last reset (main-path proof)
-
 
 def _check_config(cfg: FrontendConfig, width: int) -> None:
     if cfg.denoise is not None:
@@ -43,7 +41,6 @@ def mfcc_frames_plain(frames: torch.Tensor,
 def mfcc_frames_fused(frames: torch.Tensor,
                       cfg: FrontendConfig = FrontendConfig()) -> torch.Tensor:
     """Pre-emphasised frames [N, L] float32 -> MFCC [N, n_mfcc]."""
-    global LAUNCHES
     if frames.dim() != 2:
         raise ValueError(f"frames must be [N, L], got {tuple(frames.shape)}")
     _check_config(cfg, frames.shape[1])
@@ -59,15 +56,12 @@ def mfcc_frames_fused(frames: torch.Tensor,
     if n == 0:
         return out
     mats = fe.make_matrices(cfg, frames.device)
-    err = _build.lib().mfcc_fused(
-        frames.data_ptr(), mats.window.data_ptr(), mats.dft_cos.data_ptr(),
-        mats.dft_sin.data_ptr(), mats.mel_fb_t.data_ptr(),
-        mats.dct_t.data_ptr(), mats.lifter.data_ptr(), out.data_ptr(), n,
-        cfg.frame_len, cfg.n_bins, cfg.n_mels, cfg.n_mfcc, float(cfg.n_fft),
-        float(cfg.log_floor), int(cfg.use_energy),
-        torch.cuda.current_stream(frames.device).cuda_stream)
-    _build.check(err, "mfcc_fused")
-    LAUNCHES += 1
+    _build.launch("mfcc_fused", frames.device, frames.data_ptr(),
+                  mats.window.data_ptr(), mats.dft_cos.data_ptr(),
+                  mats.dft_sin.data_ptr(), mats.mel_fb_t.data_ptr(),
+                  mats.dct_t.data_ptr(), mats.lifter.data_ptr(), out.data_ptr(), n,
+                  cfg.frame_len, cfg.n_bins, cfg.n_mels, cfg.n_mfcc,
+                  float(cfg.n_fft), float(cfg.log_floor), int(cfg.use_energy))
     return out
 
 

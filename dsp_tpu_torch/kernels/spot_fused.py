@@ -19,7 +19,6 @@ import torch
 from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.ops.spot import subseq_dtw_batch_plain
 
-LAUNCHES = 0                 # kernel launches since the last reset (main-path proof)
 MAX_TEMPLATE_FRAMES = 1024   # one thread per template row
 MAX_FEATURES = 128           # the widest instantiation of the kernel
 
@@ -35,7 +34,6 @@ def subseq_dtw_fused(streams: torch.Tensor, stream_lens: torch.Tensor,
     T up to 1,024 frames fits.  Above 1,024 frames or 128 features this
     raises ValueError; where the ring does not fit (F = 128 from about
     400 frames) the launch fails and this raises RuntimeError."""
-    global LAUNCHES
     if streams.device.type == "cpu":
         return subseq_dtw_batch_plain(streams, stream_lens, bank, bank_lens,
                                       squared)
@@ -68,10 +66,7 @@ def subseq_dtw_fused(streams: torch.Tensor, stream_lens: torch.Tensor,
             f"(at most {MAX_TEMPLATE_FRAMES} frames and {MAX_FEATURES} features)")
     if b == 0 or k == 0 or u == 0:
         return norm, start
-    err = _build.lib().spot_subseq(
-        streams.data_ptr(), stream_lens.data_ptr(), bank.data_ptr(),
-        bank_lens.data_ptr(), norm.data_ptr(), start.data_ptr(), b, k, u, t, f,
-        int(squared), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "spot_subseq")
-    LAUNCHES += 1
+    _build.launch("spot_subseq", dev, streams.data_ptr(), stream_lens.data_ptr(),
+                  bank.data_ptr(), bank_lens.data_ptr(), norm.data_ptr(),
+                  start.data_ptr(), b, k, u, t, f, int(squared))
     return norm, start

@@ -32,6 +32,7 @@ import torch
 from dsp_tpu_torch import pipeline as tpl
 from dsp_tpu_torch.config import DtwConfig, FrontendConfig, PipelineConfig
 from dsp_tpu_torch.io import synth_word
+from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import dtw_fused as kfu
 from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
 from dsp_tpu_torch.kernels import dtw_pallas as kwf
@@ -83,24 +84,25 @@ def test_dtw_kernel_matches_plain(dev, kw, shape):
     b, k, t, u = shape
     args = _dtw_inputs(dev, b, k, t, u)
     cfg = DtwConfig(**kw)
-    before = kdtw.LAUNCHES
+    before = _build.LAUNCHES["dtw_banded"]
     got = kdtw.dtw_batch_fused_banded(*args, cfg)
     torch.cuda.synchronize()
-    assert kdtw.LAUNCHES == before + 1
+    assert _build.LAUNCHES["dtw_banded"] == before + 1
     _check_dtw(got, kdtw.dtw_batch_plain(*args, cfg))
 
 
 @pytest.mark.parametrize("b,k", [(1, 1), (1, 10), (8, 10)])
 def test_auto_takes_the_kernel_at_any_batch_size(dev, b, k):
     args = _dtw_inputs(dev, b, k, 60, 60, seed=2)
-    before = kdtw.LAUNCHES
+    before = _build.LAUNCHES["dtw_banded"]
     got = tpl.dtw_pairs(*args, DtwConfig())
     torch.cuda.synchronize()
-    assert kdtw.LAUNCHES == before + 1
+    assert _build.LAUNCHES["dtw_banded"] == before + 1
     _check_dtw(got, tpl.dtw_pairs(*args, DtwConfig(impl="scan")))
-    before, k5 = kdtw.LAUNCHES, kwf.LAUNCHES
+    n = _build.LAUNCHES
+    before, k5 = n["dtw_banded"], n["dtw_wavefront"]
     tpl.dtw_pairs(*args, DtwConfig(max_warp_scale=None))     # the wavefront kernel
-    assert kdtw.LAUNCHES == before and kwf.LAUNCHES == k5 + 1
+    assert n["dtw_banded"] == before and n["dtw_wavefront"] == k5 + 1
 
 
 def test_dtw_kernel_short_lengths_and_empty(dev):
@@ -124,6 +126,66 @@ def test_dtw_wrapper_rejects_what_the_kernel_does_not_take(dev):
         kdtw.dtw_batch_fused_banded(q.double(), ql, bk, bl)
 
 
+# lengths at the strip edges of kernel 1's walk, and T
+STRIP_LENGTHS = [1, 31, 32, 33, 63, 64, 65, 198]
+
+
+@pytest.mark.parametrize("kw", [{}, {"squared": True}, {"slope": "itakura"},
+                                {"band_frac": None},
+                                {"band_frac": None, "slope": "itakura"}])
+def test_dtw_kernel_at_strip_edge_lengths(dev, kw):
+    n = len(STRIP_LENGTHS)
+    q, _, bk, _ = _dtw_inputs(dev, n, n, 198, 198, seed=3)
+    lens = torch.tensor(STRIP_LENGTHS, dtype=torch.int32, device=dev)
+    cfg = DtwConfig(**kw)
+    _check_dtw(kdtw.dtw_batch_fused_banded(q, lens, bk, lens, cfg),
+               kdtw.dtw_batch_plain(q, lens, bk, lens, cfg))
+
+
+@pytest.mark.parametrize("kw", [{}, {"squared": True}, {"slope": "itakura"},
+                                {"band_frac": None}])
+def test_dtw_kernel_self_pair_is_exactly_zero(dev, kw):
+    """The kernel sums (a-b)^2 exactly: a sequence against itself is 0 (the
+    plain version's |a|^2+|b|^2-2ab expansion leaves a residue)."""
+    q, ql, _, _ = _dtw_inputs(dev, 6, 1, 198, 198, seed=4, min_len=20)
+    got = kdtw.dtw_batch_fused_banded(q, ql, q, ql, DtwConfig(**kw))
+    assert (torch.diagonal(got) == 0).all()
+
+
+@pytest.mark.parametrize("f", [1, 13, 40, 41, 60, 100])
+def test_dtw_kernel_any_feature_width(dev, f):
+    """Widths other than the main path's 39: zero-padded template columns,
+    and beyond 40 features the cost summed 40 at a time."""
+    for kw in ({}, {"slope": "itakura"}):
+        args = _dtw_inputs(dev, 5, 4, 70, 64, f=f, seed=f)
+        _check_dtw(kdtw.dtw_batch_fused_banded(*args, DtwConfig(**kw)),
+                   kdtw.dtw_batch_plain(*args, DtwConfig(**kw)))
+
+
+def test_dtw_kernel_largest_template(dev):
+    """The longest template a one-warp block holds at F = 39 and T = 198
+    (a warp also keeps T / 32 window offsets)."""
+    for kw, u in (({}, 1357), ({"slope": "itakura"}, 1325)):
+        args = _dtw_inputs(dev, 1, 1, 198, u, seed=6)
+        _check_dtw(kdtw.dtw_batch_fused_banded(*args, DtwConfig(band_frac=None, **kw)),
+                   kdtw.dtw_batch_plain(*args, DtwConfig(band_frac=None, **kw)))
+        too_long = _dtw_inputs(dev, 1, 1, 20, u + 1, seed=6)
+        with pytest.raises(RuntimeError):
+            kdtw.dtw_batch_fused_banded(*too_long, DtwConfig(band_frac=None, **kw))
+
+
+def test_dtw_kernel_window_narrower_than_the_band(dev):
+    """Warps steeper than max_warp_scale: the window falls behind the band
+    and cuts it, so some pairs become unreachable; the kernel must cut the
+    same cells as the plain version."""
+    cfg = DtwConfig(band_frac=0.1, max_warp_scale=1.0)
+    q, ql, bk, bl = _dtw_inputs(dev, 5, 6, 64, 400, seed=5)
+    got = kdtw.dtw_batch_fused_banded(q, ql, bk, bl, cfg)
+    want = kdtw.dtw_batch_plain(q, ql, bk, bl, cfg)
+    _check_dtw(got, want)
+    assert (want.cpu() >= 1e20).any() and (want.cpu() < 1e20).any()
+
+
 @pytest.mark.parametrize("kw", [{}, {"use_energy": True}, {"n_fft": 256},
                                 {"n_fft": 1024, "n_mels": 40, "n_mfcc": 20}])
 @pytest.mark.parametrize("n_sigs", [1, 3])
@@ -133,10 +195,10 @@ def test_mfcc_kernel_matches_plain(dev, kw, n_sigs):
                                    for s in range(n_sigs)])).to(dev)
     frames = fe.frame(fe.preemphasis(x, cfg.preemphasis), cfg.frame_len,
                       cfg.hop_len).reshape(-1, cfg.frame_len).contiguous()
-    before = kmf.LAUNCHES
+    before = _build.LAUNCHES["mfcc_fused"]
     got = kmf.mfcc_frames_fused(frames, cfg)
     torch.cuda.synchronize()
-    assert kmf.LAUNCHES == before + 1
+    assert _build.LAUNCHES["mfcc_fused"] == before + 1
     want = kmf.mfcc_frames_plain(frames, cfg)
     assert got.shape == want.shape == (frames.shape[0], cfg.n_mfcc)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
@@ -148,9 +210,9 @@ def test_mfcc_fused_signals_match_plain(dev, n_sigs):
     cfg = FrontendConfig()
     x = torch.from_numpy(np.stack([synth_word("two", s, max_samples=9000)
                                    for s in range(n_sigs)])).to(dev)
-    before = kmf.LAUNCHES
+    before = _build.LAUNCHES["mfcc_fused"]
     got = kmf.mfcc_fused(x, cfg)
-    assert kmf.LAUNCHES == before + 1
+    assert _build.LAUNCHES["mfcc_fused"] == before + 1
     torch.testing.assert_close(got, fe.mfcc(x, cfg, fe.make_matrices(cfg, dev)),
                                rtol=1e-3, atol=1e-3)
 
@@ -173,13 +235,14 @@ def test_pipeline_routes_cuda_tensors_through_both_kernels(dev):
                            cfg.max_samples, dev)
     bx, bn = tpl.pad_signals([synth_word(w, 10 + i) for w in words for i in range(4)],
                              cfg.max_samples, dev)
-    d0, m0 = kdtw.LAUNCHES, kmf.LAUNCHES
+    d0, m0 = _build.LAUNCHES["dtw_banded"], _build.LAUNCHES["mfcc_fused"]
     feats = tpl.extract_features(x, n, cfg)
     bank = tpl.extract_features(bx, bn, cfg)
     ids = torch.tensor([0] * 4 + [1] * 4, dtype=torch.int32, device=dev)
     labels, dists = tpl.classify_features(feats, bank, ids, cfg=cfg)
     torch.cuda.synchronize()
-    assert kmf.LAUNCHES == m0 + 2 and kdtw.LAUNCHES == d0 + 1
+    assert (_build.LAUNCHES["mfcc_fused"], _build.LAUNCHES["dtw_banded"]) == (m0 + 2,
+                                                                         d0 + 1)
     assert labels.tolist() == ids.tolist()
     plain = tpl.dtw_pairs(feats.feats, feats.length, bank.feats, bank.length,
                           DtwConfig(impl="scan"))
@@ -221,10 +284,10 @@ def _check_spot(got, want, s_lens, b_lens):
 def test_spot_kernel_matches_plain(dev, shape, squared):
     b, k, u, t, f = shape
     args = _spot_inputs(dev, b, k, u, t, f)
-    before = ksp.LAUNCHES
+    before = _build.LAUNCHES["spot_subseq"]
     got = ksp.subseq_dtw_fused(*args, squared=squared)
     torch.cuda.synchronize()
-    assert ksp.LAUNCHES == before + 1
+    assert _build.LAUNCHES["spot_subseq"] == before + 1
     _check_spot(got, ksp.subseq_dtw_batch_plain(*args, squared=squared),
                 args[1], args[3])
 
@@ -246,10 +309,10 @@ def test_spot_kernel_zero_cost_tie_and_short_lengths(dev):
 def test_spot_auto_takes_the_kernel_at_any_stream_length(dev):
     for u in (5, 200, 6000):
         args = _spot_inputs(dev, 2, 3, u, 40, seed=u)
-        before = ksp.LAUNCHES
+        before = _build.LAUNCHES["spot_subseq"]
         got = tsp.subseq_dtw_batch(*args)
         torch.cuda.synchronize()
-        assert ksp.LAUNCHES == before + 1
+        assert _build.LAUNCHES["spot_subseq"] == before + 1
         _check_spot(got, tsp.subseq_dtw_batch(*args, impl="scan"), args[1], args[3])
 
 
@@ -285,11 +348,11 @@ def test_keyword_spotter_on_the_card_matches_the_plain_route(dev):
         rec.enroll(lab, [synth_word(lab, i) for i in range(3)])
     sigs = [synth_spotting_stream(["zero", "one"], ["zero", "one", "three", "four"],
                                   seed=s, n_words=5)[0] for s in (2, 7)]
-    before = ksp.LAUNCHES
+    before = _build.LAUNCHES["spot_subseq"]
     spotter = KeywordSpotter(rec)
     thr = spotter.calibrate_threshold()
     got = spotter.scores(sigs)
-    assert ksp.LAUNCHES > before
+    assert _build.LAUNCHES["spot_subseq"] > before
     plain = KeywordSpotter(rec, impl="scan")
     assert thr == pytest.approx(plain.calibrate_threshold(), rel=1e-4)
     for (gn, gs), (wn, ws) in zip(got, plain.scores(sigs)):
@@ -306,10 +369,10 @@ def test_fused_kernel_matches_plain_and_banded_unbanded(dev, shape, squared):
     b, k, t, u, f = shape
     args = _dtw_inputs(dev, b, k, t, u, f=f, seed=7)
     cfg = DtwConfig(band_frac=None, squared=squared)
-    before = kfu.LAUNCHES
+    before = _build.LAUNCHES["dtw_fused"]
     got = kfu.dtw_batch_fused(*args, cfg)
     torch.cuda.synchronize()
-    assert kfu.LAUNCHES == before + 1
+    assert _build.LAUNCHES["dtw_fused"] == before + 1
     for want in (kfu.dtw_batch_fused_plain(*args, cfg),
                  kdtw.dtw_batch_fused_banded(*args, cfg)):
         got_n, want_n = got.cpu().numpy(), want.cpu().numpy()
@@ -349,10 +412,10 @@ def test_wavefront_kernel_matches_plain(dev, kw, shape):
     cost = tdtw.masked_cost(q, ql, bk, bl, cfg).reshape(b * k, t, u).contiguous()
     la = ql[:, None].expand(b, k).reshape(-1).contiguous()
     lb = bl[None, :].expand(b, k).reshape(-1).contiguous()
-    before = kwf.LAUNCHES
+    before = _build.LAUNCHES["dtw_wavefront"]
     got = kwf.dtw_from_cost_pallas(cost, la, lb)
     torch.cuda.synchronize()
-    assert kwf.LAUNCHES == before + 1
+    assert _build.LAUNCHES["dtw_wavefront"] == before + 1
     want = kwf.dtw_from_cost_plain(cost, la, lb)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     _check_dtw(kwf.dtw_batch_pallas(q, ql, bk, bl, cfg),
@@ -388,9 +451,9 @@ def test_matchers_on_the_card_match_the_plain_routes(dev):
             rec.enroll(w, [synth_word(w, i) for i in range(3)])
         recs[name] = rec
     sigs = [synth_word(w, 40 + i) for i, w in enumerate(words * 2)]
-    before = kwf.LAUNCHES
+    before = _build.LAUNCHES["dtw_wavefront"]
     got, d = recs["card"].classify_batch(sigs, return_distances=True)
-    assert kwf.LAUNCHES > before                 # the rerank went through kernel 5
+    assert _build.LAUNCHES["dtw_wavefront"] > before   # the rerank went through kernel 5
     want, want_d = recs["cpu"].classify_batch(sigs, return_distances=True)
     assert got == want == list(words * 2)
     np.testing.assert_allclose(d, want_d, rtol=1e-3)
@@ -410,12 +473,12 @@ def _mb_dp_inputs(dev, p, d, t, seed=0):
                                          (5, 40, 64, 1), (9, 7, 128, 16), (3, 9, 512, 2)])
 def test_mb_dp_diet_and_fetch_match_plain(dev, p, d, t, warps):
     skew, ktarget, la = _mb_dp_inputs(dev, p, d, t, seed=p)
-    before = dict(kmb.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     got = kmb.dp_diet(skew, ktarget, la, warps=warps)
     fetched = kmb.dma_fetch(skew, ktarget, warps=warps)
     torch.cuda.synchronize()
-    assert kmb.LAUNCHES["dp_diet"] == before["dp_diet"] + 1
-    assert kmb.LAUNCHES["dma_fetch"] == before["dma_fetch"] + 1
+    assert _build.LAUNCHES["mb_dp_diet"] == before["mb_dp_diet"] + 1
+    assert _build.LAUNCHES["mb_dma_fetch"] == before["mb_dma_fetch"] + 1
     assert torch.equal(got, kmb.dp_diet_plain(skew, ktarget, la))
     torch.testing.assert_close(fetched, kmb.dma_fetch_plain(skew, ktarget),
                                rtol=1e-6, atol=0)
@@ -428,10 +491,10 @@ def test_mb_anatomy_matches_plain(dev, rows, width, warps, n_rolls):
     x = torch.from_numpy(np.random.default_rng(rows).standard_normal(
         (rows, width)).astype(np.float32)).to(dev)
     cycles = torch.zeros((rows,), dtype=torch.int64, device=dev)
-    before = kmb.LAUNCHES["anatomy"]
+    before = _build.LAUNCHES["mb_anatomy"]
     got = kmb.anatomy(x, n_rolls, 7, warps=warps, cycles=cycles)
     torch.cuda.synchronize()
-    assert kmb.LAUNCHES["anatomy"] == before + 1
+    assert _build.LAUNCHES["mb_anatomy"] == before + 1
     assert torch.equal(got, kmb.anatomy_plain(x, n_rolls, 7))
     assert (cycles > 0).all()
     assert torch.equal(kmb.anatomy(x, n_rolls, 0), x + x)
@@ -440,9 +503,9 @@ def test_mb_anatomy_matches_plain(dev, rows, width, warps, n_rolls):
 @pytest.mark.parametrize("shape", [(8, 128), (3, 1000, 7), (1,)])
 def test_mb_trivial_matches_plain(dev, shape):
     x = torch.randn(shape, device=dev)
-    before = kmb.LAUNCHES["trivial"]
+    before = _build.LAUNCHES["mb_trivial"]
     got = kmb.trivial(x)
-    assert kmb.LAUNCHES["trivial"] == before + 1
+    assert _build.LAUNCHES["mb_trivial"] == before + 1
     assert torch.equal(got, kmb.trivial_plain(x))
 
 
@@ -450,9 +513,9 @@ def test_mb_trivial_matches_plain(dev, shape):
                                               ((2, 256, 512), 32)])
 def test_mb_transpose_matches_plain(dev, shape, block_rows):
     x = torch.randn(shape, device=dev)
-    before = kmb.LAUNCHES["transpose"]
+    before = _build.LAUNCHES["mb_transpose"]
     got = kmb.transpose(x, block_rows=block_rows)
-    assert kmb.LAUNCHES["transpose"] == before + 1
+    assert _build.LAUNCHES["mb_transpose"] == before + 1
     assert torch.equal(got, kmb.transpose_plain(x))
 
 
@@ -460,9 +523,9 @@ def test_mb_transpose_matches_plain(dev, shape, block_rows):
                                                     (2, 256, 256, 512, 16)])
 def test_mb_skew_matches_plain_and_skew_cost(dev, q, t, u, d_pad, block_rows):
     x = torch.randn((q, t, u), device=dev)
-    before = kmb.LAUNCHES["skew"]
+    before = _build.LAUNCHES["mb_skew"]
     got = kmb.skew(x, d_pad, block_rows=block_rows)
-    assert kmb.LAUNCHES["skew"] == before + 1
+    assert _build.LAUNCHES["mb_skew"] == before + 1
     assert torch.equal(got, kmb.skew_plain(x, d_pad))
     ref = kwf.skew_cost(x)
     assert torch.equal(got[:, : t + u - 1], ref)
@@ -494,3 +557,59 @@ def test_mb_wrappers_refuse_what_the_kernels_do_not_take(dev):
             call()
     assert torch.equal(kmb.dp_diet(skew, ktarget, la), kmb.dp_diet_plain(skew, ktarget, la))
     assert kmb.dp_diet(skew[:, :0].contiguous(), ktarget, la).eq(0).all()
+
+
+def _stream_cases(dev):
+    """(name, wrapper, inputs) for every kernel wrapper."""
+    q, ql, bk, bl = _dtw_inputs(dev, 6, 5, 60, 70, seed=9)
+    rng = np.random.default_rng(9)
+    cost = torch.from_numpy(np.abs(rng.standard_normal((7, 40, 46)))
+                            .astype(np.float32)).to(dev)
+    la = torch.from_numpy(rng.integers(1, 41, 7).astype(np.int32)).to(dev)
+    lb = torch.from_numpy(rng.integers(1, 47, 7).astype(np.int32)).to(dev)
+    frames = torch.randn((50, 400), device=dev)
+    skew, ktarget, la_mb = _mb_dp_inputs(dev, 9, 12, 32)
+    return [
+        ("dtw_banded", kdtw.dtw_batch_fused_banded, (q, ql, bk, bl)),
+        ("mfcc_fused", kmf.mfcc_frames_fused, (frames,)),
+        ("spot_subseq", ksp.subseq_dtw_fused,
+         (bk, bl, q[:, :50].contiguous(), ql.clamp(max=50))),
+        ("dtw_fused", kfu.dtw_batch_fused, (q, ql, bk, bl)),
+        ("dtw_wavefront", kwf.dtw_from_cost_pallas, (cost, la, lb)),
+        ("mb_dp_diet", kmb.dp_diet, (skew, ktarget, la_mb)),
+        ("mb_dma_fetch", kmb.dma_fetch, (skew, ktarget)),
+        ("mb_anatomy", lambda x: kmb.anatomy(x, 2, 9),
+         (torch.randn((6, 64), device=dev),)),
+        ("mb_trivial", kmb.trivial, (torch.randn((5, 77), device=dev),)),
+        ("mb_transpose", kmb.transpose, (torch.randn((3, 40, 70), device=dev),)),
+        ("mb_skew", lambda x: kmb.skew(x, 80), (torch.randn((3, 30, 45), device=dev),)),
+    ]
+
+
+STREAM_KERNELS = ["dtw_banded", "mfcc_fused", "spot_subseq", "dtw_fused", "dtw_wavefront",
+                  "mb_dp_diet", "mb_dma_fetch", "mb_anatomy", "mb_trivial", "mb_transpose",
+                  "mb_skew"]
+
+
+@pytest.mark.parametrize("name", STREAM_KERNELS)
+def test_every_wrapper_launches_on_the_current_stream(dev, name):
+    """On a non-default current stream that first sleeps, then writes the
+    inputs: a kernel launched on any other stream would read the zeros that
+    were there before, so the result equals the default stream's only if
+    the launch went to the current stream."""
+    _, fn, inputs = next(c for c in _stream_cases(dev) if c[0] == name)
+    want = fn(*inputs)
+    bufs = [torch.zeros_like(x) for x in inputs]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    before = _build.LAUNCHES[name]
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)      # ~50 ms of SM cycles before the copies
+        for buf, x in zip(bufs, inputs):
+            buf.copy_(x)
+        got = fn(*bufs)
+    side.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)

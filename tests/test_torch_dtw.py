@@ -17,6 +17,7 @@ from dsp_tpu.kernels.dtw_fused_banded import dtw_batch_fused_banded as jax_fused
 from dsp_tpu.ops import dtw as jdtw
 
 from dsp_tpu_torch.config import DtwConfig
+from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
 from dsp_tpu_torch.ops import dtw as tdtw
 
@@ -129,9 +130,9 @@ def test_chunked_batch_equals_single_chunk(monkeypatch):
 def test_wrapper_cpu_routes_to_plain_and_rejects_bad_configs():
     q, ql, bk, bl = _inputs(2, 30, 3, 30, seed=4)
     args = [torch.from_numpy(v) for v in (q, ql, bk, bl)]
-    before = kdtw.LAUNCHES
+    before = _build.LAUNCHES["dtw_banded"]
     got = kdtw.dtw_batch_fused_banded(*args, DtwConfig())
-    assert kdtw.LAUNCHES == before
+    assert _build.LAUNCHES["dtw_banded"] == before
     np.testing.assert_array_equal(got.numpy(), _port(q, ql, bk, bl, DtwConfig()))
     with pytest.raises(ValueError, match="max_warp_scale"):
         kdtw.dtw_batch_fused_banded(*args, DtwConfig(max_warp_scale=None))

@@ -17,6 +17,7 @@ from dsp_tpu.ops import dtw as jdtw
 
 from dsp_tpu_torch import pipeline as tpl
 from dsp_tpu_torch.config import DtwConfig
+from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import dtw_fused as kfu
 
 # the three shapes of tests/test_pallas_dtw.py:90, (B, K, T, U, F)
@@ -90,9 +91,9 @@ def test_band_and_slope_rejected_with_the_jax_messages(kw, match):
 
 def test_cpu_tensors_take_the_plain_version():
     q, ql, bank, bl = _inputs((3, 2, 15, 17, 4), 5)
-    before = kfu.LAUNCHES
+    before = _build.LAUNCHES["dtw_fused"]
     got = tpl.dtw_pairs(*(torch.from_numpy(v) for v in (q, ql, bank, bl)),
                         DtwConfig(band_frac=None, impl="fused"))
-    assert kfu.LAUNCHES == before
+    assert _build.LAUNCHES["dtw_fused"] == before
     np.testing.assert_array_equal(got.numpy(),
                                   _port(q, ql, bank, bl, DtwConfig(band_frac=None)))

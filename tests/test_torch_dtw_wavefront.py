@@ -22,6 +22,7 @@ from dsp_tpu.ops import dtw as jdtw
 
 from dsp_tpu_torch import pipeline as tpl
 from dsp_tpu_torch.config import DtwConfig
+from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import dtw_pallas as kwf
 from dsp_tpu_torch.ops import dtw as tdtw
 
@@ -165,9 +166,9 @@ def test_slope_rejected_with_the_jax_message():
 
 def test_cpu_tensors_take_the_plain_version():
     q, bank, ql, bl = _pairs(3, 12, 14, 4, seed=5)
-    before = kwf.LAUNCHES
+    before = _build.LAUNCHES["dtw_wavefront"]
     got = tpl.dtw_pairs(T(q), T(ql), T(bank), T(bl), DtwConfig(impl="pallas"))
-    assert kwf.LAUNCHES == before
+    assert _build.LAUNCHES["dtw_wavefront"] == before
     np.testing.assert_array_equal(
         got.numpy(), kwf.dtw_batch_pallas(T(q), T(ql), T(bank), T(bl)).numpy())
     # impl="auto" on CPU tensors is the scan, whatever the band

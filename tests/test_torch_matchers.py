@@ -23,6 +23,7 @@ from dsp_tpu.ops import frontend as jfe
 from dsp_tpu_torch import pipeline as tpl
 from dsp_tpu_torch.config import DtwConfig, PipelineConfig
 from dsp_tpu_torch.io import synth_word
+from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import dtw_fused as kfu
 from dsp_tpu_torch.kernels import dtw_pallas as kwf
 from dsp_tpu_torch.ops import frontend as tfe
@@ -158,7 +159,7 @@ def test_host_readouts_match_jax():
 def test_dtw_pairs_routes_fused_and_pallas_on_cpu_tensors(feats):
     (_, tq), (_, tb), _ = feats
     args = (tq.feats, tq.length, tb.feats, tb.length)
-    k5, k4 = kwf.LAUNCHES, kfu.LAUNCHES
+    k5, k4 = _build.LAUNCHES["dtw_wavefront"], _build.LAUNCHES["dtw_fused"]
     for kw in ({}, {"max_warp_scale": None}, {"band_frac": None}):
         _dists_close(tpl.dtw_pairs(*args, DtwConfig(impl="pallas", **kw)).numpy(),
                      tpl.dtw_pairs(*args, DtwConfig(impl="scan", **kw)).numpy())
@@ -166,6 +167,7 @@ def test_dtw_pairs_routes_fused_and_pallas_on_cpu_tensors(feats):
     got = tpl.dtw_pairs(*args, DtwConfig(impl="fused", band_frac=None)).numpy()
     want = tpl.dtw_pairs(*args, unbanded).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-    assert (kwf.LAUNCHES, kfu.LAUNCHES) == (k5, k4)     # plain versions only
+    # plain versions only
+    assert (_build.LAUNCHES["dtw_wavefront"], _build.LAUNCHES["dtw_fused"]) == (k5, k4)
     with pytest.raises(ValueError, match="unbanded"):
         tpl.dtw_pairs(*args, DtwConfig(impl="fused"))

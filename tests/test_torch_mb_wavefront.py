@@ -26,6 +26,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import dtw_pallas as kwf
 from dsp_tpu_torch.kernels import mb_wavefront as mbk
 from dsp_tpu_torch.scripts import mb_wavefront as mbw
@@ -46,7 +47,7 @@ def _vmem(block, index_map):
 
 
 def _launches():
-    return dict(mbk.LAUNCHES)
+    return dict(_build.LAUNCHES)
 
 
 # ---------------------------------------------------------------- E1: DP

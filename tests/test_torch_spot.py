@@ -19,6 +19,7 @@ from dsp_tpu.golden import spot as gs
 from dsp_tpu.kernels.spot_fused import subseq_dtw_fused as jax_fused
 from dsp_tpu.ops import spot as jsp
 
+from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import spot_fused as ksp
 from dsp_tpu_torch.ops import dtw as tdtw
 from dsp_tpu_torch.ops import spot as tsp
@@ -161,11 +162,11 @@ def test_planted_keyword_is_found():
 
 def test_auto_on_cpu_is_the_scan_and_launches_nothing():
     streams, s_lens, bank, b_lens = _inputs((2, 3, 25, 7, 4), 18)
-    before = ksp.LAUNCHES
+    before = _build.LAUNCHES["spot_subseq"]
     auto = _port(streams, s_lens, bank, b_lens, impl="auto")
     fused = _port(streams, s_lens, bank, b_lens, impl="fused")
     scan = _port(streams, s_lens, bank, b_lens, impl="scan")
-    assert ksp.LAUNCHES == before
+    assert _build.LAUNCHES["spot_subseq"] == before
     for got in (auto, fused):
         np.testing.assert_array_equal(got[0], scan[0])
         np.testing.assert_array_equal(got[1], scan[1])
@@ -238,9 +239,9 @@ def test_extract_events_matches_jax(threshold, min_gap):
 def test_fused_wrapper_takes_plain_on_cpu():
     streams, s_lens, bank, b_lens = _inputs((2, 2, 20, 6, 3), 22)
     args = [torch.from_numpy(a) for a in (streams, s_lens, bank, b_lens)]
-    before = ksp.LAUNCHES
+    before = _build.LAUNCHES["spot_subseq"]
     got = ksp.subseq_dtw_fused(*args)
     want = ksp.subseq_dtw_batch_plain(*args)
-    assert ksp.LAUNCHES == before
+    assert _build.LAUNCHES["spot_subseq"] == before
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
     np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
