@@ -10,10 +10,14 @@ each of which raises on failure (non-zero exit):
 2. dtw     — the banded DTW kernel against its plain PyTorch version at the
              main-path shape (B=256 queries x K=100 templates, T=U=198,
              F=39, seeded lengths in [20, 198]) under four configs, plus a
-             sliding-window shape (T=120, U=300, band 0.1).  The BIG/finite
-             pattern must be identical and finite distances allclose at
-             rtol 1e-4 (other summation order; the kernel sums (a-b)^2
-             directly where the plain version expands |a|^2+|b|^2-2ab).
+             sliding-window shape (T=120, U=300, band 0.1) and B=16, K=8
+             at U=1,357 (the longest template staged whole), 1,358 and
+             3,000 (the kernel's window mode).  The
+             BIG/finite pattern must be identical and finite distances
+             allclose at rtol 1e-4 (other summation order; the kernel sums
+             (a-b)^2 directly where the plain version expands
+             |a|^2+|b|^2-2ab).  Then 65,537 queries x 4 templates
+             (T=U=24): two launches, the same check.
 3. mfcc    — the fused MFCC kernel against its plain version on the
              50,688 frames of 256 synthetic 2 s utterances, use_energy off
              and on, allclose at rtol/atol 1e-3.
@@ -65,7 +69,11 @@ each of which raises on failure (non-zero exit):
              default config, ``band_frac=None`` and the pure band
              (``max_warp_scale=None``): identical BIG pattern, rtol 1e-5
              (each cell is one exact min and one add, so the bits should
-             agree); the masked-cost build is timed beside the kernel.  Then
+             agree); the masked-cost build is timed beside the kernel, and
+             the kernel's read rate over the cells it reads, its warps an SM
+             (CUDA's occupancy calculator) and, at the default case, its
+             time at 4 and 8 warps a block with the share of warp time a
+             block's longest pair keeps idle.  Then
              ``dtw_pairs_pallas`` on a cascade-shaped batch (256 queries x 8
              candidates) against the plain DP and the paired scan.
 10. matchers — the recognizer's matcher, rejection and evaluation path at
@@ -140,6 +148,16 @@ DTW_CASES = [
     ("unbanded", {"band_frac": None}, (256, 100, 198, 198)),
     ("sliding", {"band_frac": 0.1}, (64, 32, 120, 300)),
 ]
+# inputs from a generator of their own, so that every later phase draws
+# the inputs it drew before these cases existed: the longest template
+# staged whole (one warp a block), the next one frame up in window mode,
+# and a long template in window mode
+DTW_LONG_CASES = [
+    ("staged_edge", {}, (16, 8, 198, 1357)),
+    ("window_edge", {}, (16, 8, 198, 1358)),
+    ("long", {}, (16, 8, 198, 3000)),
+]
+GRID_ROWS_CASE = (65_537, 4, 24, 24)     # (B, K, T, U): one query past two launches' rows
 # (B, K) of the small-batch phase: single-utterance recognize() against
 # command-vocabulary banks, and a few queries at once
 SMALL_CASES = [(1, 1), (1, 10), (1, 100), (8, 10)]
@@ -162,6 +180,7 @@ MAIN_SHAPE = (256, 100, 198, 198)     # (B, K, T, U) of one main-path chunk
 FUSED_CASES = [("default", {}), ("squared", {"squared": True})]   # band_frac=None
 WAVEFRONT_CASES = [("default", {}), ("unbanded", {"band_frac": None}),
                    ("pure_band", {"max_warp_scale": None})]
+WAVEFRONT_BLOCK_WARPS = (4, 8)   # warps a block timed against each other (default case)
 CASCADE_SHORTLIST = 8
 # (name, DtwConfig overrides, recognizer keywords, the kernel it must launch)
 MATCHER_ROUTES = [
@@ -241,17 +260,20 @@ def dtw_inputs(rng, dev, b: int, k: int, t: int, u: int, f: int = 39):
     return q, ql, bk, bl
 
 
-def dtw_phase(rng, dev, report):
+def dtw_phase(rng, long_rng, dev, report):
+    import numpy as np
     import torch
 
     from dsp_tpu_torch.config import DtwConfig
+    from dsp_tpu_torch.kernels import _build
     from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
     from dsp_tpu_torch.ops import dtw as tdtw
 
     f = 39
-    for name, overrides, (b, k, t, u) in DTW_CASES:
+    cases = [(rng, *case) for case in DTW_CASES] + [(long_rng, *c) for c in DTW_LONG_CASES]
+    for gen, name, overrides, (b, k, t, u) in cases:
         cfg = DtwConfig(**overrides)
-        q, ql, bk, bl = dtw_inputs(rng, dev, b, k, t, u, f)
+        q, ql, bk, bl = dtw_inputs(gen, dev, b, k, t, u, f)
         got = kdtw.dtw_batch_fused_banded(q, ql, bk, bl, cfg)
         torch.cuda.synchronize()
         want = kdtw.dtw_batch_plain(q, ql, bk, bl, cfg)
@@ -266,17 +288,38 @@ def dtw_phase(rng, dev, report):
         # per cell: F squared differences (2F) and the DP's add and two mins
         b_ms, b_by = bound(cells * (2 * f + 3), 4 * ((b * t + k * u) * f + b + k + b * k))
         walked = walked_cells(ql, bl, cfg, t, u) if name == "default" else None
-        print(f"dtw {name:9s} B={b} K={k} T={t} U={u}: finite {fin:.4f}  "
+        window, warps, _ = kdtw.launch_plan(b, t, u, f, kdtw._window(cfg, t, u)[2],
+                                            cfg.slope == "itakura")
+        mode = f"{'window' if window else 'staged'} x{warps}"
+        print(f"dtw {name:9s} B={b} K={k} T={t} U={u} ({mode}): finite {fin:.4f}  "
               f"max rel err {rel:.3e}  max abs err {abs_err:.3e}  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
               f"bound {b_ms:.4f} ms ({b_by}, {cells} cells)"
               + ("" if walked is None else
                  f"; the kernel computes {walked} costs, {walked / cells:.3f}x those"),
               flush=True)
-        report["dtw"][name] = dict(shape=[b, k, t, u, f], finite_share=fin,
+        report["dtw"][name] = dict(shape=[b, k, t, u, f], mode=mode, finite_share=fin,
                                    max_rel_err=rel, max_abs_err=abs_err,
                                    ms=ms, plain_ms=plain_ms, cells=cells,
                                    walked_cells=walked, bound_ms=b_ms, bound_by=b_by)
+    # more queries than one launch's grid rows: sliced launches
+    b, k, t, u = GRID_ROWS_CASE
+    q = torch.from_numpy(long_rng.standard_normal((b, t, f), np.float32)).to(dev)
+    bk = torch.from_numpy(long_rng.standard_normal((k, u, f), np.float32)).to(dev)
+    ql = torch.from_numpy(long_rng.integers(1, t + 1, b).astype(np.int32)).to(dev)
+    bl = torch.from_numpy(long_rng.integers(1, u + 1, k).astype(np.int32)).to(dev)
+    cfg = DtwConfig()
+    before = _build.LAUNCHES["dtw_banded"]
+    got = kdtw.dtw_batch_fused_banded(q, ql, bk, bl, cfg)
+    torch.cuda.synchronize()
+    n_launch = _build.LAUNCHES["dtw_banded"] - before
+    if n_launch != len(_build.row_slices(b)):
+        fail(f"dtw at B={b}: {n_launch} launches, want {len(_build.row_slices(b))}")
+    rel, abs_err, fin = compare_dtw(got, kdtw.dtw_batch_plain(q, ql, bk, bl, cfg), 1e-4)
+    print(f"dtw grid_rows B={b} K={k} T={t} U={u}: {n_launch} launches  finite {fin:.4f}  "
+          f"max rel err {rel:.3e}", flush=True)
+    report["dtw"]["grid_rows"] = dict(shape=[b, k, t, u, f], launches=n_launch,
+                                      finite_share=fin, max_rel_err=rel, max_abs_err=abs_err)
 
 
 def walked_cells(q_lens, bank_lens, cfg, t: int, u: int) -> int:
@@ -785,19 +828,25 @@ def wavefront_phase(rng, dev, report):
         want = kwf.dtw_from_cost_plain(cost, la, lb)
         rel, abs_err, fin = compare_dtw(got, want, 1e-5)
         bit_equal = bool(torch.equal(got, want))
+        if not bit_equal:
+            fail(f"wavefront {name}: the kernel's bits differ from its plain version's")
         ms = time_ms(lambda: kwf.dtw_from_cost_pallas(cost, la, lb))
         plain_ms = time_ms(lambda: kwf.dtw_from_cost_plain(cost, la, lb), warmup=False)
         # per cell an add and two mins; bytes: those cells, lengths in, distances out
         b_ms, b_by = bound(3 * cells, 4 * cells + 12 * p)
+        gb_s = 4 * cells / ms / 1e6
         print(f"wavefront {name:9s} P={p} T={t} U={u}: finite {fin:.4f}  bit-equal "
-              f"{bit_equal}  max rel err {rel:.3e}  kernel {ms:.3f} ms  plain "
-              f"{plain_ms:.3f} ms  masked-cost build {build_ms:.3f} ms "
-              f"({cost.numel() * 4 / 1e9:.2f} GB)  bound {b_ms:.4f} ms ({b_by}, "
-              f"{cells} cells read of {p * t * u})", flush=True)
+              f"{bit_equal}  max rel err {rel:.3e}  kernel {ms:.3f} ms ({gb_s:.1f} GB/s "
+              f"over the cells read)  plain {plain_ms:.3f} ms  masked-cost build "
+              f"{build_ms:.3f} ms ({cost.numel() * 4 / 1e9:.2f} GB)  bound {b_ms:.4f} ms "
+              f"({b_by}, {cells} cells read of {p * t * u})", flush=True)
         report["wavefront"][name] = dict(
             shape=[p, t, u], finite_share=fin, bit_equal=bit_equal, max_rel_err=rel,
-            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, cost_build_ms=build_ms,
-            cost_bytes=cost.numel() * 4, cells_read=cells, bound_ms=b_ms, bound_by=b_by)
+            max_abs_err=abs_err, ms=ms, read_gb_per_s=gb_s, plain_ms=plain_ms,
+            cost_build_ms=build_ms, cost_bytes=cost.numel() * 4, cells_read=cells,
+            bound_ms=b_ms, bound_by=b_by)
+        if name == "default":
+            report["wavefront"]["block_warps"] = wavefront_block_warps(cost, la, lb)
         del cost
     cfg = DtwConfig()
     m = CASCADE_SHORTLIST
@@ -815,6 +864,42 @@ def wavefront_phase(rng, dev, report):
     report["wavefront"]["cascade_pairs"] = dict(
         pairs=[b, m], max_rel_err=rel, max_abs_err=abs_err,
         vs_paired_scan=dict(max_rel_err=rel_s, max_abs_err=abs_s), ms=ms)
+
+
+def wavefront_block_warps(cost, la, lb) -> dict:
+    """Kernel 5 at each of WAVEFRONT_BLOCK_WARPS warps a block: its time,
+    warps resident an SM and registers a thread (CUDA's occupancy
+    calculator), and the share of warp time idle in a block while its
+    longest pair walks on (from the lengths: a pair's chunks of 32 steps)."""
+    import numpy as np
+
+    from dsp_tpu_torch.kernels import dtw_pallas as kwf
+
+    p, t, u = cost.shape
+    a = np.clip(la.cpu().numpy().astype(np.int64), 1, t)
+    b = np.clip(lb.cpu().numpy().astype(np.int64), 1, u)
+    # chunks a pair walks: strips of 32 rows, each lb + (its rows - 1) steps
+    chunks = np.zeros(p, np.int64)
+    for r0 in range(0, t, 32):
+        rows = np.clip(a - r0, 0, 32)
+        chunks += np.where(rows > 0, -(-(b + rows - 1) // 32), 0)
+    out, chosen = {}, kwf.BLOCK_WARPS
+    try:
+        for warps in WAVEFRONT_BLOCK_WARPS:
+            kwf.BLOCK_WARPS = warps
+            ms = time_ms(lambda: kwf.dtw_from_cost_pallas(cost, la, lb))
+            resident, regs = kwf.occupancy(u, warps)
+            pad = -p % warps
+            blocks = np.concatenate([chunks, np.zeros(pad, np.int64)]).reshape(-1, warps)
+            idle = 1.0 - chunks.sum() / (blocks.max(axis=1).sum() * warps)
+            print(f"wavefront block of {warps} warps: kernel {ms:.3f} ms  {resident} warps "
+                  f"an SM ({regs} registers a thread)  warp time idle behind a block's "
+                  f"longest pair {idle:.3f}", flush=True)
+            out[warps] = dict(ms=ms, warps_per_sm=resident, registers=regs,
+                              idle_share=float(idle))
+    finally:
+        kwf.BLOCK_WARPS = chosen
+    return out
 
 
 def near_ties(dists):
@@ -1189,7 +1274,7 @@ def main() -> int:
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
               "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
-    dtw_phase(rng, dev, report)
+    dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
     mfcc_phase(dev, report)
     small_phase(rng, dev, report)
     launches = main_phase(dev, report)

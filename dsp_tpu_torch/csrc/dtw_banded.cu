@@ -53,9 +53,19 @@
 // * A block holds up to 8 warps = 8 queries against one template, which
 //   is staged once (31 KB at U = 198); query rows come from device memory
 //   (a chunk's features sit in L2).  The host takes fewer warps a block
-//   where shared memory or the batch is short: at one warp a block and
-//   F = 39 the template may have ~1,400 frames, and T is not bounded by
-//   shared memory at all.
+//   where shared memory or the batch is short.
+// * Long templates: where the whole template does not fit a one-warp block
+//   (at F = 39, T = 198: U > 1,357 frames, U > 1,325 with Itakura), the
+//   kernel runs in its window mode instead.  A chunk of 32 steps over 32
+//   lanes reads template rows jlo + s0 - 31 .. jlo + s0 + 31 (clamped to
+//   [0, lb-1]); each warp stages those 63 rows into a window of its own
+//   (10.3 KB at F = 39, same odd stride) before the chunk's costs, and the
+//   cost loop reads slot 31 - lane + step.  The edge row (NS * u_pad floats
+//   a warp) is then what bounds U: at one warp, F = 39 and T = 198, U up to
+//   54,428 frames (27,201 with Itakura); beyond that the launch fails and
+//   the wrapper raises.  kernels/dtw_fused_banded.py:launch_plan states the
+//   host's rule in Python.  Window mode's time is in PERF.md (kernel 1,
+//   the `long` case of chip_smoke.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,6 +78,7 @@ constexpr int TILE = 32;                // rows per strip = steps per cost chunk
 constexpr int TS = TILE + 1;            // tile row stride
 constexpr int QF = 40;                  // query features held in registers
 constexpr int G = 8;                    // costs summed side by side
+constexpr int WIN = 2 * TILE - 1;       // template rows a chunk reads (window mode)
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Pair {
@@ -110,7 +121,7 @@ __host__ __device__ __forceinline__ int feature_stride(int f_dim) {
   return (((f_dim + QF - 1) / QF) * QF) | 1;
 }
 
-template <bool ITAKURA>
+template <bool ITAKURA, bool WINDOW>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 2)
 dtw_banded_kernel(const float* __restrict__ queries, const int* __restrict__ q_lens,
                   const float* __restrict__ bank, const int* __restrict__ bank_lens,
@@ -129,21 +140,25 @@ dtw_banded_kernel(const float* __restrict__ queries, const int* __restrict__ q_l
   Pair g;
   g.lb = min(max(bank_lens[k], 1), u_pad);
 
-  // stage the template once for the block's warps, zero past f_dim
-  float* tmpl = smem;                   // [u_pad][fs]
+  // stage the template once for the block's warps, zero past f_dim (in
+  // window mode each warp stages the rows of a chunk instead)
+  float* tmpl = smem;                   // [u_pad][fs], none in window mode
   const float* bg = bank + (size_t)k * u_pad * f_dim;
-  for (int idx = threadIdx.x; idx < g.lb * fs; idx += blockDim.x) {
-    const int r = idx / fs, f = idx - r * fs;
-    tmpl[idx] = f < f_dim ? bg[r * f_dim + f] : 0.f;
+  if (!WINDOW) {
+    for (int idx = threadIdx.x; idx < g.lb * fs; idx += blockDim.x) {
+      const int r = idx / fs, f = idx - r * fs;
+      tmpl[idx] = f < f_dim ? bg[r * f_dim + f] : 0.f;
+    }
+    __syncthreads();
   }
-  __syncthreads();
   if (b >= n_queries) return;           // whole warp: no block barrier follows
 
-  const size_t per_warp = TILE * TS + NS * TILE + NS * u_pad + nb;
-  float* tile = tmpl + (size_t)u_pad * fs + warp * per_warp;  // [TILE][TS] costs
+  const size_t per_warp = TILE * TS + NS * TILE + NS * u_pad + nb + (WINDOW ? WIN * fs : 0);
+  float* tile = tmpl + (WINDOW ? 0 : (size_t)u_pad * fs) + warp * per_warp;  // [TILE][TS]
   float* stage = tile + TILE * TS;      // [NS][TILE] the last row's chunk
   float* edge = stage + NS * TILE;      // [NS][u_pad] D (and N) of row r0 - 1
   int* offs = reinterpret_cast<int*>(edge + NS * u_pad);  // [nb]
+  float* win = edge + NS * u_pad + nb;  // [WIN][fs] window mode: template rows of a chunk
 
   g.la = min(max(q_lens[b], 1), t_pad);
   g.lam1 = max(g.la - 1, 1);
@@ -202,6 +217,17 @@ dtw_banded_kernel(const float* __restrict__ queries, const int* __restrict__ q_l
     for (int s0 = 0; s0 < n_steps; s0 += TILE) {
       const int jc = jlo + s0 - lane;   // this lane's column at step s0
       const int n_here = min(TILE, n_steps - s0);
+      if (WINDOW) {
+        // 0. template rows jlo+s0-31 .. jlo+s0+31, clamped to [0, lb-1]: slot
+        // x holds the row lane l reads at step s for x = 31 - l + s (the
+        // previous chunk's reads ended at its closing __syncwarp)
+        const int base = jlo + s0 - (TILE - 1);
+        for (int x = 0; x < WIN; ++x) {
+          const float* src = bg + (size_t)min(max(base + x, 0), g.lb - 1) * f_dim;
+          for (int f = lane; f < fs; f += 32) win[x * fs + f] = f < f_dim ? src[f] : 0.f;
+        }
+        __syncwarp();
+      }
       // 1. this lane's 32 costs of the chunk, off the dependent chain
       for (int fb = 0; fb < f_dim; fb += QF) {
         if (f_dim > QF) {
@@ -214,15 +240,16 @@ dtw_banded_kernel(const float* __restrict__ queries, const int* __restrict__ q_l
           int at[G];
 #pragma unroll
           for (int e = 0; e < G; ++e) {
-            at[e] = min(max(jc + s + e, 0), g.lb - 1) * fs + fb;
+            at[e] = (WINDOW ? TILE - 1 - lane + s + e : min(max(jc + s + e, 0), g.lb - 1)) * fs + fb;
             acc[e] = fb == 0 ? 0.f : tile[lane * TS + s + e];
           }
           // features past f_dim are 0 in both q and the template: d = 0 adds 0
+          const float* rows = WINDOW ? win : tmpl;
 #pragma unroll
           for (int f = 0; f < QF; ++f) {
 #pragma unroll
             for (int e = 0; e < G; ++e) {
-              const float d = q[f] - tmpl[at[e] + f];
+              const float d = q[f] - rows[at[e] + f];
               acc[e] = fmaf(d, d, acc[e]);
             }
           }
@@ -288,12 +315,15 @@ dtw_banded_kernel(const float* __restrict__ queries, const int* __restrict__ q_l
     out[(size_t)b * n_templates + k] = result / (float)(q_lens[b] + bank_lens[k]);
 }
 
+// Mirrored by kernels/dtw_fused_banded.py:smem_bytes.
 size_t dtw_banded_smem_bytes(int warps, int t_pad, int u_pad, int f_dim, int rb,
-                             bool itakura) {
+                             bool itakura, bool window) {
   const int ns = itakura ? 2 : 1;
+  const size_t fs = feature_stride(f_dim);
   const size_t nb = (t_pad + rb - 1) / rb;
-  const size_t per_warp = TILE * TS + ns * TILE + (size_t)ns * u_pad + nb;
-  return sizeof(float) * ((size_t)u_pad * feature_stride(f_dim) + warps * per_warp);
+  const size_t per_warp =
+      TILE * TS + ns * TILE + (size_t)ns * u_pad + nb + (window ? WIN * fs : 0);
+  return sizeof(float) * ((window ? 0 : (size_t)u_pad * fs) + warps * per_warp);
 }
 
 }  // namespace
@@ -310,14 +340,19 @@ extern "C" int dtw_banded(const void* queries, const void* q_lens, const void* b
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  // fewest idle warps for short batches; fewer warps where shared memory is short
+  // fewest idle warps for short batches; window mode where the whole template
+  // does not fit a one-warp block; fewer warps where shared memory is short
+  // (kernels/dtw_fused_banded.py:launch_plan is the same rule)
   int warps = MAX_WARPS;
   while (warps > 1 && warps / 2 >= n_queries) warps /= 2;
+  const bool window =
+      dtw_banded_smem_bytes(1, t_pad, u_pad, f_dim, rb, itakura, false) > (size_t)optin;
   while (warps > 1 &&
-         dtw_banded_smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura) > (size_t)optin)
+         dtw_banded_smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window) > (size_t)optin)
     warps /= 2;
-  const size_t smem = dtw_banded_smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura);
-  auto kernel = itakura ? dtw_banded_kernel<true> : dtw_banded_kernel<false>;
+  const size_t smem = dtw_banded_smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window);
+  auto kernel = itakura ? (window ? dtw_banded_kernel<true, true> : dtw_banded_kernel<true, false>)
+                        : (window ? dtw_banded_kernel<false, true> : dtw_banded_kernel<false, false>);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so it cannot surface at the next launch

@@ -49,7 +49,7 @@ _SIGNATURES = {
                     _F, _I, _P), _I),
     "spot_subseq": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "dtw_fused": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
-    "dtw_wavefront": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "dtw_wavefront": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "mb_dp_diet": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "mb_dma_fetch": ((_P, _P, _P, _P, _U, _I, _I, _I, _I, _P), _I),
     "mb_anatomy": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
@@ -57,6 +57,13 @@ _SIGNATURES = {
     "mb_transpose": ((_P, _P, _I, _I, _I, _I, _P), _I),
     "mb_skew": ((_P, _P, _I, _I, _I, _I, _I, _P), _I),
 }
+
+# C entry points that launch nothing (no stream, not counted)
+_QUERIES = {
+    "dtw_wavefront_occupancy": ((_I, _I, _P, _P), _I),
+}
+# the most rows (queries or streams) one launch takes: gridDim.y's limit
+MAX_GRID_ROWS = 65535
 
 _lib = None
 _fns: dict = {}              # bound C entry points, filled on first launch
@@ -134,7 +141,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
-        for name, (argtypes, restype) in _SIGNATURES.items():
+        for name, (argtypes, restype) in {**_SIGNATURES, **_QUERIES}.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = restype
@@ -163,6 +170,13 @@ def launch(name: str, device, *args) -> None:
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
+
+
+def row_slices(n: int, limit: int = MAX_GRID_ROWS) -> list[tuple[int, int]]:
+    """[lo, hi) slices of ``n`` rows, in order, each at most ``limit`` rows:
+    one launch a slice where a kernel's grid has a row a block (or a few)
+    along ``gridDim.y``."""
+    return [(lo, min(lo + limit, n)) for lo in range(0, n, limit)]
 
 
 def reset_launches() -> None:

@@ -99,7 +99,8 @@ def dtw_batch_fused(queries: torch.Tensor, q_lens: torch.Tensor,
     to [1, T] and [1, U].  Raises ValueError on a band or a slope (as the
     TPU kernel does), beyond 1,024 template frames or 128 features, and
     where the query's shared memory (T x round_up(F, 4) floats) exceeds
-    227 KB the launch fails and this raises RuntimeError."""
+    227 KB the launch fails and this raises RuntimeError.  Any number of
+    queries runs, in launches of at most 65,535."""
     _check_config(cfg)
     if queries.device.type == "cpu":
         return dtw_batch_fused_plain(queries, q_lens, bank, bank_lens, cfg)
@@ -121,16 +122,15 @@ def dtw_batch_fused(queries: torch.Tensor, q_lens: torch.Tensor,
         raise ValueError(f"shape mismatch: queries {tuple(queries.shape)}, "
                          f"bank {tuple(bank.shape)}, q_lens "
                          f"{tuple(q_lens.shape)}, bank_lens {tuple(bank_lens.shape)}")
-    if b > 65535:
-        raise ValueError(f"at most 65535 queries per launch, got {b}")
     if not 1 <= u <= MAX_TEMPLATE_FRAMES or not 1 <= f <= MAX_FEATURES or t < 1:
         raise ValueError(
             f"templates of {u} frames x {f} features do not fit one block "
             f"(at most {MAX_TEMPLATE_FRAMES} frames and {MAX_FEATURES} features)")
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
-    if b == 0 or k == 0:
+    if k == 0:
         return out
-    _build.launch("dtw_fused", dev, queries.data_ptr(), q_lens.data_ptr(),
-                  bank.data_ptr(), bank_lens.data_ptr(), out.data_ptr(), b, k, t, u,
-                  f, int(cfg.squared))
+    for lo, hi in _build.row_slices(b):    # one block a pair: queries along gridDim.y
+        _build.launch("dtw_fused", dev, queries[lo].data_ptr(), q_lens[lo].data_ptr(),
+                      bank.data_ptr(), bank_lens.data_ptr(), out[lo].data_ptr(), hi - lo,
+                      k, t, u, f, int(cfg.squared))
     return out

@@ -21,6 +21,10 @@ from dsp_tpu_torch.ops import dtw as tdtw
 from dsp_tpu_torch.window_plan import LANE, plan_window, round_up
 
 STRIP = 32      # rows a warp walks together, one a lane
+MAX_WARPS = 8   # pairs a block, one warp each
+WINDOW_ROWS = 2 * STRIP - 1   # template rows a chunk of 32 steps reads
+QF = 40         # features summed at a time: the template row stride's unit
+SMEM_OPTIN = 232_448   # shared memory a block may use on the H100 (227 KB)
 
 
 def _check_config(cfg: DtwConfig) -> None:
@@ -90,6 +94,53 @@ def strip_columns(la: int, lb: int, cfg: DtwConfig, t_pad: int, u_pad: int):
     return strips
 
 
+def _feature_stride(f_dim: int) -> int:
+    return (-(-f_dim // QF) * QF) | 1
+
+
+def smem_bytes(warps: int, t_pad: int, u_pad: int, f_dim: int, rb: int,
+               itakura: bool, window: bool) -> int:
+    """Shared memory of one block, as ``csrc/dtw_banded.cu`` sizes it: the
+    whole template (staged mode) or a window of 63 template rows a warp
+    (window mode), and a warp's cost tile, staged row, edge row and window
+    offsets."""
+    ns, fs = (2 if itakura else 1), _feature_stride(f_dim)
+    per_warp = (STRIP * (STRIP + 1) + ns * STRIP + ns * u_pad + -(-t_pad // rb)
+                + (WINDOW_ROWS * fs if window else 0))
+    return 4 * ((0 if window else u_pad * fs) + warps * per_warp)
+
+
+def launch_plan(n_queries: int, t_pad: int, u_pad: int, f_dim: int, rb: int,
+                itakura: bool, optin: int = SMEM_OPTIN) -> tuple[bool, int, int]:
+    """(window mode, warps a block, shared bytes) of a launch, the rule of
+    ``csrc/dtw_banded.cu:dtw_banded``: no more warps than queries need;
+    window mode where the whole template does not fit a one-warp block;
+    half the warps while the block does not fit.  The launch fails where
+    the bytes still exceed ``optin``."""
+    warps = MAX_WARPS
+    while warps > 1 and warps // 2 >= n_queries:
+        warps //= 2
+    window = smem_bytes(1, t_pad, u_pad, f_dim, rb, itakura, False) > optin
+    while warps > 1 and smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window) > optin:
+        warps //= 2
+    return window, warps, smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window)
+
+
+def max_template_frames(t_pad: int, f_dim: int, cfg: DtwConfig,
+                        optin: int = SMEM_OPTIN) -> int:
+    """The longest template (frames) the kernel takes against queries of
+    ``t_pad`` frames: the largest U whose one-warp launch fits ``optin``."""
+    def fits(u):
+        rb = _window(cfg, t_pad, u)[2]
+        return launch_plan(1, t_pad, u, f_dim, rb, cfg.slope == "itakura", optin)[2] <= optin
+
+    lo, hi = 1, optin // 4     # fits(lo); not fits(hi): the edge row alone is u floats
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
 def dtw_batch_plain(queries: torch.Tensor, q_lens: torch.Tensor,
                     bank: torch.Tensor, bank_lens: torch.Tensor,
                     cfg: DtwConfig = DtwConfig(band_frac=0.1)) -> torch.Tensor:
@@ -106,9 +157,14 @@ def dtw_batch_fused_banded(queries: torch.Tensor, q_lens: torch.Tensor,
     ``q_lens`` [B] and ``bank_lens`` [K] are int32 true lengths.  With
     ``band_frac=None`` the result is plain unbanded DTW.  Pairs that are
     unreachable come out >= 1e20.  A block stages one template in shared
-    memory (at most 227 KB), so at F=39 and T=198 the kernel takes U up
-    to 1,357 frames (1,325 with the Itakura slope); T costs only 4 bytes
-    a 16-32 rows.  Beyond that the launch fails and this raises.
+    memory (at most 227 KB) where it fits a one-warp block (at F=39 and
+    T=198: U up to 1,357 frames, 1,325 with the Itakura slope); longer
+    templates run in the kernel's window mode, where a warp stages the 63
+    template rows a chunk reads and its edge row of U floats (two with
+    Itakura) bounds U: at F=39, T=198 and band 0.17 up to 54,428 frames
+    (27,201 with Itakura), :func:`max_template_frames` for other shapes.
+    Beyond that the launch fails and this raises RuntimeError.  Any number
+    of queries runs, in launches of at most 65,535.
     """
     _check_config(cfg)
     if queries.device.type == "cpu":
@@ -131,15 +187,14 @@ def dtw_batch_fused_banded(queries: torch.Tensor, q_lens: torch.Tensor,
         raise ValueError(f"shape mismatch: queries {tuple(queries.shape)}, "
                          f"bank {tuple(bank.shape)}, q_lens "
                          f"{tuple(q_lens.shape)}, bank_lens {tuple(bank_lens.shape)}")
-    if b > 65535:
-        raise ValueError(f"at most 65535 queries per launch, got {b}")
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
-    if b == 0 or k == 0:
+    if k == 0:
         return out
     w, s_max, rb, banded, windowed = _window(cfg, t, u)
-    _build.launch("dtw_banded", dev, queries.data_ptr(), q_lens.data_ptr(),
-                  bank.data_ptr(), bank_lens.data_ptr(), out.data_ptr(), b, k, t,
-                  u, f, w, s_max, rb, int(banded), int(windowed),
-                  float(np.float32(cfg.band_frac)) if banded else 0.0,
-                  int(cfg.squared), int(cfg.slope == "itakura"))
+    for lo, hi in _build.row_slices(b):
+        _build.launch("dtw_banded", dev, queries[lo].data_ptr(), q_lens[lo].data_ptr(),
+                      bank.data_ptr(), bank_lens.data_ptr(), out[lo].data_ptr(), hi - lo,
+                      k, t, u, f, w, s_max, rb, int(banded), int(windowed),
+                      float(np.float32(cfg.band_frac)) if banded else 0.0,
+                      int(cfg.squared), int(cfg.slope == "itakura"))
     return out

@@ -15,6 +15,8 @@ the other.  The kernel needs no skewed copy of the cost.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from dsp_tpu_torch.config import DtwConfig
@@ -22,6 +24,9 @@ from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.ops import dtw as tdtw
 
 BIG = tdtw.BIG
+# pairs a block of the kernel, one warp each: 4 rather than 8 leaves less
+# warp time idle behind a block's longest pair (csrc/dtw_wavefront.cu)
+BLOCK_WARPS = 4
 
 
 def _check_slope(cfg: DtwConfig) -> None:
@@ -100,8 +105,20 @@ def dtw_from_cost_pallas(cost: torch.Tensor, len_a: torch.Tensor,
     if t == 0 or u == 0:
         raise ValueError(f"empty cost matrices {tuple(cost.shape)}")
     _build.launch("dtw_wavefront", dev, cost.data_ptr(), len_a.data_ptr(),
-                  len_b.data_ptr(), out.data_ptr(), p, t, u)
+                  len_b.data_ptr(), out.data_ptr(), p, t, u, BLOCK_WARPS)
     return out
+
+
+def occupancy(u_pad: int, warps: int = BLOCK_WARPS) -> tuple[int, int]:
+    """(warps resident on an SM, registers a thread) of the kernel at
+    ``warps`` warps a block and ``u_pad`` template frames, as the CUDA
+    occupancy calculator gives them for the current card (no launch)."""
+    blocks, regs = ctypes.c_int(0), ctypes.c_int(0)
+    err = _build.lib().dtw_wavefront_occupancy(warps, u_pad, ctypes.byref(blocks),
+                                                ctypes.byref(regs))
+    if err:
+        raise RuntimeError(f"dtw_wavefront_occupancy failed: cudaError {err}")
+    return blocks.value * warps, regs.value
 
 
 def dtw_pairs_pallas(a: torch.Tensor, b: torch.Tensor,

@@ -33,7 +33,8 @@ def subseq_dtw_fused(streams: torch.Tensor, stream_lens: torch.Tensor,
     of T + 32 stream frames in shared memory (at most 227 KB): at F = 39,
     T up to 1,024 frames fits.  Above 1,024 frames or 128 features this
     raises ValueError; where the ring does not fit (F = 128 from about
-    400 frames) the launch fails and this raises RuntimeError."""
+    400 frames) the launch fails and this raises RuntimeError.  Any number
+    of streams runs, in launches of at most 65,535."""
     if streams.device.type == "cpu":
         return subseq_dtw_batch_plain(streams, stream_lens, bank, bank_lens,
                                       squared)
@@ -56,17 +57,16 @@ def subseq_dtw_fused(streams: torch.Tensor, stream_lens: torch.Tensor,
                          f"bank {tuple(bank.shape)}, stream_lens "
                          f"{tuple(stream_lens.shape)}, bank_lens "
                          f"{tuple(bank_lens.shape)}")
-    if b > 65535:
-        raise ValueError(f"at most 65535 streams per launch, got {b}")
     norm = torch.empty((b, k, u), dtype=torch.float32, device=dev)
     start = torch.empty((b, k, u), dtype=torch.int32, device=dev)
     if not 1 <= t <= MAX_TEMPLATE_FRAMES or not 1 <= f <= MAX_FEATURES:
         raise ValueError(
             f"templates of {t} frames x {f} features do not fit one block "
             f"(at most {MAX_TEMPLATE_FRAMES} frames and {MAX_FEATURES} features)")
-    if b == 0 or k == 0 or u == 0:
+    if k == 0 or u == 0:
         return norm, start
-    _build.launch("spot_subseq", dev, streams.data_ptr(), stream_lens.data_ptr(),
-                  bank.data_ptr(), bank_lens.data_ptr(), norm.data_ptr(),
-                  start.data_ptr(), b, k, u, t, f, int(squared))
+    for lo, hi in _build.row_slices(b):    # one block a pair: streams along gridDim.y
+        _build.launch("spot_subseq", dev, streams[lo].data_ptr(), stream_lens[lo].data_ptr(),
+                      bank.data_ptr(), bank_lens.data_ptr(), norm[lo].data_ptr(),
+                      start[lo].data_ptr(), hi - lo, k, u, t, f, int(squared))
     return norm, start

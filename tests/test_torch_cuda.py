@@ -162,16 +162,69 @@ def test_dtw_kernel_any_feature_width(dev, f):
                    kdtw.dtw_batch_plain(*args, DtwConfig(**kw)))
 
 
-def test_dtw_kernel_largest_template(dev):
-    """The longest template a one-warp block holds at F = 39 and T = 198
-    (a warp also keeps T / 32 window offsets)."""
-    for kw, u in (({}, 1357), ({"slope": "itakura"}, 1325)):
-        args = _dtw_inputs(dev, 1, 1, 198, u, seed=6)
-        _check_dtw(kdtw.dtw_batch_fused_banded(*args, DtwConfig(band_frac=None, **kw)),
-                   kdtw.dtw_batch_plain(*args, DtwConfig(band_frac=None, **kw)))
-        too_long = _dtw_inputs(dev, 1, 1, 20, u + 1, seed=6)
-        with pytest.raises(RuntimeError):
-            kdtw.dtw_batch_fused_banded(*too_long, DtwConfig(band_frac=None, **kw))
+LONG_TEMPLATE_CONFIGS = [{}, {"slope": "itakura"}, {"band_frac": None},
+                         {"band_frac": None, "slope": "itakura"}]
+
+
+@pytest.mark.parametrize("u", [1325, 1357, 1358, 4000, 12000])
+@pytest.mark.parametrize("kw", LONG_TEMPLATE_CONFIGS)
+def test_dtw_kernel_long_templates(dev, kw, u):
+    """Templates that fit a one-warp block run staged (at F = 39, T = 198:
+    up to 1,357 frames, 1,325 with Itakura); longer ones run in the
+    kernel's window mode, 63 template rows a chunk."""
+    cfg = DtwConfig(**kw)
+    t = 198
+    itakura = cfg.slope == "itakura"
+    window, _, _ = kdtw.launch_plan(3, t, u, 39, kdtw._window(cfg, t, u)[2], itakura)
+    assert window == (u > (1325 if itakura else 1357))
+    args = _dtw_inputs(dev, 3, 2, t, u, seed=6, min_len=20)
+    _check_dtw(kdtw.dtw_batch_fused_banded(*args, cfg), kdtw.dtw_batch_plain(*args, cfg))
+
+
+@pytest.mark.parametrize("kw", LONG_TEMPLATE_CONFIGS)
+def test_dtw_kernel_longest_template_and_one_more(dev, kw):
+    """The stated limit (kdtw.max_template_frames) runs; one frame more is
+    refused at the launch, and the refusal does not leak into the next."""
+    cfg = DtwConfig(**kw)
+    u = kdtw.max_template_frames(20, 39, cfg)
+    args = _dtw_inputs(dev, 1, 1, 20, u, seed=6)
+    _check_dtw(kdtw.dtw_batch_fused_banded(*args, cfg), kdtw.dtw_batch_plain(*args, cfg))
+    with pytest.raises(RuntimeError, match="dtw_banded"):
+        kdtw.dtw_batch_fused_banded(*_dtw_inputs(dev, 1, 1, 20, u + 1, seed=6), cfg)
+    small = _dtw_inputs(dev, 2, 2, 30, 30)
+    _check_dtw(kdtw.dtw_batch_fused_banded(*small, cfg), kdtw.dtw_batch_plain(*small, cfg))
+
+
+def test_auto_takes_templates_past_the_staged_limit(dev):
+    args = _dtw_inputs(dev, 4, 3, 198, 2000, seed=11, min_len=20)
+    _check_dtw(tpl.dtw_pairs(*args, DtwConfig()),
+               tpl.dtw_pairs(*args, DtwConfig(impl="scan")))
+
+
+ROWS_PAST_THE_GRID = 65_537     # one more than two launches' worth of gridDim.y
+
+
+@pytest.mark.parametrize("name", ["dtw_banded", "dtw_fused", "spot_subseq"])
+def test_kernels_take_batches_past_the_grid_limit(dev, name):
+    b = ROWS_PAST_THE_GRID
+    before = _build.LAUNCHES[name]
+    if name == "spot_subseq":
+        args = _spot_inputs(dev, b, 2, 10, 4, f=3, seed=12)
+        got = ksp.subseq_dtw_fused(*args)
+        want = tsp.subseq_dtw_batch_plain(*args)
+        _check_spot(got, want, args[1], args[3])
+    else:
+        args = _dtw_inputs(dev, b, 2, 8, 8, f=3, seed=12)
+        if name == "dtw_banded":
+            cfg = DtwConfig()
+            got, want = (kdtw.dtw_batch_fused_banded(*args, cfg),
+                         kdtw.dtw_batch_plain(*args, cfg))
+        else:
+            cfg = DtwConfig(band_frac=None)
+            got, want = kfu.dtw_batch_fused(*args, cfg), kfu.dtw_batch_fused_plain(*args, cfg)
+        _check_dtw(got, want)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + len(_build.row_slices(b)) == before + 2
 
 
 def test_dtw_kernel_window_narrower_than_the_band(dev):
@@ -437,6 +490,66 @@ def test_wavefront_pairs_and_wrapper_refusals(dev):
     with pytest.raises(ValueError, match="slope"):
         kwf.dtw_pairs_pallas(q, bk, ql, bl, DtwConfig(slope="itakura"))
     assert kwf.dtw_from_cost_pallas(cost[:0], ql[:0], bl[:0]).shape == (0,)
+
+
+# lengths at kernel 5's strip and chunk edges
+WAVEFRONT_EDGES = [1, 31, 32, 33, 63, 64, 65]
+
+
+@pytest.mark.parametrize("source", ["masked", "scattered"])
+@pytest.mark.parametrize("t,u", [(65, 65), (40, 130), (130, 40)])
+@pytest.mark.parametrize("p", [7, 49])      # not a multiple of the warps a block
+def test_wavefront_kernel_bit_equal_at_strip_edges(dev, t, u, p, source):
+    """Each length of WAVEFRONT_EDGES as la and as lb.  On a masked cost
+    (ops/dtw.py) every distance has the plain version's bits.  On a cost
+    with BIG cells scattered anywhere, every finite distance does and the
+    BIG pattern is the same; an unreachable pair's BIG-sized value may
+    differ, since the kernel takes cells outside the matrix as exactly BIG
+    where the plain version's skewed padding sums BIG onto BIG."""
+    rng = np.random.default_rng(t * 1000 + u + p)
+    edges = np.array(WAVEFRONT_EDGES, np.int64)
+    la = np.minimum(np.resize(edges, p), t).astype(np.int32)
+    lb = np.minimum(np.resize(np.roll(edges, 3), p), u).astype(np.int32)
+    la[:len(edges)] = np.minimum(edges, t)      # each edge length as la ...
+    lb[-len(edges):] = np.minimum(edges, u)     # ... and as lb
+    la_t, lb_t = (torch.from_numpy(x).to(dev) for x in (la, lb))
+    if source == "masked":
+        from dsp_tpu_torch.ops import dtw as tdtw
+
+        a = torch.from_numpy(rng.standard_normal((p, t, 5), np.float32)).to(dev)
+        b = torch.from_numpy(rng.standard_normal((p, u, 5), np.float32)).to(dev)
+        cost = tdtw.masked_cost_pairs(a, la_t, b, lb_t, DtwConfig()).contiguous()
+    else:
+        c = rng.standard_normal((p, t, u)).astype(np.float32) ** 2
+        c[rng.random(c.shape) < 0.1] = kwf.BIG
+        cost = torch.from_numpy(c).to(dev)
+    want = kwf.dtw_from_cost_plain(cost, la_t, lb_t).cpu().numpy()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = kwf.dtw_from_cost_pallas(cost, la_t, lb_t)
+    side.synchronize()
+    got = got.cpu().numpy()
+    if source == "masked":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert ((got >= 1e20) == (want >= 1e20)).all()
+        fin = want < 1e20
+        assert fin.any()
+        np.testing.assert_array_equal(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("warps", [1, 4, 8])
+def test_wavefront_kernel_any_block_warps(dev, warps, monkeypatch):
+    rng = np.random.default_rng(warps)
+    cost = torch.from_numpy(rng.standard_normal((13, 70, 90)).astype(np.float32) ** 2).to(dev)
+    la = torch.from_numpy(rng.integers(1, 71, 13).astype(np.int32)).to(dev)
+    lb = torch.from_numpy(rng.integers(1, 91, 13).astype(np.int32)).to(dev)
+    monkeypatch.setattr(kwf, "BLOCK_WARPS", warps)
+    np.testing.assert_array_equal(kwf.dtw_from_cost_pallas(cost, la, lb).cpu().numpy(),
+                                  kwf.dtw_from_cost_plain(cost, la, lb).cpu().numpy())
+    resident, regs = kwf.occupancy(198, warps)
+    assert resident >= warps and 0 < regs <= 255
 
 
 def test_matchers_on_the_card_match_the_plain_routes(dev):
