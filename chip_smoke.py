@@ -45,7 +45,13 @@ each of which raises on failure (non-zero exit):
              start witnesses agree, norms allclose at rtol 2e-4; where
              they differ (near-ties rounded apart), the raw costs
              norm * (tl + span) must agree to 1e-4 relative and such sites
-             stay under 0.1% (tests/test_tpu_device.py:333).
+             stay under 0.1% (tests/test_tpu_device.py:333).  Prints the
+             costs the kernel computes and its lane-steps against the cells
+             needed, and at ``bench`` its time, warps an SM and registers
+             with at most 8 and 4 warps a block.  Then, from a generator of their own, 8
+             streams of 1,200 standard-normal frames against 4 templates of
+             1,100 frames at F = 39 and of 600 frames at F = 128 (the first
+             design refused both), the same comparison.
 7. spotter — ``KeywordSpotter(KnnDtwRecognizer(device="cuda"))`` with
              keywords zero..four x 20 templates: ``calibrate_threshold``
              once, then ``spot`` over 64 synthetic 8-word streams of the
@@ -58,12 +64,18 @@ each of which raises on failure (non-zero exit):
              of 3 synchronized ``scores`` passes), and one ``spot`` pass
              broken into stages (pad + copy, features, kernel, copy back,
              event extraction).
-8. fused   — the unbanded closed-form DTW kernel against its plain version
-             at the main-path shape (B=256, K=100, T=U=198, F=39, seeded
-             lengths in [20, 198]), squared off and on, and against the
-             banded kernel's unbanded mode on the same inputs: identical
-             BIG/finite pattern, allclose at rtol 1e-4 / atol 1e-5
-             (tests/test_pallas_dtw.py:103).
+8. fused   — the unbanded DTW kernel from features against its plain
+             version (the closed form) at the main-path shape (B=256,
+             K=100, T=U=198, F=39, seeded lengths in [20, 198]), squared off
+             and on, and against the banded kernel's unbanded mode on the
+             same inputs: identical BIG/finite pattern, allclose at rtol
+             1e-4 / atol 1e-5 (tests/test_pallas_dtw.py:103).  Prints the
+             costs computed and lane-steps against the cells needed, and
+             the time, warps an SM and registers with at most 8 and 4 warps
+             a block.
+             Then, from a generator of their own, 16 x 8 pairs at U = 4,000
+             (window mode) and 8 x 8 at a query of T = 2,000 frames against
+             the plain version.
 9. wavefront — the wavefront DP kernel against its plain version on the
              masked cost of the same shape (25,600 pairs, 4.0 GB) under the
              default config, ``band_frac=None`` and the pure band
@@ -122,8 +134,9 @@ after the checked one, and one 256-query chunk is broken into stages
 (pad + copy, features, DTW + argmin, copy back).  Each kernel's bound is
 the larger of its fp32 operations over 67 TFLOP/s and its bytes (inputs
 read once, outputs written once) over 3.35 TB/s, counted from this run's
-inputs.  The last two lines of stdout are the kernel table and the run's
-result, each one JSON object; the lines before them are ``nvidia-smi``'s
+inputs and only the cells inside their lengths (and band).  The last two
+lines of stdout are the kernel table and the run's result, each one JSON
+object; the lines before them are ``nvidia-smi``'s
 name and power limit.
 """
 
@@ -172,12 +185,19 @@ MAIN_PASSES = 3            # timed classify passes after the checked one
 # them; "random" is 60 s of standard-normal features
 SPOT_CASES = [("bench", 64, 96_000, "connected"), ("long", 4, 960_000, "words"),
               ("random", 4, 960_000, "normal")]
+# kernel 3 past the first design's limits, from a generator of their own:
+# (name, (B, K, U, T, F))
+SPOT_LONG_CASES = [("long_t", (8, 4, 1200, 1100, 39)), ("wide", (8, 4, 1200, 600, 128))]
 SPOT_KEYWORDS = ["zero", "one", "two", "three", "four"]
 SPOT_TEMPLATES_PER_WORD = 20
 SPOT_STREAMS = 64
 SPOT_PASSES = 3
 MAIN_SHAPE = (256, 100, 198, 198)     # (B, K, T, U) of one main-path chunk
 FUSED_CASES = [("default", {}), ("squared", {"squared": True})]   # band_frac=None
+# kernel 4 past the first design's limits, from a generator of their own so
+# that later phases keep their inputs: (name, (B, K, T, U)), F = 39
+FUSED_LONG_CASES = [("long_u", (16, 8, 198, 4000)), ("long_t", (8, 8, 2000, 198))]
+BLOCK_WARPS_TIMED = (8, 4)   # kernels 4 and 3: caps on warps a block timed against each other
 WAVEFRONT_CASES = [("default", {}), ("unbanded", {"band_frac": None}),
                    ("pure_band", {"max_warp_scale": None})]
 WAVEFRONT_BLOCK_WARPS = (4, 8)   # warps a block timed against each other (default case)
@@ -282,8 +302,11 @@ def dtw_phase(rng, long_rng, dev, report):
         plain_ms = time_ms(lambda: kdtw.dtw_batch_plain(q, ql, bk, bl, cfg),
                            warmup=False)
         # cells the DP must visit for these inputs: in length, band, window
-        cells = sum(int((tdtw.masked_cost(q[lo:lo + 32, :, :1] * 0, ql[lo:lo + 32],
-                                          bk[:, :, :1] * 0, bl, cfg) < 1e20).sum())
+        # (masked_cost leaves rows past la valid where there is no band)
+        rows = torch.arange(t, device=dev)[None, None, :, None]
+        cells = sum(int(((tdtw.masked_cost(q[lo:lo + 32, :, :1] * 0, ql[lo:lo + 32],
+                                           bk[:, :, :1] * 0, bl, cfg) < 1e20)
+                         & (rows < ql[lo:lo + 32, None, None, None])).sum())
                     for lo in range(0, b, 32))
         # per cell: F squared differences (2F) and the DP's add and two mins
         b_ms, b_by = bound(cells * (2 * f + 3), 4 * ((b * t + k * u) * f + b + k + b * k))
@@ -560,7 +583,7 @@ def compare_spot(got, want, s_lens, b_lens, what: str) -> dict:
                 max_raw_rel_at_flips=float(raw_rel.max()) if raw_rel.size else 0.0)
 
 
-def spot_phase(rng, dev, report):
+def spot_phase(rng, long_rng, dev, report):
     import numpy as np
     import torch
 
@@ -610,13 +633,51 @@ def spot_phase(rng, dev, report):
             # per cell: a F-long dot product (2F) and the DP's adds and min
             b_ms, b_by = bound(cells * (2 * f + 3),
                                4 * ((b * u + k * t) * f + b + k) + 8 * b * k * u)
-            print(f"spot {key:14s} B={b} K={k} T={t} U={u}: flips "
+            computed, lane_steps = walk_counts(ksp.strips, ksp.cost_cells, s_lens.cpu(),
+                                               bank.length.cpu(), u, t)
+            window, warps, w_pair, _ = ksp.launch_plan(b, k, u, t, f)
+            print(f"spot {key:14s} B={b} K={k} T={t} U={u} ({warps} warps a block, {w_pair} "
+                  f"a stream): flips "
                   f"{cmp['witness_flips']} ({cmp['flip_share']:.2e})  max abs err "
                   f"{cmp['max_abs_err']:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-                  f"bound {b_ms:.4f} ms ({b_by}, {cells} cells)", flush=True)
+                  f"bound {b_ms:.4f} ms ({b_by}, {cells} cells); the kernel computes "
+                  f"{computed} costs ({computed / cells:.3f}x) over {lane_steps} "
+                  f"lane-steps ({lane_steps / cells:.3f}x)", flush=True)
             report["spot"][key] = dict(shape=[b, k, t, u, f], cells=cells, ms=ms,
                                        plain_ms=plain_ms, bound_ms=b_ms,
-                                       bound_by=b_by, **cmp)
+                                       bound_by=b_by, computed_costs=computed,
+                                       lane_steps=lane_steps, **cmp)
+            if key == "bench":
+                report["spot"]["block_warps"] = block_warps(
+                    ksp, lambda: ksp.subseq_dtw_fused(*args),
+                    lambda: ksp.launch_plan(b, k, u, t, f)[1], t, f)
+    # long templates at F = 39 (staged) and F = 128 (window mode), each
+    # refused by the first design, on standard-normal features
+    for name, (b, k, u, t, f) in SPOT_LONG_CASES:
+        streams = torch.from_numpy(long_rng.standard_normal((b, u, f), np.float32)).to(dev)
+        lbank = torch.from_numpy(long_rng.standard_normal((k, t, f), np.float32)).to(dev)
+        s_lens = torch.from_numpy(long_rng.integers(u // 2, u + 1, b).astype(np.int32)).to(dev)
+        b_lens = torch.from_numpy(long_rng.integers(t // 2, t + 1, k).astype(np.int32)).to(dev)
+        args = (streams, s_lens, lbank, b_lens)
+        got = ksp.subseq_dtw_fused(*args)
+        torch.cuda.synchronize()
+        sl, bl = s_lens.cpu().numpy(), b_lens.cpu().numpy()
+        cmp = compare_spot([x.cpu().numpy() for x in got],
+                           [x.cpu().numpy() for x in ksp.subseq_dtw_batch_plain(*args)],
+                           sl, bl, f"spot {name}")
+        ms = time_ms(lambda: ksp.subseq_dtw_fused(*args))
+        plain_ms = time_ms(lambda: ksp.subseq_dtw_batch_plain(*args))
+        cells = int(np.sum(sl.astype(np.int64)[:, None] * bl[None, :]))
+        b_ms, b_by = bound(cells * (2 * f + 3),
+                           4 * ((b * u + k * t) * f + b + k) + 8 * b * k * u)
+        window, warps, w_pair, _ = ksp.launch_plan(b, k, u, t, f)
+        mode = f"{'window' if window else 'staged'} x{warps}, {w_pair} a stream"
+        print(f"spot {name:14s} B={b} K={k} T={t} U={u} F={f} ({mode}): flips "
+              f"{cmp['witness_flips']} ({cmp['flip_share']:.2e})  max abs err "
+              f"{cmp['max_abs_err']:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by}, {cells} cells)", flush=True)
+        report["spot"][name] = dict(shape=[b, k, t, u, f], mode=mode, cells=cells, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **cmp)
 
 
 def spot_stage_ms(spotter, signals, reps: int = 3) -> dict:
@@ -760,9 +821,42 @@ def spotter_phase(seed: int, dev, report) -> int:
     return launches
 
 
-def fused_phase(rng, dev, report):
-    """Kernel 4 (unbanded closed form) against its plain version and the
-    banded kernel's unbanded mode at the main-path shape."""
+def walk_counts(strips, cost_cells, lens_a, lens_b, pad_a: int, pad_b: int):
+    """(costs computed, lane-steps) of kernel 4 or 3 for these lengths, from
+    the walk its wrapper module states (``strips``, ``cost_cells``)."""
+    computed = lane_steps = 0
+    for a in lens_a.tolist():
+        for c in lens_b.tolist():
+            computed += cost_cells(a, c, pad_a, pad_b)
+            lane_steps += 32 * sum(n for _, _, n in strips(a, c, pad_a, pad_b))
+    return computed, lane_steps
+
+
+def block_warps(module, run, plan, pad: int, f: int) -> dict:
+    """Kernel 4 or 3 (``module``, its wrapper) with its launch plan capped at
+    each of BLOCK_WARPS_TIMED warps a block: the warps a block the plan
+    takes (``plan()``), the time (``run()``), warps resident an SM and
+    registers a thread (CUDA's occupancy calculator)."""
+    out, chosen = {}, module.BLOCK_WARPS
+    try:
+        for cap in BLOCK_WARPS_TIMED:
+            module.BLOCK_WARPS = cap
+            warps = plan()
+            ms = time_ms(run)
+            resident, regs = module.occupancy(pad, f, warps)
+            print(f"{module.__name__.rsplit('.', 1)[1]} at most {cap} warps a block ({warps} "
+                  f"taken): kernel {ms:.3f} ms  {resident} warps an SM ({regs} registers a "
+                  f"thread)", flush=True)
+            out[cap] = dict(warps=warps, ms=ms, warps_per_sm=resident, registers=regs)
+    finally:
+        module.BLOCK_WARPS = chosen
+    return out
+
+
+def fused_phase(rng, long_rng, dev, report):
+    """Kernel 4 (unbanded DTW from features) against its plain version and
+    the banded kernel's unbanded mode at the main-path shape, and against
+    its plain version at a long template and a long query."""
     import torch
 
     from dsp_tpu_torch.config import DtwConfig
@@ -774,6 +868,8 @@ def fused_phase(rng, dev, report):
     args = dtw_inputs(rng, dev, b, k, t, u, f)
     # unbanded: the DP visits every cell inside the lengths
     cells = int((args[1].long()[:, None] * args[3].long()[None, :]).sum())
+    computed, lane_steps = walk_counts(kfu.strips, kfu.cost_cells, args[1].cpu(),
+                                       args[3].cpu(), t, u)
     for name, overrides in FUSED_CASES:
         cfg = DtwConfig(band_frac=None, **overrides)
         got = kfu.dtw_batch_fused(*args, cfg)
@@ -789,13 +885,42 @@ def fused_phase(rng, dev, report):
         print(f"fused {name:8s} B={b} K={k} T={t} U={u}: finite {fin:.4f}  max rel err "
               f"{rel:.3e}  max abs err {abs_err:.3e} (vs kernel 1 unbanded {rel1:.3e} / "
               f"{abs1:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
-              f"{b_ms:.4f} ms ({b_by}, {cells} cells)", flush=True)
+              f"{b_ms:.4f} ms ({b_by}, {cells} cells); the kernel computes {computed} "
+              f"costs ({computed / cells:.3f}x) over {lane_steps} lane-steps "
+              f"({lane_steps / cells:.3f}x)", flush=True)
         report["fused"][name] = dict(shape=[b, k, t, u, f], finite_share=fin,
                                      max_rel_err=rel, max_abs_err=abs_err,
                                      vs_banded_unbanded=dict(max_rel_err=rel1,
                                                              max_abs_err=abs1),
                                      ms=ms, plain_ms=plain_ms, cells=cells,
+                                     computed_costs=computed, lane_steps=lane_steps,
                                      bound_ms=b_ms, bound_by=b_by)
+        if name == "default":
+            report["fused"]["block_warps"] = block_warps(
+                kfu, lambda: kfu.dtw_batch_fused(*args, cfg),
+                lambda: kfu.launch_plan(b, u, f)[1], u, f)
+    # a long template (window mode) and a long query, each refused by the
+    # first design: the plain version is the reference
+    for name, (b, k, t, u) in FUSED_LONG_CASES:
+        cfg = DtwConfig(band_frac=None)
+        largs = dtw_inputs(long_rng, dev, b, k, t, u, f)
+        got = kfu.dtw_batch_fused(*largs, cfg)
+        torch.cuda.synchronize()
+        rel, abs_err, fin = compare_dtw(got, kfu.dtw_batch_fused_plain(*largs, cfg), 1e-4,
+                                        atol=1e-5)
+        ms = time_ms(lambda: kfu.dtw_batch_fused(*largs, cfg))
+        plain_ms = time_ms(lambda: kfu.dtw_batch_fused_plain(*largs, cfg))
+        lcells = int((largs[1].long()[:, None] * largs[3].long()[None, :]).sum())
+        b_ms, b_by = bound(lcells * (2 * f + 3), 4 * ((b * t + k * u) * f + b + k + b * k))
+        window, warps, _ = kfu.launch_plan(b, u, f)
+        mode = f"{'window' if window else 'staged'} x{warps}"
+        print(f"fused {name:8s} B={b} K={k} T={t} U={u} ({mode}): finite {fin:.4f}  max "
+              f"rel err {rel:.3e}  max abs err {abs_err:.3e}  kernel {ms:.3f} ms  plain "
+              f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}, {lcells} cells)", flush=True)
+        report["fused"][name] = dict(shape=[b, k, t, u, f], mode=mode, finite_share=fin,
+                                     max_rel_err=rel, max_abs_err=abs_err, ms=ms,
+                                     plain_ms=plain_ms, cells=lcells, bound_ms=b_ms,
+                                     bound_by=b_by)
 
 
 def wavefront_phase(rng, dev, report):
@@ -1278,9 +1403,9 @@ def main() -> int:
     mfcc_phase(dev, report)
     small_phase(rng, dev, report)
     launches = main_phase(dev, report)
-    spot_phase(rng, dev, report)
+    spot_phase(rng, np.random.default_rng([args.seed, 3]), dev, report)
     launches["spot_subseq"] = spotter_phase(args.seed, dev, report)
-    fused_phase(rng, dev, report)
+    fused_phase(rng, np.random.default_rng([args.seed, 2]), dev, report)
     wavefront_phase(rng, dev, report)
     routes = matchers_phase(dev, report)
     launches["dtw_fused"] = routes["fused"]["dtw_fused"]

@@ -47,8 +47,9 @@ _SIGNATURES = {
                     _I, _F, _I, _I, _P), _I),
     "mfcc_fused": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                     _F, _I, _P), _I),
-    "spot_subseq": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
-    "dtw_fused": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
+    "spot_subseq": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                    _I),
+    "dtw_fused": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
     "dtw_wavefront": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "mb_dp_diet": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "mb_dma_fetch": ((_P, _P, _P, _P, _U, _I, _I, _I, _I, _P), _I),
@@ -61,6 +62,8 @@ _SIGNATURES = {
 # C entry points that launch nothing (no stream, not counted)
 _QUERIES = {
     "dtw_wavefront_occupancy": ((_I, _I, _P, _P), _I),
+    "dtw_fused_occupancy": ((_I, _I, _I, _P, _P), _I),
+    "spot_subseq_occupancy": ((_I, _I, _I, _P, _P), _I),
 }
 # the most rows (queries or streams) one launch takes: gridDim.y's limit
 MAX_GRID_ROWS = 65535

@@ -13,9 +13,9 @@ norms at rtol 2e-4; where they differ (a near-tie that the kernel's
 sequential sums and the scan's tree round apart), the raw costs
 norm * (tl + span) agree to 1e-4 relative and such sites stay under 0.1%
 (tests/test_tpu_device.py:333).
-Unbanded closed-form DTW (kernel ``dtw_fused``): rtol 1e-4 / atol 1e-5
-against its plain version and the banded kernel's unbanded mode
-(tests/test_pallas_dtw.py:103).  Wavefront DTW (kernel ``dtw_wavefront``):
+Unbanded DTW from features (kernel ``dtw_fused``): rtol 1e-4 / atol 1e-5
+against its closed-form plain version and the banded kernel's unbanded
+mode (tests/test_pallas_dtw.py:103).  Wavefront DTW (kernel ``dtw_wavefront``):
 equal bits to its plain version on the same masked cost (one exact min and
 one add per cell).  Wavefront microbenchmark kernels (``mb_*``): equal bits
 to their plain versions (dp_diet: exact mins and one add a cell; anatomy:
@@ -378,14 +378,8 @@ def test_spot_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         ksp.subseq_dtw_fused(streams.transpose(1, 2).contiguous().transpose(1, 2),
                              sl, bank, tl)
-    one = torch.ones((1,), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="fit"):
-        ksp.subseq_dtw_fused(streams, sl, torch.zeros((1, 1100, 39), device=dev), one)
-    # F = 128 at 600 frames needs ~335 KB of shared memory: the launch is
-    # refused, and the refusal does not leak into the next launch's check
-    wide = torch.zeros((2, 30, 128), device=dev)
-    with pytest.raises(RuntimeError, match="spot_subseq"):
-        ksp.subseq_dtw_fused(wide, sl, torch.zeros((1, 600, 128), device=dev), one)
+    with pytest.raises(ValueError):
+        ksp.subseq_dtw_fused(streams, sl, bank[:, :0].contiguous(), tl)
     _check_spot(ksp.subseq_dtw_fused(streams, sl, bank, tl),
                 ksp.subseq_dtw_batch_plain(streams, sl, bank, tl), sl, tl)
     norm, start = ksp.subseq_dtw_fused(streams[:0], sl[:0], bank, tl)
@@ -441,16 +435,176 @@ def test_fused_wrapper_rejects_what_the_kernel_does_not_take(dev):
             kfu.dtw_batch_fused(q, ql, bk, bl, bad)
     with pytest.raises(ValueError):
         kfu.dtw_batch_fused(q, ql.long(), bk, bl, unbanded)
-    with pytest.raises(ValueError, match="fit"):
-        kfu.dtw_batch_fused(q, ql, torch.zeros((2, 1100, 39), device=dev), bl, unbanded)
-    # a query of 2,000 frames x 40 features needs 320 KB of shared memory:
-    # the launch is refused and the refusal does not leak into the next launch
-    with pytest.raises(RuntimeError, match="dtw_fused"):
-        kfu.dtw_batch_fused(torch.zeros((1, 2000, 39), device=dev), ql[:1], bk, bl,
-                            unbanded)
+    with pytest.raises(ValueError):
+        kfu.dtw_batch_fused(q, ql, bk[:, :0].contiguous(), bl, unbanded)
     _check_dtw(kfu.dtw_batch_fused(q, ql, bk, bl, unbanded),
                kfu.dtw_batch_fused_plain(q, ql, bk, bl, unbanded))
     assert kfu.dtw_batch_fused(q[:0], ql[:0], bk, bl, unbanded).shape == (0, 2)
+
+
+# lengths at the strip (32 rows or columns) and chunk (32 steps) edges of
+# kernels 4 and 3
+EDGE_LENGTHS = [1, 31, 32, 33, 63, 64, 65]
+
+
+def _check_fused(args, cfg):
+    got = kfu.dtw_batch_fused(*args, cfg)
+    want = kfu.dtw_batch_fused_plain(*args, cfg)
+    got_n, want_n = got.cpu().numpy(), want.cpu().numpy()
+    assert not np.isnan(got_n).any()
+    assert ((got_n >= 1e20) == (want_n >= 1e20)).all()
+    np.testing.assert_allclose(got_n, want_n, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("squared", [False, True])
+@pytest.mark.parametrize("length", EDGE_LENGTHS)
+def test_fused_kernel_at_strip_edge_lengths(dev, length, squared):
+    """The edge length as the query's, then as the template's, each against
+    a full and a short other side."""
+    q, ql, bk, bl = _dtw_inputs(dev, 4, 4, 65, 70, seed=length)
+    ql[:] = torch.tensor([length, length, 65, 40], dtype=torch.int32)
+    bl[:] = torch.tensor([70, 47, length, length], dtype=torch.int32)
+    _check_fused((q, ql, bk, bl), DtwConfig(band_frac=None, squared=squared))
+
+
+@pytest.mark.parametrize("t,u", [(198, 1100), (60, 4000), (2000, 150), (40, 1313)])
+def test_fused_kernel_long_templates_and_queries(dev, t, u):
+    """Templates past the first kernel's 1,024 frames (window mode past
+    1,312 at F = 39) and a query of 2,000 frames: each was refused before."""
+    window = kfu.launch_plan(3, u, 39)[0]
+    assert window == (u > 1312)
+    args = _dtw_inputs(dev, 3, 2, t, u, seed=u, min_len=20)
+    _check_fused(args, DtwConfig(band_frac=None))
+
+
+def test_fused_kernel_template_past_kernel1s_limit(dev):
+    """60,000 frames, past kernel 1's 54,428: window mode's edge rows are in
+    device memory."""
+    args = _dtw_inputs(dev, 1, 1, 20, 60_000, seed=3)
+    _check_fused(args, DtwConfig(band_frac=None))
+
+
+def test_fused_kernel_window_mode_in_query_slices(dev, monkeypatch):
+    """A window-mode batch whose edge rows exceed the scratch budget runs
+    in slices of ``window_rows`` queries, one launch each."""
+    monkeypatch.setattr(kfu, "WINDOW_SCRATCH_FLOATS", 2 * 3 * 1400)
+    args = _dtw_inputs(dev, 5, 3, 40, 1400, seed=4)
+    assert kfu.launch_plan(5, 1400, 39)[0] and kfu.window_rows(3, 1400) == 2
+    before = _build.LAUNCHES["dtw_fused"]
+    _check_fused(args, DtwConfig(band_frac=None))
+    assert _build.LAUNCHES["dtw_fused"] == before + 3
+
+
+@pytest.mark.parametrize("f", [1, 40, 41, 100, 130])
+def test_fused_kernel_any_feature_width(dev, f):
+    args = _dtw_inputs(dev, 5, 4, 50, 64, f=f, seed=f)
+    _check_fused(args, DtwConfig(band_frac=None))
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_fused_kernel_any_block_warps(dev, warps, monkeypatch):
+    monkeypatch.setattr(kfu, "BLOCK_WARPS", warps)
+    args = _dtw_inputs(dev, 13, 3, 70, 90, seed=warps)
+    assert kfu.launch_plan(13, 90, 39)[1] == warps
+    _check_fused(args, DtwConfig(band_frac=None))
+    resident, regs = kfu.occupancy(198, 39, warps)
+    assert resident >= warps and 0 < regs <= 255
+
+
+@pytest.mark.parametrize("squared", [False, True])
+@pytest.mark.parametrize("length", EDGE_LENGTHS)
+def test_spot_kernel_at_strip_edge_lengths(dev, length, squared):
+    """The edge length as the stream's, then as the template's."""
+    args = _spot_inputs(dev, 4, 4, 70, 65, seed=length)
+    args[1][:] = torch.tensor([length, length, 70, 40], dtype=torch.int32)
+    args[3][:] = torch.tensor([65, 47, length, length], dtype=torch.int32)
+    _check_spot(ksp.subseq_dtw_fused(*args, squared=squared),
+                ksp.subseq_dtw_batch_plain(*args, squared=squared), args[1], args[3])
+
+
+@pytest.mark.parametrize("u,t,f", [(300, 1100, 39), (120, 600, 128), (150, 1300, 39),
+                                   (100, 9000, 39)])
+def test_spot_kernel_long_templates_and_wide_features(dev, u, t, f):
+    """A 1,100-frame template at F = 39 (staged) and 600 frames at F = 128
+    (window mode), each refused before; 1,300 and 9,000 at F = 39 in window
+    mode."""
+    assert ksp.launch_plan(2, 2, u, t, f)[0] == (t == 600 or t > 1280)
+    args = _spot_inputs(dev, 2, 2, u, t, f=f, seed=t)
+    args[3][1] = t // 2
+    _check_spot(ksp.subseq_dtw_fused(*args), ksp.subseq_dtw_batch_plain(*args),
+                args[1], args[3])
+
+
+@pytest.mark.parametrize("f", [1, 40, 41, 100, 130])
+def test_spot_kernel_any_feature_width(dev, f):
+    args = _spot_inputs(dev, 3, 3, 80, 40, f=f, seed=f)
+    _check_spot(ksp.subseq_dtw_fused(*args), ksp.subseq_dtw_batch_plain(*args),
+                args[1], args[3])
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_spot_kernel_any_block_warps(dev, warps, monkeypatch):
+    monkeypatch.setattr(ksp, "BLOCK_WARPS", warps)
+    args = _spot_inputs(dev, 13, 3, 90, 70, seed=warps)
+    assert ksp.launch_plan(13, 3, 90, 70, 39)[1] == warps
+    _check_spot(ksp.subseq_dtw_fused(*args), ksp.subseq_dtw_batch_plain(*args),
+                args[1], args[3])
+    resident, regs = ksp.occupancy(198, 39, warps)
+    assert resident >= warps and 0 < regs <= 255
+
+
+@pytest.mark.parametrize("t,f", [(40, 5), (198, 39), (1300, 39), (600, 128)])
+@pytest.mark.parametrize("w_pair", [2, 4, 8])
+def test_spot_kernel_several_warps_a_stream(dev, w_pair, t, f, monkeypatch):
+    """Streams walked by 2, 4 or 8 warps, strip by strip, each reading its
+    neighbour's edge column (staged and window mode), at stream lengths
+    that leave the last warps one strip short or none."""
+    monkeypatch.setattr(ksp, "SM_COUNT", 10**9)
+    monkeypatch.setattr(ksp, "BLOCK_WARPS", w_pair)
+    args = _spot_inputs(dev, 3, 2, 32 * w_pair * 2 + 5, t, f=f, seed=w_pair)
+    args[1][1] = 32 * (w_pair - 1) + 1
+    _, warps, got_w, _ = ksp.launch_plan(3, 2, args[0].shape[1], t, f)
+    assert got_w == warps == min(w_pair, 4 if f == 128 else 8)   # as many as the block holds
+    for squared in (False, True):
+        _check_spot(ksp.subseq_dtw_fused(*args, squared=squared),
+                    ksp.subseq_dtw_batch_plain(*args, squared=squared), args[1], args[3])
+
+
+def test_spot_kernel_window_mode_in_stream_slices(dev, monkeypatch):
+    monkeypatch.setattr(ksp, "WINDOW_SCRATCH_WORDS", 2 * 3 * 8 * 2 * 1400)
+    args = _spot_inputs(dev, 5, 3, 70, 1400, seed=4)
+    assert ksp.launch_plan(5, 3, 70, 1400, 39)[0] and ksp.window_rows(3, 1400) == 2
+    before = _build.LAUNCHES["spot_subseq"]
+    _check_spot(ksp.subseq_dtw_fused(*args), ksp.subseq_dtw_batch_plain(*args),
+                args[1], args[3])
+    assert _build.LAUNCHES["spot_subseq"] == before + 3
+
+
+@pytest.mark.parametrize("name", ["dtw_fused", "spot_subseq"])
+def test_window_mode_launches_on_the_current_stream(dev, name):
+    """Kernels 4 and 3 in window mode, on a non-default current stream that
+    first sleeps, then writes the inputs (as the test of every wrapper)."""
+    if name == "dtw_fused":
+        inputs = _dtw_inputs(dev, 3, 2, 40, 1500, seed=5)
+        fn = kfu.dtw_batch_fused
+        assert kfu.launch_plan(3, 1500, 39)[0]
+    else:
+        inputs = _spot_inputs(dev, 3, 2, 90, 1400, seed=5)
+        fn = ksp.subseq_dtw_fused
+        assert ksp.launch_plan(3, 2, 90, 1400, 39)[0]
+    want = fn(*inputs)
+    bufs = [torch.zeros_like(x) for x in inputs]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        for buf, x in zip(bufs, inputs):
+            buf.copy_(x)
+        got = fn(*bufs)
+    side.synchronize()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("kw", [{}, {"band_frac": None}, {"max_warp_scale": None},

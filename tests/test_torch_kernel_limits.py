@@ -12,6 +12,15 @@
 - Kernel 5's plain version against the TPU kernel in interpret mode at the
   lengths on the CUDA kernel's strip and chunk edges: equal bits (one
   exact min and one add a cell).
+- Kernels 4 and 3's walks (``dtw_fused.strips``, ``spot_fused.strips``):
+  every cell inside the lengths exactly once, plus the stated ramp; their
+  launch plans (no length bounded by shared memory: window mode keeps the
+  edge rows or columns in device memory).
+- The plain versions the card holds kernels 4 and 3 to, against the JAX
+  unbanded scan and the JAX spotting scan at a template of 1,100 frames,
+  past the first kernels' 1,024-frame limit: kernel 4 at rtol 1e-4 /
+  atol 1e-5 (tests/test_pallas_dtw.py:103), kernel 3 at rtol 2e-4 /
+  atol 1e-5 with equal witnesses (tests/test_torch_spot.py).
 """
 
 import jax.numpy as jnp
@@ -22,11 +31,14 @@ import torch
 from dsp_tpu.config import DtwConfig as JDtwConfig
 from dsp_tpu.kernels import dtw_pallas as jkp
 from dsp_tpu.ops import dtw as jdtw
+from dsp_tpu.ops import spot as jsp
 
 from dsp_tpu_torch.config import DtwConfig
 from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+from dsp_tpu_torch.kernels import dtw_fused as kfu
 from dsp_tpu_torch.kernels import dtw_pallas as kwf
+from dsp_tpu_torch.kernels import spot_fused as ksp
 
 T = torch.from_numpy
 
@@ -106,3 +118,136 @@ def test_wavefront_plain_matches_jax_interpret_at_strip_edges(length):
     want = np.asarray(jkp.dtw_from_cost_pallas(jnp.asarray(cost), jnp.asarray(la),
                                                jnp.asarray(lb), interpret=True))
     np.testing.assert_array_equal(got, want)
+
+
+WALK_LENGTHS = [(1, 1), (1, 40), (31, 1), (32, 32), (33, 31), (64, 65), (65, 64),
+                (70, 198)]
+
+
+def _walk_cells(walk):
+    """(cells a lane-step computes, lane-steps) of a walk given as
+    (start, n_lanes, n_steps) strips: lane l at step s of a strip is at
+    (start + l, s - l) if that lies inside the other length."""
+    cells, lane_steps = [], 0
+    for start, n_lanes, n_steps, other in walk:
+        lane_steps += kfu.STRIP * n_steps
+        for lane in range(n_lanes):
+            cells += [(start + lane, s - lane) for s in range(n_steps)
+                      if 0 <= s - lane < other]
+    return cells, lane_steps
+
+
+@pytest.mark.parametrize("la,lb", WALK_LENGTHS)
+def test_kernel4_walk_visits_each_cell_once_plus_the_ramp(la, lb):
+    strips = kfu.strips(la, lb, 80, 200)
+    cells, lane_steps = _walk_cells([(r0, n, steps, lb) for r0, n, steps in strips])
+    assert sorted(cells) == [(i, j) for i in range(la) for j in range(lb)]
+    # each strip of n rows walks lb + n - 1 steps: the ramp is 32 x that
+    # less the strip's n x lb cells
+    assert [r0 for r0, _, _ in strips] == list(range(0, la, 32))
+    assert lane_steps == sum(32 * (lb + n - 1) for _, n, _ in strips)
+    assert kfu.cost_cells(la, lb, 80, 200) == len(strips) * 32 * -(-lb // 8) * 8
+
+
+@pytest.mark.parametrize("sl,tl", WALK_LENGTHS)
+def test_kernel3_walk_visits_each_cell_once_plus_the_ramp(sl, tl):
+    strips = ksp.strips(sl, tl, 200, 200)
+    cells, lane_steps = _walk_cells([(c0, n, steps, tl) for c0, n, steps in strips])
+    # (stream column, template row), every one once
+    assert sorted(cells) == [(j, i) for j in range(sl) for i in range(tl)]
+    assert lane_steps == sum(32 * (tl + n - 1) for _, n, _ in strips)
+    assert ksp.cost_cells(sl, tl, 200, 200) == len(strips) * 32 * -(-tl // 8) * 8
+
+
+def test_kernel_walks_clamp_lengths_as_the_kernels_do():
+    assert kfu.strips(0, 500, 40, 50) == [(0, 1, 50)]
+    assert ksp.strips(0, 500, 40, 50) == [(0, 1, 50)]
+
+
+def test_kernel4_launch_plan_limits():
+    """At F = 39: the main path keeps 8 warps a block in staged mode; the
+    longest template staged whole, then window mode, whose edge rows live
+    in device memory, so no length is bounded by shared memory; the query
+    length is no argument of the plan (a strip stages 32 rows)."""
+    window, warps, smem = kfu.launch_plan(256, 198, 39)
+    assert (window, warps) == (False, 8)
+    assert kfu.resident_warps(warps, smem) == kfu.SM_WARPS     # two blocks an SM
+    assert kfu.launch_plan(3, 198, 39)[:2] == (False, 3)       # no idle warp
+    assert kfu.launch_plan(1, 1312, 39)[0] is False
+    assert kfu.launch_plan(1, 1313, 39)[0] is True
+    for u in (1313, 54_429, 10**6):
+        for f in (39, 128, 300):
+            window, warps, smem = kfu.launch_plan(2, u, f)
+            assert window and warps in (1, 2) and smem <= kfu.SMEM_OPTIN
+    # window mode's query slices keep the edge rows within the scratch budget
+    assert kfu.window_rows(8, 4000) == kfu.WINDOW_SCRATCH_FLOATS // (8 * 4000)
+    assert kfu.window_rows(1, 10**9) == 1
+    assert kfu.window_rows(1, 2) == _build.MAX_GRID_ROWS
+
+
+def test_kernel3_launch_plan_limits():
+    """Kernel 3 stages the template whole where it fits one warp's block and
+    otherwise runs in window mode with its edge columns in device memory:
+    1,100 frames at F = 39 staged, 600 at F = 128 in window mode, and any
+    length beyond.  Warps a stream: one where the pairs fill the card (the
+    spotting bench's 64 x 100), more where they are few (4 x 100 pairs of
+    60 s streams), never more than the strips, and never more warps in
+    all than the card holds of the chosen block."""
+    # 7 warps a block: two blocks an SM, where 8 would leave one
+    assert ksp.launch_plan(64, 100, 598, 198, 39) == (False, 7, 1, ksp.smem_bytes(7, 198, 39, False))
+    assert ksp.launch_plan(4, 100, 5998, 198, 39)[:3] == (False, 6, 2)
+    assert ksp.launch_plan(1, 100, 5998, 198, 39)[2] == 8
+    assert ksp.launch_plan(4, 100, 40, 198, 39)[2] == 1       # one strip
+    for b, k, u, t in ((4, 100, 5998, 198), (2, 100, 5998, 198), (2, 100, 300, 1100),
+                       (3, 2, 300, 198), (2, 100, 300, 600)):
+        _, warps, w_pair, smem = ksp.launch_plan(b, k, u, t, 39)
+        assert w_pair == 1 or b * k * w_pair <= ksp.SM_COUNT * kfu.resident_warps(warps, smem)
+    assert ksp.launch_plan(1, 1, 100, 1280, 39)[0] is False
+    assert ksp.launch_plan(1, 1, 100, 1281, 39)[0] is True
+    assert ksp.launch_plan(1, 1, 100, 320, 128)[0] is False
+    assert ksp.launch_plan(1, 1, 100, 321, 128)[0] is True
+    assert ksp.launch_plan(2, 2, 300, 1100, 39)[0] is False
+    assert ksp.launch_plan(2, 2, 300, 600, 128)[0] is True
+    for t in (1281, 8000, 10**6):
+        for f in (39, 128):
+            window, warps, w_pair, smem = ksp.launch_plan(2, 2, 300, t, f)
+            assert window and smem <= ksp.SMEM_OPTIN and warps % w_pair == 0
+    assert ksp.window_rows(4, 1100) == ksp.WINDOW_SCRATCH_WORDS // (4 * 8 * 2 * 1100)
+
+
+@pytest.mark.parametrize("squared", [False, True])
+def test_fused_plain_matches_jax_scan_at_a_long_template(squared):
+    b, k, t, u, f = 2, 2, 30, 1100, 13
+    rng = np.random.default_rng(23)
+    q = rng.standard_normal((b, t, f)).astype(np.float32)
+    bank = rng.standard_normal((k, u, f)).astype(np.float32)
+    ql = np.array([t, 17], np.int32)
+    bl = np.array([u, 1040], np.int32)
+    cfg = DtwConfig(band_frac=None, squared=squared)
+    got = kfu.dtw_batch_fused_plain(T(q), T(ql), T(bank), T(bl), cfg).numpy()
+    want = np.asarray(jdtw.dtw_batch(jnp.asarray(q), jnp.asarray(ql), jnp.asarray(bank),
+                                     jnp.asarray(bl), JDtwConfig(band_frac=None,
+                                                                 squared=squared)))
+    assert (want < 1e20).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("squared", [False, True])
+def test_spot_plain_matches_jax_scan_at_a_long_template(squared):
+    b, k, u, t, f = 2, 2, 1300, 1100, 13
+    rng = np.random.default_rng(29)
+    streams = rng.standard_normal((b, u, f)).astype(np.float32)
+    bank = rng.standard_normal((k, t, f)).astype(np.float32)
+    s_lens = np.array([u, 1150], np.int32)
+    b_lens = np.array([t, 1030], np.int32)
+    got = [x.numpy() for x in ksp.subseq_dtw_batch_plain(T(streams), T(s_lens), T(bank),
+                                                         T(b_lens), squared)]
+    want = [np.asarray(x) for x in jsp.subseq_dtw_batch(
+        jnp.asarray(streams), jnp.asarray(s_lens), jnp.asarray(bank), jnp.asarray(b_lens),
+        squared=squared, impl="scan")]
+    for bi, sl in enumerate(s_lens):
+        np.testing.assert_allclose(got[0][bi, :, :sl], want[0][bi, :, :sl],
+                                   rtol=2e-4, atol=1e-5)
+        np.testing.assert_array_equal(got[1][bi, :, :sl], want[1][bi, :, :sl])
+        assert (got[0][bi, :, sl:] >= 1e20).all()
+
