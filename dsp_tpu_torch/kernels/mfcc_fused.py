@@ -2,9 +2,12 @@
 
 Port of ``dsp_tpu/kernels/mfcc_pallas.py`` (``mfcc_frames_pallas``,
 ``mfcc_pallas``).  The kernel (``csrc/mfcc_fused.cu``) takes pre-emphasised
-frames [N, L] to cepstra [N, n_mfcc] in one pass; its header says what
-bounds it.  Pre-emphasis and framing stay plain PyTorch, as in the JAX
-package.
+frames [N, L] to cepstra [N, n_mfcc] in one pass, in one of two modes that
+:func:`launch_plan` picks from the config: ``fft`` (a warp a frame, a
+radix-2 FFT in shared memory) where ``n_fft`` is a power of two and a
+frame's buffers fit a block, else ``gemm`` (the DFT as two GEMMs).  The
+source's header says what bounds each.  Pre-emphasis and framing stay
+plain PyTorch, as in the JAX package.
 
 :func:`mfcc_frames_fused` takes CUDA tensors to the kernel and CPU tensors
 to :func:`mfcc_frames_plain` (``ops/frontend.py:mfcc_from_frames``); it
@@ -13,11 +16,123 @@ never falls back from one to the other.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from dsp_tpu_torch.config import FrontendConfig
 from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.ops import frontend as fe
+
+
+SMEM_OPTIN = 232_448    # shared memory a block may use on the H100 (227 KB)
+BLOCK_WARPS = 8         # FFT mode: warps a block, fewer where they do not fit
+FRAMES_PER_WARP = 4     # FFT mode: frames a warp takes in turn
+GEMM_WARPS, GEMM_FRAMES_PER_WARP = 8, 4   # csrc/mfcc_fused.cu THREADS / 32, ROWS_PER_WARP
+MODES = {"gemm": 0, "fft": 1}             # the C entry's mode argument
+
+
+class Plan(NamedTuple):
+    mode: str             # "fft" | "gemm"
+    frames_per_warp: int
+    warps: int            # warps a block
+    smem_bytes: int
+
+
+def _round_up4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def fft_smem_bytes(cfg: FrontendConfig, warps: int) -> int:
+    """Shared bytes of an FFT-mode block (``csrc/mfcc_fused.cu``,
+    ``mfcc_fft_block_floats`` + warps x ``mfcc_fft_warp_floats``)."""
+    half, m, c = cfg.n_fft // 2, cfg.n_mels, cfg.n_mfcc
+    block = 4 * half + _round_up4(cfg.frame_len) + m * c + c + mel_nnz(cfg) + 3 * m
+    per_warp = 2 * (half + (half >> 5)) + half + 1 + m
+    return 4 * (block + warps * per_warp)
+
+
+def gemm_smem_bytes(cfg: FrontendConfig) -> int:
+    """Shared bytes of a GEMM-mode block (``mfcc_fused_smem_bytes``): 32
+    frames, 16-sample tiles, 288-bin passes."""
+    tm, kt, pass_ = 32, 16, 288
+    n_pass = -(-cfg.n_bins // pass_)
+    return 4 * (tm * kt + 2 * kt * pass_ + tm * (n_pass * pass_ + 1)
+                + tm * cfg.n_mels + tm)
+
+
+@functools.lru_cache(maxsize=32)
+def launch_plan(cfg: FrontendConfig) -> Plan:
+    """The kernel's mode, frames a warp, warps a block and shared bytes for
+    ``cfg``: ``fft`` where ``n_fft`` is a power of two (at least 4) and a
+    block of one warp fits :data:`SMEM_OPTIN`, with as many warps up to
+    :data:`BLOCK_WARPS` as fit; else ``gemm``.  Raises ``ValueError``
+    where neither mode's block fits."""
+    n_fft = cfg.n_fft
+    if n_fft >= 4 and n_fft & (n_fft - 1) == 0:
+        fits = [w for w in range(BLOCK_WARPS, 0, -1) if fft_smem_bytes(cfg, w) <= SMEM_OPTIN]
+        if fits:
+            return Plan("fft", FRAMES_PER_WARP, fits[0], fft_smem_bytes(cfg, fits[0]))
+    smem = gemm_smem_bytes(cfg)
+    if smem > SMEM_OPTIN:
+        raise ValueError(f"the fused MFCC kernel takes no n_fft={n_fft} at "
+                         f"n_mels={cfg.n_mels}: a GEMM-mode block needs {smem} "
+                         f"shared bytes, over {SMEM_OPTIN}")
+    return Plan("gemm", GEMM_FRAMES_PER_WARP, GEMM_WARPS, smem)
+
+
+def fft_twiddles_np(n_fft: int) -> np.ndarray:
+    """e^{-2 pi i k / n_fft} for k < n_fft/2 as float64 [n_fft/2, 2] (re, im)."""
+    ang = 2.0 * np.pi * np.arange(n_fft // 2, dtype=np.float64) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def fft_twiddles(n_fft: int, device: str | torch.device = "cuda") -> torch.Tensor:
+    """The FFT mode's twiddle table: :func:`fft_twiddles_np` cast to float32
+    on ``device`` (cached per device, like ``make_matrices``)."""
+    return torch.as_tensor(fft_twiddles_np(n_fft), dtype=torch.float32, device=device)
+
+
+def mel_ranges(cfg: FrontendConfig) -> np.ndarray:
+    """First and last nonzero bin of each mel filter, int64 [n_mels, 2], read
+    off ``mel_fb_t``; a filter with no nonzero bin is (0, -1)."""
+    fb = fe.matrices_np(cfg)[3].T                        # [M, K]
+    out = np.zeros((cfg.n_mels, 2), dtype=np.int64)
+    out[:, 1] = -1
+    for m, row in enumerate(fb):
+        nz = np.flatnonzero(row)
+        if nz.size:
+            out[m] = nz[0], nz[-1]
+    return out
+
+
+def mel_nnz(cfg: FrontendConfig) -> int:
+    """Weights the FFT mode stages: every bin of every filter's range."""
+    r = mel_ranges(cfg)
+    return int((r[:, 1] - r[:, 0] + 1).sum())
+
+
+def mel_pack_np(cfg: FrontendConfig) -> tuple[np.ndarray, np.ndarray]:
+    """The mel filters as the FFT mode reads them: int32 [n_mels, 3] of (first
+    bin, bin count, offset into the weights), and the float64 weights of each
+    filter's range, filter after filter."""
+    fb = fe.matrices_np(cfg)[3].T
+    r = mel_ranges(cfg)
+    counts = r[:, 1] - r[:, 0] + 1
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    weights = np.concatenate([fb[m, lo:hi + 1] for m, (lo, hi) in enumerate(r)])
+    return np.stack([r[:, 0], counts, offsets], axis=-1).astype(np.int32), weights
+
+
+@functools.lru_cache(maxsize=16)
+def mel_pack(cfg: FrontendConfig, device: str | torch.device = "cuda"):
+    """:func:`mel_pack_np` on ``device``, the weights as float32 (cached)."""
+    rng, w = mel_pack_np(cfg)
+    return (torch.as_tensor(rng, device=device),
+            torch.as_tensor(w, dtype=torch.float32, device=device))
 
 
 def _check_config(cfg: FrontendConfig, width: int) -> None:
@@ -55,13 +170,23 @@ def mfcc_frames_fused(frames: torch.Tensor,
     out = torch.empty((n, cfg.n_mfcc), dtype=torch.float32, device=frames.device)
     if n == 0:
         return out
+    plan = launch_plan(cfg)
     mats = fe.make_matrices(cfg, frames.device)
+    if plan.mode == "fft":
+        rng, mel_w = mel_pack(cfg, frames.device)
+        ptrs = (None, None, fft_twiddles(cfg.n_fft, frames.device).data_ptr(),
+                rng.data_ptr(), mel_w.data_ptr(), None)
+        n_mel_w = mel_w.numel()
+    else:
+        ptrs = (mats.dft_cos.data_ptr(), mats.dft_sin.data_ptr(), None, None, None,
+                mats.mel_fb_t.data_ptr())
+        n_mel_w = 0
     _build.launch("mfcc_fused", frames.device, frames.data_ptr(),
-                  mats.window.data_ptr(), mats.dft_cos.data_ptr(),
-                  mats.dft_sin.data_ptr(), mats.mel_fb_t.data_ptr(),
-                  mats.dct_t.data_ptr(), mats.lifter.data_ptr(), out.data_ptr(), n,
-                  cfg.frame_len, cfg.n_bins, cfg.n_mels, cfg.n_mfcc,
-                  float(cfg.n_fft), float(cfg.log_floor), int(cfg.use_energy))
+                  mats.window.data_ptr(), *ptrs, mats.dct_t.data_ptr(),
+                  mats.lifter.data_ptr(), out.data_ptr(), n, cfg.frame_len,
+                  cfg.n_fft, cfg.n_mels, cfg.n_mfcc, n_mel_w, float(cfg.log_floor),
+                  int(cfg.use_energy), MODES[plan.mode], plan.warps,
+                  plan.frames_per_warp, plan.smem_bytes)
     return out
 
 

@@ -7,7 +7,9 @@ false (decided in the fixture, not at import).  On a machine with a card:
 
 Tolerances as in chip_smoke.py: DTW rtol 1e-4 with an identical BIG/finite
 pattern (the kernel sums (a-b)^2 directly, the plain version expands
-|a|^2+|b|^2-2ab); MFCC rtol/atol 1e-3 (tests/test_pallas_mfcc.py).
+|a|^2+|b|^2-2ab); MFCC rtol/atol 1e-3 (tests/test_pallas_mfcc.py), and the
+FFT mode's max error to a float64 evaluation of the chain at most twice the
+plain version's.
 Spotting: identical BIG/finite pattern; where the start witnesses agree,
 norms at rtol 2e-4; where they differ (a near-tie that the kernel's
 sequential sums and the scan's tree round apart), the raw costs
@@ -276,6 +278,100 @@ def test_mfcc_wrapper_rejects_strided_and_empty(dev):
     with pytest.raises(ValueError):
         kmf.mfcc_frames_fused(frames, cfg)
     assert kmf.mfcc_frames_fused(torch.zeros((0, 400), device=dev), cfg).shape == (0, 13)
+
+
+def _speech_frames(cfg, n_sigs=3, word="eight"):
+    x = torch.from_numpy(np.stack([synth_word(word, s, max_samples=9000)
+                                   for s in range(n_sigs)]))
+    return fe.frame(fe.preemphasis(x, cfg.preemphasis), cfg.frame_len,
+                    cfg.hop_len).reshape(-1, cfg.frame_len).contiguous()
+
+
+def _mfcc_once(dev, frames, cfg):
+    """The kernel on ``frames`` (one launch counted) and the plain version."""
+    before = _build.LAUNCHES["mfcc_fused"]
+    got = kmf.mfcc_frames_fused(frames, cfg)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mfcc_fused"] == before + 1
+    want = kmf.mfcc_frames_plain(frames, cfg)
+    assert got.shape == want.shape == (frames.shape[0], cfg.n_mfcc)
+    assert torch.isfinite(got).all()
+    return got, want
+
+
+def _chain_f64(frames, cfg):
+    """The kernel's function in float64: the plain version on float64 frames
+    and the float64 constants of ``matrices_np``."""
+    mats = fe.FrontendMatrices(*(torch.from_numpy(m).to(frames.device)
+                                 for m in fe.matrices_np(cfg)))
+    return fe.mfcc_from_frames(frames.double(), mats, cfg)
+
+
+@pytest.mark.parametrize("kw,mode", [
+    ({}, "fft"), ({"use_energy": True}, "fft"), ({"n_fft": 256}, "fft"),
+    ({"n_fft": 1024, "n_mels": 40, "n_mfcc": 20}, "fft"), ({"n_fft": 64}, "fft"),
+    ({"n_fft": 4096}, "fft"), ({"n_fft": 480}, "gemm")])
+def test_mfcc_kernel_modes_match_plain(dev, kw, mode):
+    cfg = FrontendConfig(**kw)
+    assert kmf.launch_plan(cfg).mode == mode
+    got, want = _mfcc_once(dev, _speech_frames(cfg).to(dev), cfg)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 37, 1000])
+@pytest.mark.parametrize("use_energy", [False, True])
+def test_mfcc_fft_mode_any_frame_count(dev, n, use_energy):
+    # 32 frames a block (8 warps x 4): a ragged last block, a warp with no
+    # frame, a block with one
+    cfg = FrontendConfig(use_energy=use_energy)
+    frames = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n, cfg.frame_len), np.float32)).to(dev)
+    got, want = _mfcc_once(dev, frames, cfg)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_energy": True}, {"n_fft": 64}, {"n_fft": 480}])
+def test_mfcc_kernel_all_zero_frames(dev, kw):
+    cfg = FrontendConfig(**kw)
+    frames = torch.zeros((40, cfg.frame_len), device=dev)
+    got, want = _mfcc_once(dev, frames, cfg)
+    # every log-mel energy is exactly log(log_floor): the DCT of that constant
+    floor = np.log(cfg.log_floor) * (fe.matrices_np(cfg)[4].sum(0) * fe.matrices_np(cfg)[5])
+    if cfg.use_energy:
+        floor[0] = np.log(cfg.log_floor)    # c0 = log(max(sum x^2, log_floor))
+    torch.testing.assert_close(got.cpu().double(), torch.from_numpy(np.tile(floor, (40, 1))),
+                               rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    if cfg.use_energy:
+        # c0 = log(max(0, log_floor)): the same float32 log as the plain version's
+        assert torch.equal(got[:, 0], want[:, 0])
+        np.testing.assert_allclose(got[:, 0].cpu().numpy(), np.log(cfg.log_floor), rtol=1e-6)
+
+
+@pytest.mark.parametrize("frame_len,offset", [(401, 0), (400, 1), (399, 3), (200, 0)])
+def test_mfcc_fft_mode_rows_not_16_byte_aligned(dev, frame_len, offset):
+    # 401 / 399 floats a row, or a view that starts one float into its
+    # buffer, take the kernel's scalar loads; 200 zero-pads to 512
+    cfg = FrontendConfig(frame_len=frame_len)
+    src = _speech_frames(cfg)
+    buf = torch.zeros(src.numel() + offset, device=dev)
+    frames = buf[offset:].view(src.shape)
+    frames.copy_(src)
+    assert frames.is_contiguous() and (frames.data_ptr() % 16 != 0) == (offset > 0)
+    assert kmf.launch_plan(cfg).mode == "fft"
+    got, want = _mfcc_once(dev, frames, cfg)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_energy": True}, {"n_fft": 256}, {"n_fft": 64}])
+def test_mfcc_fft_mode_error_to_float64_within_twice_the_plain(dev, kw):
+    cfg = FrontendConfig(**kw)
+    frames = _speech_frames(cfg, n_sigs=4, word="three").to(dev)
+    got, want = _mfcc_once(dev, frames, cfg)
+    exact = _chain_f64(frames, cfg)
+    err = (got.double() - exact).abs().max().item()
+    plain_err = (want.double() - exact).abs().max().item()
+    assert err <= 2 * plain_err, (err, plain_err)
 
 
 def test_pipeline_routes_cuda_tensors_through_both_kernels(dev):
