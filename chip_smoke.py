@@ -26,8 +26,11 @@ each of which raises on failure (non-zero exit):
              most twice the plain version's.  Then n_fft = 64 (samples
              folded six times): held by the float64 rule only, and where
              kernel and plain differ past 1e-3 it prints each one's error
-             to float64 (an open fault of the plain version, ROADMAP.md
-             section 3).  Prints the plan (mode, warps,
+             to float64 (an open fault, ROADMAP.md section 3).  Then, at
+             n_fft 16, 32, 64, 128 and 256 (all folded), both modes on the
+             same frames and on the card test's (3 utterances of "eight"):
+             the values past rtol/atol 1e-3 of the plain version and each
+             one's error to float64.  Prints the plan (mode, warps,
              frames a warp, shared bytes), both forms' bounds (the GEMM
              form's operations, the FFT mode's bytes) and, as a yardstick
              of the spectrum part only, ``torch.fft.rfft(frames * window,
@@ -140,6 +143,31 @@ each of which raises on failure (non-zero exit):
              the banded DTW kernel at B = K = 1, over 1,000 back-to-back
              calls ended by one synchronize.
 
+12. streaming — the online path (BASELINE config 2) at full width, the
+             default configs, 100 ms chunks: one stream's ``process_chunk``
+             on ``bench_all.py``'s chunk (median of 50 synchronized calls,
+             the real-time factor, device ops and device time of one call
+             under ``torch.profiler``); ``process_chunk_batch`` over 256
+             concurrent streams of 2 s digit utterances (time a step, audio
+             s/s), its first 10 chunks held against 256 single-stream runs
+             and against the CPU (MFCC rtol/atol 1e-3, energies rtol 1e-4,
+             flags and indices equal); ``StreamingRecognizer`` over 4
+             connected-digit recordings against a 10 x 10 bank, on the card
+             and the CPU (events equal; kernel 1's launches, counted from 0,
+             equal to the closed utterances; a chunk's time with and without
+             a classify); ``StreamingSpotter`` over 4 of the spotter phase's
+             streams (keywords zero-four x 20) against ``KeywordSpotter.spot``
+             (kernel 3) by JAX's rule (tests/test_spotter.py:128-144: each
+             stream at the midpoint of its best keyword score and its best
+             other score; labels equal, spans within 2 frames, scores rtol
+             1e-3 / atol 1e-5) and against the CPU (labels and spans equal,
+             scores rtol 1e-4), with its time a chunk and audio s/s, and at
+             the bank's calibrated threshold the streams whose events part
+             from the offline spotter's (counted, not held); ``process_chunk``,
+             ``process_chunk_batch`` and ``spot_chunk`` run once under
+             ``torch.cuda.set_sync_debug_mode("error")``: no call waits for
+             the card.
+
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
 path's alignments/s is the median of 3 synchronized host-clock passes
@@ -189,6 +217,7 @@ GRID_ROWS_CASE = (65_537, 4, 24, 24)     # (B, K, T, U): one query past two laun
 SMALL_CASES = [(1, 1), (1, 10), (1, 100), (8, 10)]
 MFCC_UTTERANCES = 256      # 256 x 198 = 50,688 frames, one main-path chunk
 MFCC_GEMM_N_FFT = 480      # a non-power-of-two n_fft: the kernel's GEMM mode
+MFCC_SMALL_N_FFT = (16, 32, 64, 128, 256)   # folded n_fft: both modes against the plain
 N_QUERIES = 1024
 TEMPLATES_PER_WORD = 10
 MAIN_PASSES = 3            # timed classify passes after the checked one
@@ -237,6 +266,15 @@ LAUNCH_REPS = 1_001           # timed single calls of the trivial kernel and x *
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# phase streaming: 100 ms chunks at 16 kHz, 256 concurrent streams
+STREAM_CHUNK = 1600
+STREAM_BATCH = 256
+STREAM_CHUNKS = 20          # 2 s of each batched stream
+STREAM_CHECK_CHUNKS = 10    # of them held against single streams and the CPU
+STREAM_REPS = 50            # synchronized single-chunk calls timed
+STREAM_RECOGNIZER_WORDS = [["one", "seven", "three"], ["four", "zero", "nine", "two"],
+                           ["eight", "five", "six"], ["two", "one", "nine", "four"]]
+STREAM_SPOTTER_STREAMS = 4
 
 
 def fail(msg: str):
@@ -446,6 +484,7 @@ def mfcc_phase(dev, report):
     import torch
 
     from dsp_tpu_torch.config import FrontendConfig
+    from dsp_tpu_torch.io import synth_word
     from dsp_tpu_torch.kernels import mfcc_fused as kmf
     from dsp_tpu_torch.ops import frontend as fe
 
@@ -518,6 +557,34 @@ def mfcc_phase(dev, report):
     if report["mfcc"]["default"]["mode"] != "fft" or report["mfcc"][cases[2][0]]["mode"] != "gemm":
         fail("mfcc: the plan did not take the FFT mode at n_fft=512 and the GEMM "
              f"mode at n_fft={MFCC_GEMM_N_FFT}")
+    # both modes against the plain version at n_fft below the frame length,
+    # where each point sums frame_len / n_fft folded samples: on this chunk's
+    # frames and on the card test's (tests/test_torch_cuda.py:_speech_frames)
+    eight = torch.from_numpy(np.stack([synth_word("eight", s, max_samples=9000)
+                                       for s in range(3)])).to(dev)
+    report["mfcc"]["small_n_fft"] = sweep = {}
+    for n_fft in MFCC_SMALL_N_FFT:
+        cfg = FrontendConfig(n_fft=n_fft)
+        for inputs, sigs_x in (("chunk", x), ("eight", eight)):
+            frames = fe.frame(fe.preemphasis(sigs_x, cfg.preemphasis), cfg.frame_len,
+                              cfg.hop_len).reshape(-1, cfg.frame_len).contiguous()
+            want = kmf.mfcc_frames_plain(frames, cfg)
+            exact = mfcc_chain_f64(frames, cfg)
+            plain_err64 = (want.double() - exact).abs().max().item()
+            for mode, plan in (("fft", kmf.fft_plan(cfg)), ("gemm", kmf.gemm_plan(cfg))):
+                got = kmf.mfcc_frames_fused(frames, cfg, plan=plan)
+                torch.cuda.synchronize()
+                off = int((~torch.isclose(got, want, rtol=1e-3, atol=1e-3)).sum())
+                err = (got - want).abs().max().item()
+                err64 = (got.double() - exact).abs().max().item()
+                sweep[f"{n_fft}_{inputs}_{mode}"] = dict(
+                    n_fft=n_fft, inputs=inputs, mode=mode, past_1e3=off,
+                    n_values=got.numel(), max_abs_err=err, max_abs_err_f64=err64,
+                    plain_max_abs_err_f64=plain_err64)
+                print(f"mfcc n_fft={n_fft:<4d} {inputs:5s} {mode:4s} mode: {off} of "
+                      f"{got.numel()} values past rtol/atol 1e-3 of the plain version "
+                      f"(max abs err {err:.3e}); to float64: kernel {err64:.3e}, plain "
+                      f"{plain_err64:.3e}", flush=True)
 
 
 def stage_ms(rec, signals, reps: int = 3) -> dict:
@@ -549,33 +616,39 @@ def stage_ms(rec, signals, reps: int = 3) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def features_device_ms(rec, signals, top: int = 3):
-    """Device time of one ``extract_features`` call on a chunk already on
-    the card: the sum of its kernels' self times under ``torch.profiler``
-    (None where the profiler records no device time), and the ``top``
-    kernels by time."""
+def device_events(fn):
+    """The device-side rows (kernels and copies) of ``torch.profiler``'s
+    ``key_averages()`` over one call of ``fn``, with each row's device µs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from dsp_tpu_torch import pipeline as pl
-
-    x, n = pl.pad_signals(signals, rec.cfg.max_samples, rec.device)
-    pl.extract_features(x, n, rec.cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pl.extract_features(x, n, rec.cfg)
+        fn()
         torch.cuda.synchronize()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
     # the kernels themselves: an aten op's row repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    total = sum(dev_us(e) for e in events)
-    ranked = sorted(events, key=dev_us, reverse=True)[:top]
+    return [(e, dev_us(e)) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+
+
+def features_device_ms(rec, signals, top: int = 3):
+    """Device time of one ``extract_features`` call on a chunk already on
+    the card: the sum of its kernels' self times under ``torch.profiler``
+    (None where the profiler records no device time), and the ``top``
+    kernels by time."""
+    from dsp_tpu_torch import pipeline as pl
+
+    x, n = pl.pad_signals(signals, rec.cfg.max_samples, rec.device)
+    pl.extract_features(x, n, rec.cfg)
+    events = device_events(lambda: pl.extract_features(x, n, rec.cfg))
+    total = sum(us for _, us in events)
+    ranked = sorted(events, key=lambda ev: ev[1], reverse=True)[:top]
     return (total / 1e3 if total > 0 else None,
-            [(e.key[:60], dev_us(e) / 1e3, e.count) for e in ranked])
+            [(e.key[:60], us / 1e3, e.count) for e, us in ranked])
 
 
 def main_phase(dev, report):
@@ -937,6 +1010,336 @@ def spotter_phase(seed: int, dev, report) -> int:
         pass_seconds=passes, spotting_audio_seconds_per_sec=rate, stage_ms=stages,
         events=[[list(ev) for ev in evs] for evs in events])
     return launches
+
+
+def device_ops(fn):
+    """(device ops, device ms) of one call of ``fn``: the count of its
+    kernels and copies on the card and the sum of their times (None, None
+    where the profiler records no device time)."""
+    events = device_events(fn)
+    if not events:
+        return None, None
+    return sum(e.count for e, _ in events), sum(us for _, us in events) / 1e3
+
+
+def ms_text(ms) -> str:
+    return "not measured (no device time recorded)" if ms is None else f"{ms:.3f} ms"
+
+
+def synced_ms(fn, reps: int) -> list:
+    """Host-clock ms of ``reps`` calls of ``fn``, each ended by a synchronize."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def no_host_sync(what: str, fn):
+    """Run ``fn`` with PyTorch's sync debug mode set to raise on any call
+    that waits for the card (a read-back, a blocking copy)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        fail(f"{what} synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def compare_chunks(got, want, what: str) -> float:
+    """ChunkOutputs [S, ...] of two runs: MFCC rtol/atol 1e-3 (the DFT
+    GEMMs of two devices or two batch shapes sum in other orders, and the
+    quietest log-mel bands amplify it: 2.9e-4 abs measured card against
+    CPU; JAX's own bound for GEMM-shape differences,
+    tests/test_streaming.py:48), energy rtol 1e-4, every other field
+    equal; returns the MFCC's max abs error."""
+    import torch
+
+    from dsp_tpu_torch.ops import streaming as st
+
+    for name, g, w in zip(st.ChunkOutput._fields, got, want):
+        g = g.to(w.device)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{what}: {name} {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+        if name == "mfcc":
+            if not torch.allclose(g, w, rtol=1e-3, atol=1e-3):
+                fail(f"{what}: MFCC differ past rtol/atol 1e-3: max abs err "
+                     f"{(g - w).abs().max().item():.3e}")
+        elif name == "energy":
+            if not torch.allclose(g, w, rtol=1e-4, atol=0.0):
+                fail(f"{what}: energies differ past rtol 1e-4")
+        elif not torch.equal(g, w):
+            fail(f"{what}: {name} differ at {int((g != w).sum())} of {g.numel()}")
+    return (got.mfcc.to(want.mfcc.device) - want.mfcc).abs().max().item()
+
+
+def feed_stream(stream, sig, chunk: int, tail: bool = False):
+    """Feed ``sig`` 100 ms at a time; (events, ms of each feed call, whether
+    each call returned an event).  ``tail``: the spotter's short last chunk
+    goes to ``flush``; else the signal's last partial chunk is dropped."""
+    import torch
+
+    n_full = len(sig) // chunk * chunk
+    events, ms, hit = [], [], []
+    for lo in range(0, n_full, chunk):
+        t0 = time.perf_counter()
+        got = stream.feed(sig[lo:lo + chunk])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        hit.append(bool(got))
+        events += got
+    events += stream.flush(sig[n_full:]) if tail else stream.flush()
+    return events, ms, hit
+
+
+def separation_threshold(norm, start, row_labels, truth) -> float:
+    """Midpoint of a stream's best score inside a keyword and its best score
+    elsewhere (tests/test_spotter.py:_separation): a candidate (template,
+    end frame) hits when its span covers half of a planted keyword of its
+    label.  ``truth``: (label, start frame, end frame)."""
+    import numpy as np
+
+    k, t = norm.shape
+    cols = np.arange(t)
+    hit = np.zeros((k, t), bool)
+    for lab, s, e in truth:
+        cover = (np.minimum(cols[None, :], e) - np.maximum(start, s) + 1) >= 0.5 * (e - s)
+        hit |= cover & (row_labels == lab)[:, None]
+    if not hit.any() or hit.all():
+        fail(f"separation threshold: {int(hit.sum())} of {hit.size} candidates hit a keyword")
+    return float((norm[hit].min() + norm[~hit].min()) / 2.0)
+
+
+def same_spots(got, want) -> bool:
+    """JAX's streaming-against-offline rule (tests/test_spotter.py:128-144):
+    labels equal, spans within 2 frames, scores rtol 1e-3 / atol 1e-5."""
+    return [ev[0] for ev in got] == [ev[0] for ev in want] and all(
+        abs(g[1] - w[1]) <= 2 and abs(g[2] - w[2]) <= 2
+        and abs(g[3] - w[3]) <= 1e-3 * abs(w[3]) + 1e-5 for g, w in zip(got, want))
+
+
+def streaming_phase(seed: int, dev, report) -> dict:
+    """The online path (BASELINE config 2) at full width; returns the
+    launch counts of its recognizer and spotter runs."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import KeywordSpotter, KnnDtwRecognizer, StreamingRecognizer
+    from dsp_tpu_torch.config import PipelineConfig
+    from dsp_tpu_torch.io import DIGITS, synth_connected, synth_spotting_stream, synth_word
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.models import StreamingSpotter
+    from dsp_tpu_torch.ops import frontend as fe
+    from dsp_tpu_torch.ops import spot as sp
+    from dsp_tpu_torch.ops import streaming as st
+
+    cpu = torch.device("cpu")
+    cfg = PipelineConfig()
+    fcfg, vcfg = cfg.frontend, cfg.vad
+    mats, mats_cpu = fe.make_matrices(fcfg, dev), fe.make_matrices(fcfg, cpu)
+    smi = "; ".join(report["nvidia_smi"])
+    out = report["streaming"]
+
+    # 1. one stream: bench_all.py's input, one chunk from the initial state
+    state0 = st.init_state(fcfg, STREAM_CHUNK, dev)
+    chunk = torch.from_numpy(synth_word("five", 7)[:STREAM_CHUNK]).to(dev)
+    step = lambda: st.process_chunk(state0, chunk, mats, fcfg, vcfg, STREAM_CHUNK)  # noqa: E731
+    no_host_sync("process_chunk", step)
+    ms = statistics.median(synced_ms(step, STREAM_REPS))
+    ops, dev_ms = device_ops(step)
+    print(f"streaming one stream: process_chunk {ms:.3f} ms a 100 ms chunk (median of "
+          f"{STREAM_REPS} synchronized calls), streaming_realtime_factor {100.0 / ms:.1f}; "
+          f"{ops} device ops a chunk, device time {ms_text(dev_ms)}, on {smi}", flush=True)
+    out["one_stream"] = dict(ms=ms, realtime_factor=100.0 / ms, device_ops=ops,
+                             device_ms=dev_ms)
+
+    # 2. 256 concurrent streams, one per digit utterance of 2 s
+    sigs = np.stack([synth_word(DIGITS[i % 10], 3000 + i)[: STREAM_CHUNK * STREAM_CHUNKS]
+                     for i in range(STREAM_BATCH)])
+    chunks = torch.from_numpy(sigs).to(dev)
+    bstate = st.init_state_batch(STREAM_BATCH, fcfg, STREAM_CHUNK, dev)
+    no_host_sync("process_chunk_batch", lambda: st.process_chunk_batch(
+        bstate, chunks[:, :STREAM_CHUNK].contiguous(), mats, fcfg, vcfg, STREAM_CHUNK))
+    bouts, step_ms = [], []
+    for c in range(STREAM_CHUNKS):
+        part = chunks[:, c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK].contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bstate, bout = st.process_chunk_batch(bstate, part, mats, fcfg, vcfg, STREAM_CHUNK)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        bouts.append(bout)
+    b_ms = statistics.median(step_ms[1:])
+    b_ops, b_dev_ms = device_ops(lambda: st.process_chunk_batch(
+        bstate, part, mats, fcfg, vcfg, STREAM_CHUNK))
+    rate = STREAM_BATCH * STREAM_CHUNK / fcfg.sample_rate / (b_ms / 1e3)
+    n_ends = int(sum(int(o.utt_end.sum()) for o in bouts))
+    if n_ends == 0:
+        fail("streaming batch: no stream closed an utterance")
+    # held against single streams and against the CPU on the first chunks
+    err_single = err_cpu = 0.0
+    cpu_state = st.init_state_batch(STREAM_BATCH, fcfg, STREAM_CHUNK, cpu)
+    for c in range(STREAM_CHECK_CHUNKS):
+        part = torch.from_numpy(sigs[:, c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK].copy())
+        cpu_state, cpu_out = st.process_chunk_batch(cpu_state, part, mats_cpu, fcfg,
+                                                    vcfg, STREAM_CHUNK)
+        err_cpu = max(err_cpu, compare_chunks(bouts[c], cpu_out,
+                                              f"streaming batch chunk {c} card vs CPU"))
+    for i in range(STREAM_BATCH):
+        state = st.init_state(fcfg, STREAM_CHUNK, dev)
+        for c in range(STREAM_CHECK_CHUNKS):
+            state, o = st.process_chunk(state, chunks[i, c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK],
+                                        mats, fcfg, vcfg, STREAM_CHUNK)
+            err_single = max(err_single, compare_chunks(
+                st.ChunkOutput(*(a[None] for a in o)),
+                st.ChunkOutput(*(a[i:i + 1] for a in bouts[c])),
+                f"streaming batch stream {i} chunk {c} vs its single stream"))
+    print(f"streaming {STREAM_BATCH} streams: process_chunk_batch {b_ms:.3f} ms a step "
+          f"(median of {STREAM_CHUNKS - 1} synchronized steps), "
+          f"streaming_batch_audio_seconds_per_sec {rate:.1f}; {b_ops} device ops a step, "
+          f"device time {ms_text(b_dev_ms)}; {n_ends} utterances closed; first "
+          f"{STREAM_CHECK_CHUNKS} chunks: MFCC max abs err vs single streams {err_single:.3e}, "
+          f"vs the CPU {err_cpu:.3e}, flags and indices equal", flush=True)
+    out["batch"] = dict(streams=STREAM_BATCH, step_ms=b_ms, steps_ms=step_ms,
+                        audio_seconds_per_sec=rate, device_ops=b_ops, device_ms=b_dev_ms,
+                        utterances_closed=n_ends, mfcc_max_abs_err_vs_single=err_single,
+                        mfcc_max_abs_err_vs_cpu=err_cpu)
+
+    # 4. StreamingRecognizer over connected digits, on the card and the CPU
+    rec = KnnDtwRecognizer(cfg, device=dev)
+    for lab in DIGITS:
+        rec.enroll(lab, [synth_word(lab, i) for i in range(TEMPLATES_PER_WORD)])
+    arrays = (np.stack(rec._bank_feats), rec._bank_lens, rec._bank_label_ids, rec.labels)
+    rec_cpu = KnnDtwRecognizer.from_arrays(*arrays, cfg, device=cpu)
+    pad = np.zeros(STREAM_CHUNK * 5, np.float32)   # trailing silence closes the last word
+    conn = [np.concatenate([synth_connected(words, seed * 100 + i), pad])
+            for i, words in enumerate(STREAM_RECOGNIZER_WORDS)]
+    rec.device_bank()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    card_events, feed_ms, feed_hit = [], [], []
+    for sig in conn:
+        evs, ms_i, hit_i = feed_stream(StreamingRecognizer(rec, STREAM_CHUNK), sig, STREAM_CHUNK)
+        card_events.append(evs)
+        feed_ms += ms_i
+        feed_hit += hit_i
+    torch.cuda.synchronize()
+    rec_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    n_utts = sum(len(e) for e in card_events)
+    cpu_events = [feed_stream(StreamingRecognizer(rec_cpu, STREAM_CHUNK), sig, STREAM_CHUNK)[0]
+                  for sig in conn]
+    if card_events != cpu_events:
+        fail(f"StreamingRecognizer events on the card {card_events} differ from the "
+             f"CPU's {cpu_events}")
+    if rec_launches.get("dtw_banded", 0) != n_utts or n_utts == 0:
+        fail(f"StreamingRecognizer: {rec_launches} launches for {n_utts} closed utterances")
+    words = [w for ws in STREAM_RECOGNIZER_WORDS for w in ws]
+    got_words = [ev[0] for evs in card_events for ev in evs]
+    with_cls = [m for m, h in zip(feed_ms, feed_hit) if h]
+    without = [m for m, h in zip(feed_ms, feed_hit) if not h]
+    print(f"streaming recognizer: {n_utts} utterances of {len(words)} words spoken, "
+          f"{sum(a == b for a, b in zip(got_words, words))} in order right "
+          f"(labels {got_words}); launches {rec_launches}; feed "
+          f"{statistics.median(without):.3f} ms a chunk without a classify, "
+          f"{statistics.median(with_cls) if with_cls else float('nan'):.3f} ms with one "
+          f"(medians of {len(without)} and {len(with_cls)} chunks); events equal to the CPU's",
+          flush=True)
+    out["recognizer"] = dict(events=card_events, launches=rec_launches, utterances=n_utts,
+                             words=words, feed_ms_without_classify=statistics.median(without),
+                             feed_ms_with_classify=(statistics.median(with_cls)
+                                                    if with_cls else None))
+
+    # 5. StreamingSpotter against the offline spotter (kernel 3) and the CPU
+    srec = KnnDtwRecognizer(cfg, device=dev)
+    for lab in SPOT_KEYWORDS:
+        srec.enroll(lab, [synth_word(lab, i) for i in range(SPOT_TEMPLATES_PER_WORD)])
+    calibrated = KeywordSpotter(srec).calibrate_threshold()
+    sarrays = (np.stack(srec._bank_feats), srec._bank_lens, srec._bank_label_ids, srec.labels)
+    srec_cpu = KnnDtwRecognizer.from_arrays(*sarrays, cfg, device=cpu)
+    pairs = [synth_spotting_stream(SPOT_KEYWORDS, DIGITS, seed * 1000 + i, n_words=8)
+             for i in range(STREAM_SPOTTER_STREAMS)]
+    streams = [sig for sig, _ in pairs]
+    row_labels = np.asarray([srec.labels[i] for i in srec.device_bank()[1].cpu().numpy()])
+    hop = fcfg.hop_len
+    # JAX's rule (tests/test_spotter.py:128-144): each stream at the midpoint
+    # of its best score inside a keyword and its best score elsewhere
+    thrs = [separation_threshold(norm, start, row_labels,
+                                 [(lab, s // hop, e // hop) for lab, s, e in truth])
+            for (norm, start), (_, truth) in zip(KeywordSpotter(srec).scores(streams), pairs)]
+
+    def offline(thr_of):
+        return [KeywordSpotter(srec).spot([sig], threshold=thr)[0]
+                for sig, thr in zip(streams, thr_of)]
+
+    def online(rec_, thr_of):
+        return [feed_stream(StreamingSpotter(rec_, STREAM_CHUNK, threshold=thr), sig,
+                            STREAM_CHUNK, tail=True)[0] for sig, thr in zip(streams, thr_of)]
+
+    bank = srec.device_bank()[0]
+    k, t, f = bank.feats.shape
+    probe = StreamingSpotter(srec, STREAM_CHUNK, threshold=calibrated)
+    buf = torch.zeros((probe._buf, f), device=dev)
+    no_host_sync("spot_chunk", lambda: sp.spot_chunk(probe.dp, buf, probe._buf - 2, bank.feats,
+                                                     bank.length))
+    dp_ops, dp_dev_ms = device_ops(lambda: sp.spot_chunk(probe.dp, buf, probe._buf - 2,
+                                                         bank.feats, bank.length))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    s_events = online(srec, thrs)
+    s_seconds = time.perf_counter() - t0
+    spot_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if spot_launches:
+        fail(f"StreamingSpotter launched kernels {spot_launches}: its path has none")
+    steady = StreamingSpotter(srec, STREAM_CHUNK, threshold=calibrated)
+    steady.feed(streams[0][:STREAM_CHUNK])
+    feed_ops, _ = device_ops(lambda: steady.feed(streams[0][STREAM_CHUNK:2 * STREAM_CHUNK]))
+    for i, (got, want) in enumerate(zip(s_events, offline(thrs))):
+        if not same_spots(got, want):
+            fail(f"StreamingSpotter stream {i} at threshold {thrs[i]:.4f}: events {got} vs "
+                 f"the offline spotter's {want}")
+    cpu_s = online(srec_cpu, thrs)
+    score_err = max([abs(g[3] - w[3]) / abs(w[3]) for a, b in zip(s_events, cpu_s)
+                     for g, w in zip(a, b)] or [0.0])
+    if [[ev[:3] for ev in a] for a in s_events] != [[ev[:3] for ev in b] for b in cpu_s] \
+            or score_err > 1e-4:
+        fail(f"StreamingSpotter events on the card {s_events} differ from the CPU's {cpu_s}")
+    # at the bank's calibrated threshold false alarms abut true matches, and
+    # the hangover (a match that starts on an emitted one's end frame is
+    # dropped) and the offline greedy order can part: counted, not held
+    at_cal = list(zip(online(srec, [calibrated] * len(streams)),
+                      offline([calibrated] * len(streams))))
+    parted = [i for i, (a, b) in enumerate(at_cal) if not same_spots(a, b)]
+    audio = sum(len(x) for x in streams) / fcfg.sample_rate
+    n_chunks = sum(-(-len(x) // STREAM_CHUNK) for x in streams)
+    s_rate = audio / s_seconds
+    print(f"streaming spotter: K={k}, thresholds {[round(v, 4) for v in thrs]} (JAX's "
+          f"separation rule), {sum(map(len, s_events))} events in {len(streams)} streams "
+          f"({audio:.1f} s audio), equal to the offline spotter's (spans within 2 frames, "
+          f"scores 1e-3) and to the CPU's (scores within {score_err:.2e} relative); "
+          f"{s_seconds * 1e3 / n_chunks:.3f} ms a chunk, "
+          f"streaming_spotter_audio_seconds_per_sec {s_rate:.1f}; {feed_ops} device ops a "
+          f"steady feed, spot_chunk of {probe._buf} frames {dp_ops} device ops, device time "
+          f"{ms_text(dp_dev_ms)}; no kernel launched; at the calibrated threshold "
+          f"{calibrated:.4f} the events part from the offline spotter's in streams {parted}"
+          + "".join(f"\n  stream {i}: online {at_cal[i][0]}\n  stream {i}: offline "
+                    f"{at_cal[i][1]}" for i in parted), flush=True)
+    out["spotter"] = dict(thresholds=thrs, calibrated_threshold=calibrated, n_templates=k,
+                          audio_seconds=audio, events=s_events,
+                          ms_per_chunk=s_seconds * 1e3 / n_chunks,
+                          audio_seconds_per_sec=s_rate, feed_device_ops=feed_ops,
+                          spot_chunk_device_ops=dp_ops, spot_chunk_device_ms=dp_dev_ms,
+                          score_max_rel_err_vs_cpu=score_err,
+                          streams_parted_at_calibrated=parted)
+    return {"recognizer": rec_launches, "spotter": spot_launches}
 
 
 def walk_counts(strips, cost_cells, lens_a, lens_b, pad_a: int, pad_b: int):
@@ -1515,7 +1918,7 @@ def main() -> int:
 
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
-              "nvidia_smi": smi}
+              "streaming": {}, "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
     mfcc_phase(dev, report)
@@ -1529,6 +1932,7 @@ def main() -> int:
     launches["dtw_fused"] = routes["fused"]["dtw_fused"]
     launches["dtw_wavefront"] = routes["pallas"]["dtw_wavefront"]
     launches.update(mb_wavefront_phase(args.seed, dev, report))
+    report["streaming"]["launches"] = streaming_phase(args.seed, dev, report)
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")
 

@@ -3,7 +3,9 @@
 A port of the JAX package's main path (VAD -> MFCC + delta/delta-delta ->
 all-pairs windowed Sakoe-Chiba DTW -> argmin / kNN vote), its matchers
 (DTW, linear time warp, cascade), out-of-vocabulary rejection and
-evaluation, and its offline keyword spotter (subsequence DTW), with five
+evaluation, its offline keyword spotter (subsequence DTW), and its online
+path (the chunked streaming front-end with a causal VAD,
+``StreamingRecognizer`` and the SPRING ``StreamingSpotter``), with five
 hand-written CUDA kernels for NVIDIA Hopper: banded DTW
 (``csrc/dtw_banded.cu``), the fused MFCC front-end (``csrc/mfcc_fused.cu``),
 subsequence DTW (``csrc/spot_subseq.cu``), unbanded closed-form DTW
@@ -24,6 +26,8 @@ Quick start::
     rec.calibrate_rejection()
     label = rec.recognize(other_signal, reject=True)   # "<reject>" if OOV
     events = KeywordSpotter(rec).spot([long_recording])
+    stream = StreamingRecognizer(rec)        # 100 ms chunks at 16 kHz
+    events = stream.feed(chunk_of_1600_samples)
 """
 
 import torch
@@ -48,6 +52,7 @@ from dsp_tpu_torch.config import (  # noqa: E402
 )
 from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer  # noqa: E402
 from dsp_tpu_torch.models.spotter import KeywordSpotter  # noqa: E402
+from dsp_tpu_torch.models.streaming import StreamingRecognizer  # noqa: E402
 from dsp_tpu_torch.pipeline import (  # noqa: E402
     Features,
     classify_features,
@@ -57,6 +62,7 @@ from dsp_tpu_torch.pipeline import (  # noqa: E402
 
 __all__ = [
     "FrontendConfig", "VadConfig", "DtwConfig", "HmmConfig", "VqConfig",
-    "PipelineConfig", "KnnDtwRecognizer", "KeywordSpotter", "Features",
+    "PipelineConfig", "KnnDtwRecognizer", "KeywordSpotter",
+    "StreamingRecognizer", "Features",
     "extract_features", "classify_features", "recognize_batch",
 ]

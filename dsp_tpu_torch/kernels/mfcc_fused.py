@@ -66,18 +66,37 @@ def gemm_smem_bytes(cfg: FrontendConfig) -> int:
 @functools.lru_cache(maxsize=32)
 def launch_plan(cfg: FrontendConfig) -> Plan:
     """The kernel's mode, frames a warp, warps a block and shared bytes for
-    ``cfg``: ``fft`` where ``n_fft`` is a power of two (at least 4) and a
-    block of one warp fits :data:`SMEM_OPTIN`, with as many warps up to
-    :data:`BLOCK_WARPS` as fit; else ``gemm``.  Raises ``ValueError``
-    where neither mode's block fits."""
+    ``cfg``: :func:`fft_plan` where it gives one, else :func:`gemm_plan`.
+    Raises ``ValueError`` where neither mode's block fits.
+
+    Where ``n_fft < frame_len`` each point of the transform sums the
+    frame's samples folded onto it, and the quietest mel bands of speech
+    frames sit at float32 rounding noise in both modes and in the plain
+    version, each in its own order of summation: values past rtol/atol
+    1e-3 of the plain version remain in either mode (``chip_smoke.py``'s
+    ``mfcc`` sweep; an open fault, ``ROADMAP.md`` section 3)."""
+    return fft_plan(cfg) or gemm_plan(cfg)
+
+
+def fft_plan(cfg: FrontendConfig) -> Plan | None:
+    """The FFT mode's plan where ``n_fft`` is a power of two (at least 4)
+    and a block of one warp fits :data:`SMEM_OPTIN`, with as many warps up
+    to :data:`BLOCK_WARPS` as fit; else None."""
     n_fft = cfg.n_fft
-    if n_fft >= 4 and n_fft & (n_fft - 1) == 0:
-        fits = [w for w in range(BLOCK_WARPS, 0, -1) if fft_smem_bytes(cfg, w) <= SMEM_OPTIN]
-        if fits:
-            return Plan("fft", FRAMES_PER_WARP, fits[0], fft_smem_bytes(cfg, fits[0]))
+    if n_fft < 4 or n_fft & (n_fft - 1):
+        return None
+    fits = [w for w in range(BLOCK_WARPS, 0, -1) if fft_smem_bytes(cfg, w) <= SMEM_OPTIN]
+    if not fits:
+        return None
+    return Plan("fft", FRAMES_PER_WARP, fits[0], fft_smem_bytes(cfg, fits[0]))
+
+
+def gemm_plan(cfg: FrontendConfig) -> Plan:
+    """The GEMM mode's plan for ``cfg`` (any ``n_fft`` whose block fits);
+    raises ``ValueError`` where it does not."""
     smem = gemm_smem_bytes(cfg)
     if smem > SMEM_OPTIN:
-        raise ValueError(f"the fused MFCC kernel takes no n_fft={n_fft} at "
+        raise ValueError(f"the fused MFCC kernel takes no n_fft={cfg.n_fft} at "
                          f"n_mels={cfg.n_mels}: a GEMM-mode block needs {smem} "
                          f"shared bytes, over {SMEM_OPTIN}")
     return Plan("gemm", GEMM_FRAMES_PER_WARP, GEMM_WARPS, smem)
@@ -154,8 +173,12 @@ def mfcc_frames_plain(frames: torch.Tensor,
 
 
 def mfcc_frames_fused(frames: torch.Tensor,
-                      cfg: FrontendConfig = FrontendConfig()) -> torch.Tensor:
-    """Pre-emphasised frames [N, L] float32 -> MFCC [N, n_mfcc]."""
+                      cfg: FrontendConfig = FrontendConfig(),
+                      plan: Plan | None = None) -> torch.Tensor:
+    """Pre-emphasised frames [N, L] float32 -> MFCC [N, n_mfcc].
+
+    ``plan`` defaults to :func:`launch_plan`'s; a caller that holds the two
+    modes against each other at one ``n_fft`` passes the other's."""
     if frames.dim() != 2:
         raise ValueError(f"frames must be [N, L], got {tuple(frames.shape)}")
     _check_config(cfg, frames.shape[1])
@@ -170,7 +193,7 @@ def mfcc_frames_fused(frames: torch.Tensor,
     out = torch.empty((n, cfg.n_mfcc), dtype=torch.float32, device=frames.device)
     if n == 0:
         return out
-    plan = launch_plan(cfg)
+    plan = launch_plan(cfg) if plan is None else plan
     mats = fe.make_matrices(cfg, frames.device)
     if plan.mode == "fft":
         rng, mel_w = mel_pack(cfg, frames.device)

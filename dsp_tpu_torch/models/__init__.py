@@ -1,6 +1,8 @@
 """Recognizer models of the port."""
 
 from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer
-from dsp_tpu_torch.models.spotter import KeywordSpotter
+from dsp_tpu_torch.models.spotter import KeywordSpotter, StreamingSpotter
+from dsp_tpu_torch.models.streaming import StreamingRecognizer
 
-__all__ = ["KnnDtwRecognizer", "KeywordSpotter"]
+__all__ = ["KnnDtwRecognizer", "KeywordSpotter", "StreamingRecognizer",
+           "StreamingSpotter"]

@@ -21,11 +21,24 @@ are normalised over the matched span:
 
 :func:`subseq_dtw_batch` routes by device: CUDA tensors to the kernel,
 CPU tensors to the plain route.  Event extraction from the per-column
-score field is host numpy (:func:`extract_events`).  The SPRING
-streaming update (``spot_chunk``) belongs to a later slice.
+score field is host numpy (:func:`extract_events`).
+
+* **Streaming** (:func:`spot_chunk`): the SPRING column update.  Each new
+  stream frame advances a [K, T] state (every template's DP column and
+  its start witnesses): the frame's local costs are the offline route's
+  ``pairwise_sq_cost`` of that frame, and its vertical continuation is
+  the same min-plus scan along the template axis.  Ties prefer the
+  diagonal, then the horizontal, then the vertical predecessor here (the
+  horizontal one joins the pre-scan min), so on exact float ties a witness can differ from the
+  offline route's; values cannot.  Every frame is the same computation
+  whatever the chunking, so feeding a stream in any chunks is bit-exact.
+  Plain PyTorch on every device: a loop over the chunk's frames, each a
+  few whole-state tensor ops, with no read-back to the host.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -131,6 +144,73 @@ def subseq_dtw_batch(streams: torch.Tensor, stream_lens: torch.Tensor,
     if impl != "scan":
         raise ValueError(f"unknown spotting impl {impl!r}")
     return subseq_dtw_batch_plain(streams, stream_lens, bank, bank_lens, squared)
+
+
+class SpotState(NamedTuple):
+    """SPRING DP state: one column per template.
+
+    d_col [K, T] f32: D[:, j] after the last fed frame (BIG before any).
+    s_col [K, T] i32: start witness of the best path into each cell.
+    n_fed [] i32: stream frames consumed so far."""
+
+    d_col: torch.Tensor
+    s_col: torch.Tensor
+    n_fed: torch.Tensor
+
+
+def spot_init(n_templates: int, t: int, device: str | torch.device = "cuda",
+              dtype=torch.float32) -> SpotState:
+    return SpotState(
+        torch.full((n_templates, t), BIG, dtype=dtype, device=device),
+        torch.zeros((n_templates, t), dtype=torch.int32, device=device),
+        torch.zeros((), dtype=torch.int32, device=device))
+
+
+def spot_chunk(state: SpotState, chunk: torch.Tensor, n_valid,
+               bank: torch.Tensor, bank_lens: torch.Tensor,
+               squared: bool = False):
+    """Advance the SPRING state by a chunk of stream frames.
+
+    chunk [C, F] (the first ``n_valid`` rows real; an int or an int
+    tensor), bank [K, T, F].  Returns (state', norm [K, C], start [K, C]):
+    per frame the span-normalised score of the best match of each template
+    ending there (BIG at invalid frames) and its start frame."""
+    k, t, _ = bank.shape
+    c = chunk.shape[0]
+    dev = bank.device
+    valid = torch.arange(c, device=dev) < n_valid
+    end_row = (bank_lens.to(torch.int64) - 1)[:, None]          # [K, 1]
+    lens_f = bank_lens.to(bank.dtype)
+    zero_col = torch.zeros((k, 1), dtype=bank.dtype, device=dev)
+    d_col, s_col, j = state
+    norms, starts = [], []
+    for col in range(c):
+        # the frame's local costs, [K, T]: the offline route's product, one
+        # frame at a time, so that every frame's costs are the same
+        # computation whatever the chunking (a BLAS picks its kernel by
+        # shape, and a chunk-wide product rounds apart at other widths)
+        c_col = pairwise_sq_cost(bank, chunk[col:col + 1])[..., 0]
+        if not squared:
+            c_col = torch.sqrt(c_col)
+        v = valid[col]
+        # open begin: the virtual row above is 0 with witness j
+        up = torch.cat([zero_col, d_col[:, :-1]], dim=1)        # D[i-1, j-1]
+        up_s = torch.cat([j.expand(k, 1), s_col[:, :-1]], dim=1)
+        # d_col is the horizontal predecessor D[i, j-1]; ties prefer the
+        # diagonal, then the horizontal, then (in the scan) the vertical
+        m = torch.minimum(up, d_col)
+        sm = torch.where(up <= d_col, up_s, s_col)
+        new_d, new_s = _minplus_scan(m + c_col, c_col, sm)
+        d_col = torch.where(v, new_d, d_col)
+        s_col = torch.where(v, new_s, s_col)
+        d_end = torch.take_along_dim(new_d, end_row, dim=1)[:, 0]
+        s_end = torch.take_along_dim(new_s, end_row, dim=1)[:, 0]
+        span = (j - s_end + 1).to(d_end.dtype)
+        norms.append(torch.where(v, d_end / (lens_f + span), BIG))
+        starts.append(s_end)
+        j = j + v.to(torch.int32)
+    return (SpotState(d_col, s_col, j),
+            torch.stack(norms, dim=1), torch.stack(starts, dim=1))
 
 
 def production_impl(device) -> str:

@@ -1,1 +1,2 @@
-"""Utilities of the port: device timing on the card (``timing``)."""
+"""Utilities of the port: device timing on the card (``timing``), logging,
+one-time warnings and run metrics (``logging``)."""

@@ -31,9 +31,10 @@ import numpy as np
 import pytest
 import torch
 
+from dsp_tpu_torch import KnnDtwRecognizer, StreamingRecognizer
 from dsp_tpu_torch import pipeline as tpl
-from dsp_tpu_torch.config import DtwConfig, FrontendConfig, PipelineConfig
-from dsp_tpu_torch.io import synth_word
+from dsp_tpu_torch.config import DtwConfig, FrontendConfig, PipelineConfig, VadConfig
+from dsp_tpu_torch.io import synth_connected, synth_spotting_stream, synth_word
 from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import dtw_fused as kfu
 from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
@@ -41,8 +42,10 @@ from dsp_tpu_torch.kernels import dtw_pallas as kwf
 from dsp_tpu_torch.kernels import mb_wavefront as kmb
 from dsp_tpu_torch.kernels import mfcc_fused as kmf
 from dsp_tpu_torch.kernels import spot_fused as ksp
+from dsp_tpu_torch.models import StreamingSpotter
 from dsp_tpu_torch.ops import frontend as fe
 from dsp_tpu_torch.ops import spot as tsp
+from dsp_tpu_torch.ops import streaming as tst
 
 pytestmark = pytest.mark.cuda
 
@@ -316,6 +319,17 @@ def test_mfcc_kernel_modes_match_plain(dev, kw, mode):
     assert kmf.launch_plan(cfg).mode == mode
     got, want = _mfcc_once(dev, _speech_frames(cfg).to(dev), cfg)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n_fft", [512, 1024])
+def test_mfcc_gemm_mode_when_asked_at_a_power_of_two(dev, n_fft):
+    cfg = FrontendConfig(n_fft=n_fft)
+    frames = _speech_frames(cfg).to(dev)
+    before = _build.LAUNCHES["mfcc_fused"]
+    got = kmf.mfcc_frames_fused(frames, cfg, plan=kmf.gemm_plan(cfg))
+    assert _build.LAUNCHES["mfcc_fused"] == before + 1
+    torch.testing.assert_close(got, kmf.mfcc_frames_plain(frames, cfg), rtol=1e-3, atol=1e-3)
+    assert kmf.launch_plan(cfg) == kmf.fft_plan(cfg)
 
 
 @pytest.mark.parametrize("n", [1, 31, 33, 37, 1000])
@@ -976,3 +990,143 @@ def test_every_wrapper_launches_on_the_current_stream(dev, name):
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------------------- streaming
+# The online path has no kernel of its own: its front-end, VAD and SPRING
+# update are plain PyTorch on the card, held here to the same code on the
+# CPU, and the recognizer's classify runs kernel 1.  MFCC at rtol/atol
+# 1e-3: cuBLAS and the CPU's BLAS sum the DFT GEMM in other orders, and the
+# quietest log-mel bands amplify it (2.9e-4 abs measured on the card, past
+# 1e-4; 1e-3 is JAX's own bound for GEMM-shape differences,
+# tests/test_streaming.py:48); energies rtol 1e-4; flags and indices equal.
+
+def _stream_signals(n, n_chunks, chunk=1600):
+    """n seeded streams of noise with one digit each, [n, n_chunks * chunk]."""
+    rng = np.random.default_rng(n)
+    sigs = 0.002 * rng.standard_normal((n, n_chunks * chunk))
+    for i in range(n):
+        w = synth_word(["zero", "one", "two", "three"][i % 4], 10 + i, max_samples=12000)
+        w = w[: max(0, sigs.shape[1] - 2000)]
+        sigs[i, 2000:2000 + len(w)] += w
+    return sigs.astype(np.float32)
+
+
+def _assert_chunk_outputs_close(got, want):
+    for name, g, w in zip(tst.ChunkOutput._fields, got, want):
+        g = g.cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name == "mfcc":
+            torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3, msg=name)
+        elif name == "energy":
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0, msg=name)
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("denoise", [None, "spectral_subtraction"])
+def test_process_chunk_batch_on_the_card_matches_the_cpu(dev, denoise):
+    fcfg = FrontendConfig(denoise=denoise)
+    sigs = _stream_signals(6, 12)
+    state = tst.init_state_batch(6, fcfg, 1600, dev)
+    ref = tst.init_state_batch(6, fcfg, 1600, "cpu")
+    single = tst.init_state(fcfg, 1600, dev)
+    for c in range(12):
+        part = torch.from_numpy(sigs[:, c * 1600:(c + 1) * 1600].copy())
+        state, out = tst.process_chunk_batch(state, part.to(dev), fe.make_matrices(fcfg, dev),
+                                             fcfg, VadConfig(), 1600)
+        ref, want = tst.process_chunk_batch(ref, part, fe.make_matrices(fcfg, "cpu"),
+                                            fcfg, VadConfig(), 1600)
+        _assert_chunk_outputs_close(out, want)
+        single, one = tst.process_chunk(single, part[0].to(dev), fe.make_matrices(fcfg, dev),
+                                        fcfg, VadConfig(), 1600)
+        _assert_chunk_outputs_close(tst.ChunkOutput(*(a[None] for a in one)),
+                                    tst.ChunkOutput(*(a[:1] for a in want)))
+    for name, g, w in zip(tst.StreamState._fields, state, ref):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def test_streaming_calls_never_wait_for_the_card(dev):
+    fcfg = FrontendConfig()
+    mats = fe.make_matrices(fcfg, dev)
+    sigs = torch.from_numpy(_stream_signals(4, 1)).to(dev)
+    bank = torch.randn((5, 30, 39), device=dev)
+    lens = torch.tensor([30, 20, 10, 25, 1], dtype=torch.int32, device=dev)
+    buf = torch.randn((16, 39), device=dev)
+    states = (tst.init_state(fcfg, 1600, dev), tst.init_state_batch(4, fcfg, 1600, dev),
+              tsp.spot_init(5, 30, dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tst.process_chunk(states[0], sigs[0], mats, fcfg, VadConfig(), 1600)
+        tst.process_chunk_batch(states[1], sigs, mats, fcfg, VadConfig(), 1600)
+        tsp.spot_chunk(states[2], buf, 11, bank, lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _small_bank(labels, n, device):
+    rec = KnnDtwRecognizer(PipelineConfig(), device=device)
+    for lab in labels:
+        rec.enroll(lab, [synth_word(lab, i) for i in range(n)])
+    return rec
+
+
+def _feed_all(stream, sig, tail=False):
+    n_full = len(sig) // 1600 * 1600
+    events = []
+    for lo in range(0, n_full, 1600):
+        events += stream.feed(sig[lo:lo + 1600])
+    return events + (stream.flush(sig[n_full:]) if tail else stream.flush())
+
+
+def test_streaming_recognizer_on_the_card_matches_the_cpu(dev):
+    rec = _small_bank(["zero", "one", "two", "three"], 3, dev)
+    rec_cpu = KnnDtwRecognizer.from_arrays(np.stack(rec._bank_feats), rec._bank_lens,
+                                           rec._bank_label_ids, rec.labels, PipelineConfig(),
+                                           device="cpu")
+    sig = np.concatenate([synth_connected(["two", "zero", "three"], 5),
+                          np.zeros(8000, np.float32)])
+    before = _build.LAUNCHES["dtw_banded"]
+    got = _feed_all(StreamingRecognizer(rec), sig)
+    assert _build.LAUNCHES["dtw_banded"] - before == len(got)
+    assert got == _feed_all(StreamingRecognizer(rec_cpu), sig)
+    assert [ev[0] for ev in got] == ["two", "zero", "three"]
+
+
+def test_streaming_spotter_on_the_card_matches_the_cpu(dev):
+    rec = _small_bank(["zero", "one"], 3, dev)
+    rec_cpu = KnnDtwRecognizer.from_arrays(np.stack(rec._bank_feats), rec._bank_lens,
+                                           rec._bank_label_ids, rec.labels, PipelineConfig(),
+                                           device="cpu")
+    sig, _ = synth_spotting_stream(["zero", "one"], ["zero", "one", "three", "four", "five"],
+                                   seed=7, n_words=5)
+    got = _feed_all(StreamingSpotter(rec, threshold=30.0), sig, tail=True)
+    want = _feed_all(StreamingSpotter(rec_cpu, threshold=30.0), sig, tail=True)
+    assert got and [ev[:3] for ev in got] == [ev[:3] for ev in want]
+    for g, w in zip(got, want):
+        assert g[3] == pytest.approx(w[3], rel=1e-4)
+
+
+@pytest.mark.parametrize("f", [3, 39])
+def test_spring_chunk_invariance_on_the_card(dev, f):
+    rng = np.random.default_rng(f)
+    stream = torch.from_numpy(rng.standard_normal((48, f)).astype(np.float32)).to(dev)
+    bank = torch.from_numpy(rng.standard_normal((4, 20, f)).astype(np.float32)).to(dev)
+    lens = torch.tensor([20, 11, 3, 17], dtype=torch.int32, device=dev)
+    runs = []
+    for chunks in ([48], [16, 16, 16], [5, 11, 32], [1] * 48):
+        state, width, off, parts = tsp.spot_init(4, 20, dev), max(chunks), 0, []
+        for c in chunks:
+            buf = torch.zeros((width, f), device=dev)
+            buf[:c] = stream[off:off + c]
+            state, norm, start = tsp.spot_chunk(state, buf, c, bank, lens)
+            parts.append((norm[:, :c], start[:, :c]))
+            off += c
+        runs.append(tuple(torch.cat(p, dim=1) for p in zip(*parts)))
+    for norm, start in runs[1:]:
+        assert torch.equal(norm, runs[0][0]) and torch.equal(start, runs[0][1])
+    want_n, want_s = tsp.subseq_dtw_batch_plain(stream[None].cpu(), torch.tensor([48]),
+                                                bank.cpu(), lens.cpu())
+    torch.testing.assert_close(runs[0][0].cpu(), want_n[0], rtol=2e-5, atol=1e-6)
+    assert torch.equal(runs[0][1].cpu(), want_s[0])

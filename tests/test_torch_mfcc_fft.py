@@ -222,3 +222,14 @@ def test_launch_plan_main_path_config():
     assert plan.smem_bytes == 4 * (256 * 4 + 400 + 26 * 13 + 13 + kmf.mel_nnz(FrontendConfig())
                                    + 3 * 26 + 8 * (2 * 264 + 257 + 26))
     assert kmf.launch_plan(dataclasses.replace(FrontendConfig(), use_energy=True)) == plan
+
+
+@pytest.mark.parametrize("n_fft", [64, 400, 480, 512])
+def test_launch_plan_is_the_fft_plan_else_the_gemm_plan(n_fft):
+    cfg = FrontendConfig(n_fft=n_fft)
+    fft = kmf.fft_plan(cfg)
+    assert (fft is None) == (n_fft in (400, 480))
+    assert kmf.launch_plan(cfg) == (fft or kmf.gemm_plan(cfg))
+    assert kmf.gemm_plan(cfg) == kmf.Plan("gemm", 4, 8, kmf.gemm_smem_bytes(cfg))
+    with pytest.raises(ValueError):
+        kmf.gemm_plan(FrontendConfig(n_fft=4000))
