@@ -24,13 +24,12 @@ each of which raises on failure (non-zero exit):
              n_fft = 480; allclose at rtol/atol 1e-3, and the kernel's max
              error to a float64 evaluation of the chain (on the card) at
              most twice the plain version's.  Then n_fft = 64 (samples
-             folded six times): held by the float64 rule only, and where
-             kernel and plain differ past 1e-3 it prints each one's error
-             to float64 (an open fault, ROADMAP.md section 3).  Then, at
-             n_fft 16, 32, 64, 128 and 256 (all folded), both modes on the
-             same frames and on the card test's (3 utterances of "eight"):
-             the values past rtol/atol 1e-3 of the plain version and each
-             one's error to float64.  Prints the plan (mode, warps,
+             folded six times: the float64 folded path of kernel and plain
+             version), by the same two rules.  Then, at n_fft 16, 32, 64,
+             128 and 256 (all folded), both modes on the same frames and on
+             the card test's (3 utterances of "eight"): no value past
+             rtol/atol 1e-3 of the plain version, and kernel and plain
+             within 1e-3 of float64.  Prints the plan (mode, warps,
              frames a warp, shared bytes), both forms' bounds (the GEMM
              form's operations, the FFT mode's bytes) and, as a yardstick
              of the spectrum part only, ``torch.fft.rfft(frames * window,
@@ -167,6 +166,35 @@ each of which raises on failure (non-zero exit):
              ``process_chunk_batch`` and ``spot_chunk`` run once under
              ``torch.cuda.set_sync_debug_mode("error")``: no call waits for
              the card.
+13. hmm    — the GMM-HMM recognizer (BASELINE config 3) at full width,
+             plain PyTorch on the card: the default ``HmmConfig`` (5
+             states, 3 mixtures, 10 EM iterations, F = 39, T = 198) fitted
+             on 10 digits x 10 utterances, segmental (fitted twice, both
+             timed) and Baum-Welch, each against the CPU's EM on the same
+             features from the same ``torch.Generator`` draws: one
+             segmental E-step from the same parameters (statistics within
+             1e-2 as max |a - b| / (1 + |b|), transition counts equal), and
+             each whole fit's labels on the queries equal to the CPU fit's
+             except at near-ties (the parameters part by a few 1e-2 in
+             float32 over ten iterations: printed, and held under 0.5 as a
+             bound on gross breaks); ``classify_batch`` of
+             ``bench_all.py``'s 256 queries and 3 OOV words x 32 against
+             the CPU on the same parameters (labels
+             equal except where the top-2 log-liks lie within 1e-4
+             relative); ``calibrate_rejection`` -> ``evaluate(reject=True)``
+             with the reject decisions held to the CPU's at the card's
+             threshold (except within 1e-3 of it or at near-ties) and the
+             n-best top-1 to the label; a ``noise_adapt=True`` classify of
+             the queries under sigma 0.05 noise against the CPU's; a
+             save/load round trip (parameters, threshold and labels
+             equal); and one classify through ``FrontendConfig(impl=
+             "pallas")`` with launch counts reset just before and read just
+             after (kernel 2 must launch, no other kernel).  Prints fit
+             seconds, accuracy, viterbi_decodes_per_sec (bench_all.py:144:
+             256 x 10 utterance-word decodes over the CUDA-event time of one
+             ``score_words``) and the device ops and device time of one
+             ``score_words`` and one ``fit_words_batched`` under
+             ``torch.profiler``.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -275,6 +303,20 @@ STREAM_REPS = 50            # synchronized single-chunk calls timed
 STREAM_RECOGNIZER_WORDS = [["one", "seven", "three"], ["four", "zero", "nine", "two"],
                            ["eight", "five", "six"], ["two", "one", "nine", "four"]]
 STREAM_SPOTTER_STREAMS = 4
+# phase hmm (BASELINE config 3): default HmmConfig (S = 5, M = 3, 10 EM
+# iterations), 10 digits x 10 training utterances, bench_all.py:96's 256
+# queries (synth_word(DIGITS[i % 10], 1000 + i)) and OOV_WORDS x 32
+HMM_TRAIN_PER_WORD = 10
+HMM_QUERIES = 256
+HMM_NOISE_SIGMA = 0.05      # tests/test_noise_adapt.py:59's mismatch
+# card against CPU on the same features, as max |a - b| / (1 + |b|).  The
+# expanded emission's terms are large and cancel for frames far from a
+# narrow component, so the two devices' float32 sums part there, and the
+# M-step's E[x^2] - mean^2 amplifies it.  Measured by this phase on an
+# H100 (700 W): one segmental E-step's statistics 6.8e-4 with equal
+# transition counts, whole fits 2.6e-2 (segmental) and 1.5e-1 (Baum-Welch)
+HMM_STEP_TOL = 1e-2         # one segmental E-step from the same parameters
+HMM_FIT_SPREAD = 0.5        # whole fits: a bound on gross breaks; labels are the check
 
 
 def fail(msg: str):
@@ -453,7 +495,8 @@ def synth_batch(n: int, seed0: int):
 def mfcc_chain_f64(frames, cfg):
     """The kernel's function in float64 on the card: the plain version on
     float64 frames and the float64 constants of ``ops/frontend.py:matrices_np``
-    (the DFT as two GEMMs, aliasing samples past n_fft as the TPU kernel does)."""
+    (the DFT as two GEMMs, or at n_fft below the frame length the fold and one
+    period's DFT, aliasing samples past n_fft as the TPU kernel does)."""
     import torch
 
     from dsp_tpu_torch.ops import frontend as fe
@@ -490,14 +533,11 @@ def mfcc_phase(dev, report):
 
     sigs, _ = synth_batch(MFCC_UTTERANCES, 5000)
     x = torch.from_numpy(np.stack(sigs)).to(dev)
-    # (name, config, held to the plain version at 1e-3): n_fft = 64 is held
-    # by the float64 rule only, an open fault of both fp32 chains (ROADMAP.md
-    # section 3: bands near 1e-7 of a frame's energy are rounding noise)
-    cases = [("default", FrontendConfig(), True),
-             ("use_energy", FrontendConfig(use_energy=True), True),
-             (f"gemm_n_fft_{MFCC_GEMM_N_FFT}", FrontendConfig(n_fft=MFCC_GEMM_N_FFT), True),
-             ("fold_n_fft_64", FrontendConfig(n_fft=64), False)]
-    for key, cfg, to_plain in cases:
+    cases = [("default", FrontendConfig()),
+             ("use_energy", FrontendConfig(use_energy=True)),
+             (f"gemm_n_fft_{MFCC_GEMM_N_FFT}", FrontendConfig(n_fft=MFCC_GEMM_N_FFT)),
+             ("fold_n_fft_64", FrontendConfig(n_fft=64))]
+    for key, cfg in cases:
         plan = kmf.launch_plan(cfg)
         frames = fe.frame(fe.preemphasis(x, cfg.preemphasis), cfg.frame_len,
                           cfg.hop_len).reshape(-1, cfg.frame_len).contiguous()
@@ -513,13 +553,7 @@ def mfcc_phase(dev, report):
         err64 = (got.double() - exact).abs().max().item()
         plain_err64 = (want.double() - exact).abs().max().item()
         if not torch.allclose(got, want, rtol=1e-3, atol=1e-3):
-            if to_plain:
-                fail(f"mfcc {key} ({plan.mode} mode) differs: max abs err {err:.3e}")
-            print(f"mfcc {key}: kernel and plain differ past rtol/atol 1e-3 "
-                  f"(max abs err {err:.3e}) in "
-                  f"{int((~torch.isclose(got, want, rtol=1e-3, atol=1e-3)).sum())} "
-                  f"of {got.numel()} values; to float64: kernel {err64:.3e}, "
-                  f"plain {plain_err64:.3e}", flush=True)
+            fail(f"mfcc {key} ({plan.mode} mode) differs: max abs err {err:.3e}")
         if err64 > 2 * plain_err64:
             fail(f"mfcc {key} ({plan.mode} mode): max error to float64 {err64:.3e} "
                  f"over twice the plain version's {plain_err64:.3e}")
@@ -558,8 +592,9 @@ def mfcc_phase(dev, report):
         fail("mfcc: the plan did not take the FFT mode at n_fft=512 and the GEMM "
              f"mode at n_fft={MFCC_GEMM_N_FFT}")
     # both modes against the plain version at n_fft below the frame length,
-    # where each point sums frame_len / n_fft folded samples: on this chunk's
-    # frames and on the card test's (tests/test_torch_cuda.py:_speech_frames)
+    # where each point sums frame_len / n_fft folded samples (the float64
+    # folded path): on this chunk's frames and on the card test's
+    # (tests/test_torch_cuda.py:_speech_frames)
     eight = torch.from_numpy(np.stack([synth_word("eight", s, max_samples=9000)
                                        for s in range(3)])).to(dev)
     report["mfcc"]["small_n_fft"] = sweep = {}
@@ -585,6 +620,10 @@ def mfcc_phase(dev, report):
                       f"{got.numel()} values past rtol/atol 1e-3 of the plain version "
                       f"(max abs err {err:.3e}); to float64: kernel {err64:.3e}, plain "
                       f"{plain_err64:.3e}", flush=True)
+                if off or max(err64, plain_err64) > 1e-3:
+                    fail(f"mfcc n_fft={n_fft} {inputs} {mode} mode: {off} values past "
+                         f"1e-3 of the plain version; to float64 {err64:.3e} (plain "
+                         f"{plain_err64:.3e})")
 
 
 def stage_ms(rec, signals, reps: int = 3) -> dict:
@@ -1342,6 +1381,208 @@ def streaming_phase(seed: int, dev, report) -> dict:
     return {"recognizer": rec_launches, "spotter": spot_launches}
 
 
+def params_err(got, want) -> float:
+    """max |got - want| / (1 + |want|) over the tensors of two parameter
+    sets (HmmParams or a UBM tuple); the NEG_INF entries agree exactly."""
+    return max(float(((g.cpu().double() - w.cpu().double()).abs()
+                      / (1.0 + w.cpu().double().abs())).max())
+               for g, w in zip(got, want))
+
+
+def hmm_phase(seed: int, dev, report) -> int:
+    """Phase hmm: BASELINE config 3 on the card against the CPU; returns
+    kernel 2's launches in the fused front-end's classify."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import GmmHmmRecognizer
+    from dsp_tpu_torch.config import FrontendConfig, HmmConfig, PipelineConfig
+    from dsp_tpu_torch.io import DIGITS, synth_word
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.models import gmm_hmm as pg
+    from dsp_tpu_torch.models.knn_dtw import REJECT
+
+    out = report["hmm"]
+    hmm = HmmConfig()
+    train = {lab: [synth_word(lab, i) for i in range(HMM_TRAIN_PER_WORD)] for lab in DIGITS}
+    queries, truth = synth_batch(HMM_QUERIES, 1000)
+    oov = [synth_word(w, 7000 + i) for w in OOV_WORDS for i in range(OOV_PER_WORD)]
+    sigs = queries + oov
+
+    def same_labels(got, want, scores, what):
+        """Labels equal except where the reference's top-2 log-liks lie
+        within 1e-4 relative; returns the mismatches at such near-ties."""
+        diff = np.array([a != b for a, b in zip(got, want)])
+        ties = near_ties(-np.asarray(scores))
+        if (diff & ~ties).any():
+            fail(f"hmm {what}: {int((diff & ~ties).sum())} labels differ outside near-ties")
+        return int(diff.sum())
+
+    # -- fits on the card (segmental timed twice, Baum-Welch once), each
+    # against the CPU's EM on the card's features from the same draws
+    fits = {}
+    for mode in ("viterbi", "baum_welch"):
+        cfg = dataclasses.replace(hmm, train_mode=mode)
+        rec = GmmHmmRecognizer(PipelineConfig(), cfg, device=dev)
+        seconds = []
+        for _ in range(2 if mode == "viterbi" else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec.fit(train)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        feats_w, lens_w = pg.stack_words([rec.extract(train[lab]) for lab in rec.labels], dev)
+        w, n, t, f = feats_w.shape
+        host = GmmHmmRecognizer(PipelineConfig(), cfg, device="cpu")
+        host.labels = rec.labels
+        host.ubm = pg.fit_ubm(feats_w.reshape(w * n, t, f).cpu(), lens_w.reshape(-1).cpu(),
+                              cfg, pg.normal_draw((cfg.n_mix, f), cfg.seed, "cpu"))
+        host.params = pg.fit_words_batched(feats_w.cpu(), lens_w.cpu(),
+                                           pg.word_jitter(cfg, w, f, "cpu"), cfg)
+        spread = max(params_err(rec.ubm, host.ubm), params_err(rec.params, host.params))
+        labels, scores = rec.classify_batch(queries, return_scores=True)
+        h_labels, h_scores = host.classify_batch(queries, return_scores=True)
+        fit_ties = same_labels(labels, h_labels, h_scores, f"{mode} fit against the CPU's fit")
+        acc = float(np.mean([a == b for a, b in zip(labels, truth)]))
+        h_acc = float(np.mean([a == b for a, b in zip(h_labels, truth)]))
+        step = ""
+        if mode == "viterbi":
+            # one E-step from the same parameters (the card's init) on both
+            p0 = pg.init_params(feats_w, lens_w, cfg, pg.word_jitter(cfg, w, f, dev))
+            s_card = pg.em_suff_stats(feats_w, lens_w, p0, cfg)
+            s_host = pg.em_suff_stats(feats_w.cpu(), lens_w.cpu(),
+                                      pg.HmmParams(*(a.cpu() for a in p0)), cfg)
+            step_err = params_err(s_card, s_host)
+            same_counts = all(torch.equal(getattr(s_card, k).cpu(), getattr(s_host, k))
+                              for k in ("stay_cnt", "trans_cnt"))
+            if step_err > HMM_STEP_TOL or not same_counts:
+                fail(f"hmm: one E-step parts from the CPU's by {step_err:.3e} "
+                     f"(transition counts equal: {same_counts})")
+            step = (f"one E-step from the same parameters {step_err:.3e} (held at "
+                    f"{HMM_STEP_TOL}), transition counts equal; ")
+            out["e_step_err_vs_cpu"] = step_err
+        print(f"hmm fit {mode:10s}: {'  '.join(f'{v:.3f}' for v in seconds)} s "
+              f"(features + UBM + {cfg.n_iter} EM iterations of {w} words x {n}); against "
+              f"the CPU on the same features and draws: {step}whole fit {spread:.3e}, "
+              f"labels equal ({fit_ties} at near-ties), accuracy {acc:.4f} (CPU "
+              f"{h_acc:.4f})", flush=True)
+        if spread > HMM_FIT_SPREAD or acc < 0.9:
+            fail(f"hmm fit {mode}: parts from the CPU's by {spread:.3e}, accuracy {acc}")
+        fits[mode] = rec
+        out[f"fit_{mode}"] = dict(seconds=seconds, fit_err_vs_cpu=spread, accuracy=acc,
+                                  cpu_accuracy=h_acc, labels_at_near_ties=fit_ties)
+    rec = fits["viterbi"]
+
+    # -- classify: card against the CPU on the same parameters
+    host = GmmHmmRecognizer(PipelineConfig(), hmm, device="cpu")
+    host.labels = rec.labels
+    host.params = pg.HmmParams(*(a.cpu() for a in rec.params))
+    host.ubm = tuple(a.cpu() for a in rec.ubm)
+    labels, scores = rec.classify_batch(sigs, return_scores=True)
+    h_labels, h_scores = host.classify_batch(sigs, return_scores=True)
+    ties = same_labels(labels, h_labels, h_scores, "labels against the CPU")
+    score_err = float(np.max(np.abs(scores - h_scores) / np.abs(h_scores)))
+    acc = float(np.mean([a == b for a, b in zip(labels[:HMM_QUERIES], truth)]))
+
+    # rejection: calibrate on the training corpus, evaluate with the OOV words
+    thr, h_thr = rec.calibrate_rejection(train), host.calibrate_rejection(train)
+    corpus = {lab: [x for x, y in zip(queries, truth) if y == lab] for lab in DIGITS}
+    corpus.update({wd: oov[i * OOV_PER_WORD:(i + 1) * OOV_PER_WORD]
+                   for i, wd in enumerate(OOV_WORDS)})
+    result = rec.evaluate(corpus, reject=True)
+    r_labels = rec.classify_batch(sigs, reject=thr)
+    feats = rec.extract(sigs)
+    llr = rec._utterance_llr(feats, scores, rec.ubm)
+    h_llr = host._utterance_llr(host.extract(sigs), h_scores, host.ubm)
+    h_r = host.classify_batch(sigs, reject=thr)
+    edge = np.abs(h_llr - thr) <= 1e-3 * (1.0 + abs(thr))
+    bad = np.array([a != b for a, b in zip(r_labels, h_r)]) & ~edge & ~near_ties(-h_scores)
+    if bad.any():
+        fail(f"hmm: {int(bad.sum())} reject decisions differ from the CPU's")
+    oov_rate = float(np.mean([lab == REJECT for lab in r_labels[HMM_QUERIES:]]))
+    in_rej = float(np.mean([lab == REJECT for lab in r_labels[:HMM_QUERIES]]))
+    nbest = rec.classify_nbest(sigs[:HMM_QUERIES], n=3)
+    if [row[0][0] for row in nbest] != labels[:HMM_QUERIES]:
+        fail("hmm: the n-best top-1 differs from the label")
+
+    # the decode: utterance-word decodes a second (bench_all.py:144) and its
+    # device ops; one fit's device ops
+    qf = rec.extract(queries)
+    decode = lambda: pg.score_words(qf.feats, qf.length, rec.params)   # noqa: E731
+    ms = time_ms(decode)
+    rate = HMM_QUERIES * len(rec.labels) / (ms / 1e3)
+    ops, dev_ms = device_ops(decode)
+    feats_w, lens_w = pg.stack_words([rec.extract(train[lab]) for lab in rec.labels], dev)
+    jitter = pg.word_jitter(hmm, feats_w.shape[0], feats_w.shape[-1], dev)
+    fit_ops, fit_dev_ms = device_ops(
+        lambda: pg.fit_words_batched(feats_w, lens_w, jitter, hmm))
+    print(f"hmm classify: accuracy {acc:.4f}; labels as the CPU's on the same parameters "
+          f"({ties} at near-ties), scores to {score_err:.3e} relative; rejection threshold "
+          f"{thr:.6f} (CPU {h_thr:.6f}), evaluate(reject=True) accuracy "
+          f"{result['accuracy']:.4f} of {result['n']}, OOV rejected {oov_rate:.4f}, "
+          f"in-vocabulary rejected {in_rej:.4f}; viterbi_decodes_per_sec {rate:.1f} "
+          f"(score_words {ms:.3f} ms for {HMM_QUERIES} x {len(rec.labels)}) on "
+          f"{'; '.join(report['nvidia_smi'])}; one score_words: {ops} device ops, "
+          f"{ms_text(dev_ms)} device time; one fit_words_batched: {fit_ops} device ops, "
+          f"{ms_text(fit_dev_ms)} device time", flush=True)
+    if acc < 0.9:
+        fail(f"hmm: accuracy {acc}")
+
+    # noise adaptation: a noisy batch, the word models and UBM PMC-adapted
+    rng = np.random.default_rng([seed, 11])
+    noisy = [(x + HMM_NOISE_SIGMA * rng.standard_normal(len(x))).astype(np.float32)
+             for x in queries]
+    plain_noisy = rec.classify_batch(noisy)
+    rec.noise_adapt = host.noise_adapt = True
+    n_labels = rec.classify_batch(noisy)
+    hn_labels, hn_scores = host.classify_batch(noisy, return_scores=True)
+    rec.noise_adapt = host.noise_adapt = False
+    n_ties = same_labels(n_labels, hn_labels, hn_scores, "noise_adapt labels against the CPU")
+    n_acc = float(np.mean([a == b for a, b in zip(n_labels, truth)]))
+    p_acc = float(np.mean([a == b for a, b in zip(plain_noisy, truth)]))
+
+    # save / load round trip
+    path = ROOT / "build" / "hmm_smoke.npz"
+    path.parent.mkdir(exist_ok=True)
+    rec.save(str(path))
+    back = GmmHmmRecognizer.load(str(path), device=dev)
+    path.unlink()
+    if (params_err(back.params, rec.params) != 0.0 or params_err(back.ubm, rec.ubm) != 0.0
+            or back.reject_threshold != thr or back.classify_batch(sigs) != labels):
+        fail("hmm: the save/load round trip changed the model")
+
+    # the fused front-end: kernel 2 on this path, counted from 0
+    fused = GmmHmmRecognizer(PipelineConfig(frontend=FrontendConfig(impl="pallas")), hmm,
+                             device=dev)
+    fused.labels, fused.params, fused.ubm = rec.labels, rec.params, rec.ubm
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    f_labels = fused.classify_batch(queries)
+    torch.cuda.synchronize()
+    n_mfcc = _build.LAUNCHES["mfcc_fused"]
+    others = {k: v for k, v in _build.LAUNCHES.items() if v and k != "mfcc_fused"}
+    if n_mfcc == 0 or others:
+        fail(f"hmm: the fused front-end's classify launched mfcc_fused {n_mfcc} times "
+             f"and {others}")
+    f_ties = same_labels(f_labels, labels[:HMM_QUERIES], scores[:HMM_QUERIES],
+                         "fused front-end labels against the default front-end's")
+    print(f"hmm noise_adapt at sigma {HMM_NOISE_SIGMA}: accuracy {n_acc:.4f} (without "
+          f"{p_acc:.4f}), labels as the CPU's ({n_ties} at near-ties); save/load round "
+          f"trip equal; FrontendConfig(impl='pallas'): mfcc_fused launched {n_mfcc} "
+          f"times, labels as the default front-end's ({f_ties} at near-ties)", flush=True)
+    out.update(accuracy=acc, labels_at_near_ties=ties, score_max_rel_err_vs_cpu=score_err,
+               reject_threshold=thr, reject_threshold_cpu=h_thr,
+               evaluate_reject_accuracy=result["accuracy"], evaluate_n=result["n"],
+               oov_reject_rate=oov_rate, in_vocab_reject_rate=in_rej,
+               score_words_ms=ms, viterbi_decodes_per_sec=rate,
+               score_words_device_ops=ops, score_words_device_ms=dev_ms,
+               fit_device_ops=fit_ops, fit_device_ms=fit_dev_ms,
+               noise_adapt_accuracy=n_acc, noisy_accuracy_without=p_acc,
+               noise_adapt_labels_at_near_ties=n_ties, fused_mfcc_launches=n_mfcc,
+               fused_labels_at_near_ties=f_ties)
+    return n_mfcc
+
+
 def walk_counts(strips, cost_cells, lens_a, lens_b, pad_a: int, pad_b: int):
     """(costs computed, lane-steps) of kernel 4 or 3 for these lengths, from
     the walk its wrapper module states (``strips``, ``cost_cells``)."""
@@ -1918,7 +2159,7 @@ def main() -> int:
 
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
-              "streaming": {}, "nvidia_smi": smi}
+              "streaming": {}, "hmm": {}, "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
     mfcc_phase(dev, report)
@@ -1933,6 +2174,7 @@ def main() -> int:
     launches["dtw_wavefront"] = routes["pallas"]["dtw_wavefront"]
     launches.update(mb_wavefront_phase(args.seed, dev, report))
     report["streaming"]["launches"] = streaming_phase(args.seed, dev, report)
+    report["hmm"]["launches"] = {"mfcc_fused": hmm_phase(args.seed, dev, report)}
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")
 

@@ -3,9 +3,12 @@
 A port of the JAX package's main path (VAD -> MFCC + delta/delta-delta ->
 all-pairs windowed Sakoe-Chiba DTW -> argmin / kNN vote), its matchers
 (DTW, linear time warp, cascade), out-of-vocabulary rejection and
-evaluation, its offline keyword spotter (subsequence DTW), and its online
+evaluation, its offline keyword spotter (subsequence DTW), its online
 path (the chunked streaming front-end with a causal VAD,
-``StreamingRecognizer`` and the SPRING ``StreamingSpotter``), with five
+``StreamingRecognizer`` and the SPRING ``StreamingSpotter``), and the
+GMM-HMM recognizer (``GmmHmmRecognizer``: log-space Viterbi decode,
+segmental and Baum-Welch EM with a UBM and MAP adaptation, UBM-LLR
+rejection, PMC noise adaptation), with five
 hand-written CUDA kernels for NVIDIA Hopper: banded DTW
 (``csrc/dtw_banded.cu``), the fused MFCC front-end (``csrc/mfcc_fused.cu``),
 subsequence DTW (``csrc/spot_subseq.cu``), unbanded closed-form DTW
@@ -28,6 +31,9 @@ Quick start::
     events = KeywordSpotter(rec).spot([long_recording])
     stream = StreamingRecognizer(rec)        # 100 ms chunks at 16 kHz
     events = stream.feed(chunk_of_1600_samples)
+    hmm = GmmHmmRecognizer()                 # on the card
+    hmm.fit({"yes": [signal1, signal2], "no": [signal3, signal4]})
+    label = hmm.recognize(test_signal)
 """
 
 import torch
@@ -50,6 +56,7 @@ from dsp_tpu_torch.config import (  # noqa: E402
     VadConfig,
     VqConfig,
 )
+from dsp_tpu_torch.models.gmm_hmm import GmmHmmRecognizer  # noqa: E402
 from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer  # noqa: E402
 from dsp_tpu_torch.models.spotter import KeywordSpotter  # noqa: E402
 from dsp_tpu_torch.models.streaming import StreamingRecognizer  # noqa: E402
@@ -62,7 +69,7 @@ from dsp_tpu_torch.pipeline import (  # noqa: E402
 
 __all__ = [
     "FrontendConfig", "VadConfig", "DtwConfig", "HmmConfig", "VqConfig",
-    "PipelineConfig", "KnnDtwRecognizer", "KeywordSpotter",
+    "PipelineConfig", "KnnDtwRecognizer", "GmmHmmRecognizer", "KeywordSpotter",
     "StreamingRecognizer", "Features",
     "extract_features", "classify_features", "recognize_batch",
 ]

@@ -40,6 +40,17 @@
 //     once a block in shared memory;
 //   * only [N, C] is written to device memory.
 //
+// Folded NFFT (NFFT < L), either mode: each point of the transform sums
+// ceil(L / NFFT) windowed samples, and the quietest mel bands of speech
+// frames, ~1e-7 of a frame's energy, sink to float32 rounding in the fold
+// and the transform.  There a warp takes a frame at a time: it folds the
+// frame against the host's float64 window into a float64 buffer in shared
+// memory, then each lane takes bins of one period's DFT in float64 against
+// the host's float64 table e^{-2 pi i m / NFFT} (fold_twiddles), and only the
+// power returns to float32 for the mode's mel, log and DCT.  ~NFFT x K
+// double FMAs a frame (2 K at NFFT = 64): small beside the frame's read.
+// The plain version does the same in float64 (ops/frontend.py:power_spectrum).
+//
 // GEMM mode (any other NFFT): the first design, kept for NFFT that is not
 // a power of two.  The DFT as two GEMMs, 2 x L x K FMAs a frame (~97% of
 // 21 GFLOP at L = 400, K = 257 over 50,688 frames), SIMT fp32 on shared
@@ -60,17 +71,52 @@ constexpr int KT = 16;             // samples per reduction tile
 constexpr int NC = 9;              // bins per lane per pass
 constexpr int PASS = 32 * NC;      // bins per pass
 
+// A warp's folded power spectrum of one frame x [L] (NFFT < L, header):
+// buf [NFFT] float64 scratch of this warp, pw [K] the power out.  Returns
+// this lane's share of sum x^2.  Called by whole warps.
+__device__ float folded_power(const float* __restrict__ x, const double* __restrict__ win64,
+                              const double2* __restrict__ tw64, double* buf,
+                              float* pw, int l_dim, int n_fft, int k_dim, int lane) {
+  float energy = 0.f;
+  for (int i = lane; i < n_fft; i += 32) {
+    double acc = 0.0;
+    for (int s = i; s < l_dim; s += n_fft) {
+      const float v = x[s];
+      energy = fmaf(v, v, energy);
+      acc = fma((double)v, __ldg(win64 + s), acc);
+    }
+    buf[i] = acc;
+  }
+  __syncwarp();
+  for (int k = lane; k < k_dim; k += 32) {
+    double re = 0.0, im = 0.0;
+    int m = 0;                                    // (j k) mod NFFT
+    for (int j = 0; j < n_fft; ++j) {
+      const double2 w = __ldg(tw64 + m);
+      re = fma(buf[j], w.x, re);
+      im = fma(buf[j], w.y, im);
+      m += k;
+      if (m >= n_fft) m -= n_fft;
+    }
+    pw[k] = (float)((re * re + im * im) / n_fft);
+  }
+  __syncwarp();
+  return energy;
+}
+
 __global__ void __launch_bounds__(THREADS)
 mfcc_fused_kernel(const float* __restrict__ frames, const float* __restrict__ window,
                   const float* __restrict__ dft_cos, const float* __restrict__ dft_sin,
                   const float* __restrict__ mel_fb_t, const float* __restrict__ dct_t,
-                  const float* __restrict__ lifter, float* __restrict__ out, int n,
-                  int l_dim, int k_dim, int m_dim, int c_dim, float n_fft,
+                  const float* __restrict__ lifter, const double* __restrict__ win64,
+                  const double2* __restrict__ tw64, float* __restrict__ out, int n,
+                  int l_dim, int k_dim, int m_dim, int c_dim, float n_fft, int fold_n,
                   float log_floor, int use_energy) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int n_pass = (k_dim + PASS - 1) / PASS;
   const int pw_stride = n_pass * PASS + 1;  // odd: rows fall on other banks
-  float* a_s = smem;                        // [TM, KT] windowed frames
+  double* fold_s = reinterpret_cast<double*>(smem);   // [8 warps, fold_n] if folded
+  float* a_s = smem + 2 * fold_n * (THREADS / 32);    // [TM, KT] windowed frames
   float* cos_s = a_s + TM * KT;             // [KT, PASS]
   float* sin_s = cos_s + KT * PASS;         // [KT, PASS]
   float* pw_s = sin_s + KT * PASS;          // [TM, pw_stride] power spectrum
@@ -82,8 +128,19 @@ mfcc_fused_kernel(const float* __restrict__ frames, const float* __restrict__ wi
   const int lane = tid % 32;
   const int n0 = blockIdx.x * TM;
 
+  // ---- folded NFFT: each warp's rows in float64 (header) --------------
+  if (fold_n > 0) {
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const int lr = warp * ROWS_PER_WARP + r;
+      if (n0 + lr < n)                        // the same for the whole warp
+        folded_power(frames + (size_t)(n0 + lr) * l_dim, win64, tw64,
+                     fold_s + (size_t)warp * fold_n, pw_s + lr * pw_stride, l_dim,
+                     fold_n, k_dim, lane);
+    }
+  }
+
   // ---- DFT power spectrum, one pass of PASS bins at a time -------------
-  for (int p = 0; p < n_pass; ++p) {
+  for (int p = 0; fold_n == 0 && p < n_pass; ++p) {
     const int col0 = p * PASS;
     float re[ROWS_PER_WARP][NC], im[ROWS_PER_WARP][NC];
 #pragma unroll
@@ -180,11 +237,11 @@ mfcc_fused_kernel(const float* __restrict__ frames, const float* __restrict__ wi
   }
 }
 
-size_t mfcc_fused_smem_bytes(int k_dim, int m_dim) {
+size_t mfcc_fused_smem_bytes(int k_dim, int m_dim, int fold_n) {
   int n_pass = (k_dim + PASS - 1) / PASS;
   size_t floats = (size_t)TM * KT + 2 * (size_t)KT * PASS
                   + (size_t)TM * (n_pass * PASS + 1) + (size_t)TM * m_dim + TM;
-  return floats * sizeof(float);
+  return floats * sizeof(float) + sizeof(double) * (size_t)fold_n * (THREADS / 32);
 }
 
 // ---------------------------------------------------------------- FFT mode
@@ -210,24 +267,30 @@ __global__ void __launch_bounds__(32 * FFT_MAX_WARPS)
 mfcc_fft_kernel(const float* __restrict__ frames, const float* __restrict__ window,
                 const float2* __restrict__ twiddles, const int* __restrict__ mel_rng,
                 const float* __restrict__ mel_w, const float* __restrict__ dct_t,
-                const float* __restrict__ lifter, float* __restrict__ out, int n,
+                const float* __restrict__ lifter, const double* __restrict__ win64,
+                const double2* __restrict__ tw64, float* __restrict__ out, int n,
                 int l_dim, int log_half, int m_dim, int c_dim, int n_mel_w,
                 float log_floor, int use_energy, int frames_per_warp) {
   extern __shared__ __align__(16) float smem[];
   const int half = 1 << log_half;          // complex points: NFFT / 2
   const int n_fft = 2 * half;
+  const bool folded = n_fft < l_dim;
   const int l4 = round_up4(l_dim);
-  float2* tw_s = reinterpret_cast<float2*>(smem);   // [half] e^{-2 pi i k / NFFT}
+  const int warps = blockDim.x >> 5;
+  // [warps, NFFT] float64 where folded (a multiple of 32 bytes: the float4
+  // alignment of what follows holds)
+  double* fold_s = reinterpret_cast<double*>(smem);
+  float* blk_s = smem + (folded ? 2 * n_fft * warps : 0);
+  float2* tw_s = reinterpret_cast<float2*>(blk_s);  // [half] e^{-2 pi i k / NFFT}
   // [half] per stage: stage h's W_{2h}^p, p < h, at h - 1 + p, so that a
   // stage's lanes read neighbouring words (one slot of padding at the end)
   float2* st_s = tw_s + half;
-  float* win_s = smem + 4 * half;                    // [l4], zeros past L
+  float* win_s = blk_s + 4 * half;                   // [l4], zeros past L
   float* dct_s = win_s + l4;                         // [M, C]
   float* lift_s = dct_s + m_dim * c_dim;             // [C]
   float* melw_s = lift_s + c_dim;                    // [n_mel_w]
   int* melr_s = reinterpret_cast<int*>(melw_s + n_mel_w);   // [M, 3]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warps = blockDim.x >> 5;
   const int hp = padded(half);
   float* re_s = reinterpret_cast<float*>(melr_s + 3 * m_dim)
                 + warp * mfcc_fft_warp_floats(half, m_dim);
@@ -256,89 +319,94 @@ mfcc_fft_kernel(const float* __restrict__ frames, const float* __restrict__ wind
     if (row >= n) break;                      // the same for the whole warp
     const float* x = frames + (size_t)row * l_dim;
 
-    // ---- read, window, fold modulo NFFT: lane owns points 4g..4g+3 -----
     float energy = 0.f;
-    for (int g = lane; g < half / 2; g += 32) {
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int s = 4 * g; s < l_dim; s += n_fft) {
-        float4 v;
-        if (vec) {
-          v = __ldg(reinterpret_cast<const float4*>(x + s));
-        } else {
-          v.x = x[s];
-          v.y = s + 1 < l_dim ? x[s + 1] : 0.f;
-          v.z = s + 2 < l_dim ? x[s + 2] : 0.f;
-          v.w = s + 3 < l_dim ? x[s + 3] : 0.f;
+    if (folded) {
+      energy = folded_power(x, win64, tw64, fold_s + (size_t)warp * n_fft, pw_s, l_dim,
+                            n_fft, half + 1, lane);
+    } else {
+      // ---- read, window, fold modulo NFFT: lane owns points 4g..4g+3 -----
+      for (int g = lane; g < half / 2; g += 32) {
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        for (int s = 4 * g; s < l_dim; s += n_fft) {
+          float4 v;
+          if (vec) {
+            v = __ldg(reinterpret_cast<const float4*>(x + s));
+          } else {
+            v.x = x[s];
+            v.y = s + 1 < l_dim ? x[s + 1] : 0.f;
+            v.z = s + 2 < l_dim ? x[s + 2] : 0.f;
+            v.w = s + 3 < l_dim ? x[s + 3] : 0.f;
+          }
+          const float4 w = *reinterpret_cast<const float4*>(win_s + s);
+          energy = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, energy))));
+          a0 = fmaf(v.x, w.x, a0);
+          a1 = fmaf(v.y, w.y, a1);
+          a2 = fmaf(v.z, w.z, a2);
+          a3 = fmaf(v.w, w.w, a3);
         }
-        const float4 w = *reinterpret_cast<const float4*>(win_s + s);
-        energy = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, energy))));
-        a0 = fmaf(v.x, w.x, a0);
-        a1 = fmaf(v.y, w.y, a1);
-        a2 = fmaf(v.z, w.z, a2);
-        a3 = fmaf(v.w, w.w, a3);
-      }
-      // z[m] = x[2m] + i x[2m+1], stored at bit-reversed m
-      const int m0 = padded(__brev(2 * g) >> shift), m1 = padded(__brev(2 * g + 1) >> shift);
-      re_s[m0] = a0;
-      im_s[m0] = a1;
-      re_s[m1] = a2;
-      im_s[m1] = a3;
-    }
-    __syncwarp();
-
-    // ---- decimation in time over the half-length complex FFT: a radix-2
-    // stage where the stage count is odd, then radix 4 (two stages in
-    // registers, h and 2h, one load and one store of each point) -------
-    int h = 1;
-    if (log_half & 1) {
-      for (int b = lane; b < half / 2; b += 32) {     // h = 1: twiddle 1
-        const int i0 = padded(2 * b), i1 = padded(2 * b + 1);
-        const float ar = re_s[i0], ai = im_s[i0], br = re_s[i1], bi = im_s[i1];
-        re_s[i0] = ar + br;
-        im_s[i0] = ai + bi;
-        re_s[i1] = ar - br;
-        im_s[i1] = ai - bi;
-      }
-      h = 2;
-      __syncwarp();
-    }
-    for (; h < half; h <<= 2) {
-      for (int b = lane; b < half / 4; b += 32) {
-        const int p = b & (h - 1);
-        const int j0 = ((b - p) << 2) + p;
-        const int i0 = padded(j0), i1 = padded(j0 + h), i2 = padded(j0 + 2 * h),
-                  i3 = padded(j0 + 3 * h);
-        const float2 w1 = st_s[h - 1 + p];           // W_{2h}^p
-        const float2 w2 = st_s[2 * h - 1 + p];       // W_{4h}^p; W_{4h}^{p+h} = -i w2
-        float a0r = re_s[i0], a0i = im_s[i0], a1r = re_s[i1], a1i = im_s[i1];
-        float a2r = re_s[i2], a2i = im_s[i2], a3r = re_s[i3], a3i = im_s[i3];
-        float tr = a1r * w1.x - a1i * w1.y, ti = a1r * w1.y + a1i * w1.x;
-        a1r = a0r - tr; a1i = a0i - ti; a0r += tr; a0i += ti;
-        tr = a3r * w1.x - a3i * w1.y; ti = a3r * w1.y + a3i * w1.x;
-        a3r = a2r - tr; a3i = a2i - ti; a2r += tr; a2i += ti;
-        tr = a2r * w2.x - a2i * w2.y; ti = a2r * w2.y + a2i * w2.x;
-        re_s[i0] = a0r + tr; im_s[i0] = a0i + ti;
-        re_s[i2] = a0r - tr; im_s[i2] = a0i - ti;
-        const float w3x = w2.y, w3y = -w2.x;
-        tr = a3r * w3x - a3i * w3y; ti = a3r * w3y + a3i * w3x;
-        re_s[i1] = a1r + tr; im_s[i1] = a1i + ti;
-        re_s[i3] = a1r - tr; im_s[i3] = a1i - ti;
+        // z[m] = x[2m] + i x[2m+1], stored at bit-reversed m
+        const int m0 = padded(__brev(2 * g) >> shift), m1 = padded(__brev(2 * g + 1) >> shift);
+        re_s[m0] = a0;
+        im_s[m0] = a1;
+        re_s[m1] = a2;
+        im_s[m1] = a3;
       }
       __syncwarp();
-    }
 
-    // ---- real split: X[k] = E[k] + W^k O[k], k = 0 .. half ---------------
-    for (int k = lane; k <= half; k += 32) {
-      const int k1 = padded(k & (half - 1)), k2 = padded((half - k) & (half - 1));
-      const float zr = re_s[k1], zi = im_s[k1];
-      const float cr = re_s[k2], ci = -im_s[k2];        // conj(Z[half - k])
-      const float er = 0.5f * (zr + cr), ei = 0.5f * (zi + ci);
-      const float orr = 0.5f * (zi - ci), oi = -0.5f * (zr - cr);   // (Z - Zc) / 2i
-      const float2 w = k < half ? tw_s[k] : make_float2(-1.f, 0.f);
-      const float xr = er + (orr * w.x - oi * w.y), xi = ei + (orr * w.y + oi * w.x);
-      pw_s[k] = (xr * xr + xi * xi) * inv_n;
+      // ---- decimation in time over the half-length complex FFT: a radix-2
+      // stage where the stage count is odd, then radix 4 (two stages in
+      // registers, h and 2h, one load and one store of each point) -------
+      int h = 1;
+      if (log_half & 1) {
+        for (int b = lane; b < half / 2; b += 32) {     // h = 1: twiddle 1
+          const int i0 = padded(2 * b), i1 = padded(2 * b + 1);
+          const float ar = re_s[i0], ai = im_s[i0], br = re_s[i1], bi = im_s[i1];
+          re_s[i0] = ar + br;
+          im_s[i0] = ai + bi;
+          re_s[i1] = ar - br;
+          im_s[i1] = ai - bi;
+        }
+        h = 2;
+        __syncwarp();
+      }
+      for (; h < half; h <<= 2) {
+        for (int b = lane; b < half / 4; b += 32) {
+          const int p = b & (h - 1);
+          const int j0 = ((b - p) << 2) + p;
+          const int i0 = padded(j0), i1 = padded(j0 + h), i2 = padded(j0 + 2 * h),
+                    i3 = padded(j0 + 3 * h);
+          const float2 w1 = st_s[h - 1 + p];           // W_{2h}^p
+          const float2 w2 = st_s[2 * h - 1 + p];       // W_{4h}^p; W_{4h}^{p+h} = -i w2
+          float a0r = re_s[i0], a0i = im_s[i0], a1r = re_s[i1], a1i = im_s[i1];
+          float a2r = re_s[i2], a2i = im_s[i2], a3r = re_s[i3], a3i = im_s[i3];
+          float tr = a1r * w1.x - a1i * w1.y, ti = a1r * w1.y + a1i * w1.x;
+          a1r = a0r - tr; a1i = a0i - ti; a0r += tr; a0i += ti;
+          tr = a3r * w1.x - a3i * w1.y; ti = a3r * w1.y + a3i * w1.x;
+          a3r = a2r - tr; a3i = a2i - ti; a2r += tr; a2i += ti;
+          tr = a2r * w2.x - a2i * w2.y; ti = a2r * w2.y + a2i * w2.x;
+          re_s[i0] = a0r + tr; im_s[i0] = a0i + ti;
+          re_s[i2] = a0r - tr; im_s[i2] = a0i - ti;
+          const float w3x = w2.y, w3y = -w2.x;
+          tr = a3r * w3x - a3i * w3y; ti = a3r * w3y + a3i * w3x;
+          re_s[i1] = a1r + tr; im_s[i1] = a1i + ti;
+          re_s[i3] = a1r - tr; im_s[i3] = a1i - ti;
+        }
+        __syncwarp();
+      }
+
+      // ---- real split: X[k] = E[k] + W^k O[k], k = 0 .. half ---------------
+      for (int k = lane; k <= half; k += 32) {
+        const int k1 = padded(k & (half - 1)), k2 = padded((half - k) & (half - 1));
+        const float zr = re_s[k1], zi = im_s[k1];
+        const float cr = re_s[k2], ci = -im_s[k2];        // conj(Z[half - k])
+        const float er = 0.5f * (zr + cr), ei = 0.5f * (zi + ci);
+        const float orr = 0.5f * (zi - ci), oi = -0.5f * (zr - cr);   // (Z - Zc) / 2i
+        const float2 w = k < half ? tw_s[k] : make_float2(-1.f, 0.f);
+        const float xr = er + (orr * w.x - oi * w.y), xi = ei + (orr * w.y + oi * w.x);
+        pw_s[k] = (xr * xr + xi * xi) * inv_n;
+      }
+      __syncwarp();
     }
-    __syncwarp();
 
     // ---- mel over each filter's nonzero bins, floored log ---------------
     for (int m = lane; m < m_dim; m += 32) {
@@ -372,18 +440,24 @@ mfcc_fft_kernel(const float* __restrict__ frames, const float* __restrict__ wind
 // mode 0: GEMM (any NFFT), 1: FFT (NFFT a power of two, at least 4).  The
 // host's plan (kernels/mfcc_fused.py:launch_plan) gives warps, frames a
 // warp and the shared bytes; the entry refuses a plan whose bytes differ
-// from its own count.  Pointers a mode does not read may be null.
+// from its own count.  window64 [L] and twiddles64 [NFFT] (float64) are read
+// where NFFT < L (the folded path).  Pointers a mode does not read may be
+// null.
 extern "C" int mfcc_fused(const void* frames, const void* window, const void* dft_cos,
                           const void* dft_sin, const void* twiddles, const void* mel_rng,
                           const void* mel_w, const void* mel_fb_t, const void* dct_t,
-                          const void* lifter, void* out, int n, int l_dim, int n_fft,
+                          const void* lifter, const void* window64, const void* twiddles64,
+                          void* out, int n, int l_dim, int n_fft,
                           int m_dim, int c_dim, int n_mel_w, float log_floor,
                           int use_energy, int mode, int warps, int frames_per_warp,
                           int smem_bytes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int k_dim = n_fft / 2 + 1;
+  int fold_n = n_fft < l_dim ? n_fft : 0;
+  if (fold_n > 0 && (window64 == nullptr || twiddles64 == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (mode == 0) {
-    size_t smem = mfcc_fused_smem_bytes(k_dim, m_dim);
+    size_t smem = mfcc_fused_smem_bytes(k_dim, m_dim, fold_n);
     if ((size_t)smem_bytes != smem || warps != THREADS / 32 || frames_per_warp != ROWS_PER_WARP)
       return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
@@ -393,7 +467,8 @@ extern "C" int mfcc_fused(const void* frames, const void* window, const void* df
     mfcc_fused_kernel<<<blocks, THREADS, smem, st>>>(
         (const float*)frames, (const float*)window, (const float*)dft_cos,
         (const float*)dft_sin, (const float*)mel_fb_t, (const float*)dct_t,
-        (const float*)lifter, (float*)out, n, l_dim, k_dim, m_dim, c_dim, (float)n_fft,
+        (const float*)lifter, (const double*)window64, (const double2*)twiddles64,
+        (float*)out, n, l_dim, k_dim, m_dim, c_dim, (float)n_fft, fold_n,
         log_floor, use_energy);
     return (int)cudaGetLastError();
   }
@@ -403,7 +478,8 @@ extern "C" int mfcc_fused(const void* frames, const void* window, const void* df
   int half = n_fft / 2, log_half = 0;
   while ((1 << log_half) < half) ++log_half;
   size_t smem = sizeof(float) * (mfcc_fft_block_floats(half, l_dim, m_dim, c_dim, n_mel_w)
-                                 + warps * mfcc_fft_warp_floats(half, m_dim));
+                                 + warps * mfcc_fft_warp_floats(half, m_dim))
+                + sizeof(double) * (size_t)fold_n * warps;
   if ((size_t)smem_bytes != smem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       mfcc_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -413,7 +489,7 @@ extern "C" int mfcc_fused(const void* frames, const void* window, const void* df
   mfcc_fft_kernel<<<blocks, 32 * warps, smem, st>>>(
       (const float*)frames, (const float*)window, (const float2*)twiddles,
       (const int*)mel_rng, (const float*)mel_w, (const float*)dct_t, (const float*)lifter,
-      (float*)out, n, l_dim, log_half, m_dim, c_dim, n_mel_w, log_floor, use_energy,
-      frames_per_warp);
+      (const double*)window64, (const double2*)twiddles64, (float*)out, n, l_dim,
+      log_half, m_dim, c_dim, n_mel_w, log_floor, use_energy, frames_per_warp);
   return (int)cudaGetLastError();
 }

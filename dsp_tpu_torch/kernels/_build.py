@@ -45,8 +45,8 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     "dtw_banded": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _I, _F, _I, _I, _P), _I),
-    "mfcc_fused": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                    _I, _I, _F, _I, _I, _I, _I, _I, _P), _I),
+    "mfcc_fused": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _I, _I, _I, _F, _I, _I, _I, _I, _I, _P), _I),
     "spot_subseq": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
                     _I),
     "dtw_fused": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),

@@ -5,8 +5,9 @@ Port of ``dsp_tpu/kernels/mfcc_pallas.py`` (``mfcc_frames_pallas``,
 frames [N, L] to cepstra [N, n_mfcc] in one pass, in one of two modes that
 :func:`launch_plan` picks from the config: ``fft`` (a warp a frame, a
 radix-2 FFT in shared memory) where ``n_fft`` is a power of two and a
-frame's buffers fit a block, else ``gemm`` (the DFT as two GEMMs).  The
-source's header says what bounds each.  Pre-emphasis and framing stay
+frame's buffers fit a block, else ``gemm`` (the DFT as two GEMMs).  Where
+``n_fft`` is below the frame length both take the spectrum in float64
+(:func:`folded`).  The source's header says what bounds each.  Pre-emphasis and framing stay
 plain PyTorch, as in the JAX package.
 
 :func:`mfcc_frames_fused` takes CUDA tensors to the kernel and CPU tensors
@@ -45,22 +46,35 @@ def _round_up4(v: int) -> int:
     return (v + 3) & ~3
 
 
+def folded(cfg: FrontendConfig) -> bool:
+    """``n_fft`` below the frame length: the kernel's float64 folded path."""
+    return cfg.n_fft < cfg.frame_len
+
+
+def fold_smem_bytes(cfg: FrontendConfig, warps: int) -> int:
+    """Shared bytes of the folded path: a float64 buffer of ``n_fft`` points
+    a warp (none where ``n_fft`` is not below the frame length)."""
+    return 8 * cfg.n_fft * warps if folded(cfg) else 0
+
+
 def fft_smem_bytes(cfg: FrontendConfig, warps: int) -> int:
     """Shared bytes of an FFT-mode block (``csrc/mfcc_fused.cu``,
-    ``mfcc_fft_block_floats`` + warps x ``mfcc_fft_warp_floats``)."""
+    ``mfcc_fft_block_floats`` + warps x ``mfcc_fft_warp_floats``, and the
+    folded path's buffers)."""
     half, m, c = cfg.n_fft // 2, cfg.n_mels, cfg.n_mfcc
     block = 4 * half + _round_up4(cfg.frame_len) + m * c + c + mel_nnz(cfg) + 3 * m
     per_warp = 2 * (half + (half >> 5)) + half + 1 + m
-    return 4 * (block + warps * per_warp)
+    return 4 * (block + warps * per_warp) + fold_smem_bytes(cfg, warps)
 
 
 def gemm_smem_bytes(cfg: FrontendConfig) -> int:
     """Shared bytes of a GEMM-mode block (``mfcc_fused_smem_bytes``): 32
-    frames, 16-sample tiles, 288-bin passes."""
+    frames, 16-sample tiles, 288-bin passes, and the folded path's
+    buffers."""
     tm, kt, pass_ = 32, 16, 288
     n_pass = -(-cfg.n_bins // pass_)
-    return 4 * (tm * kt + 2 * kt * pass_ + tm * (n_pass * pass_ + 1)
-                + tm * cfg.n_mels + tm)
+    return (4 * (tm * kt + 2 * kt * pass_ + tm * (n_pass * pass_ + 1)
+                 + tm * cfg.n_mels + tm) + fold_smem_bytes(cfg, GEMM_WARPS))
 
 
 @functools.lru_cache(maxsize=32)
@@ -69,12 +83,9 @@ def launch_plan(cfg: FrontendConfig) -> Plan:
     ``cfg``: :func:`fft_plan` where it gives one, else :func:`gemm_plan`.
     Raises ``ValueError`` where neither mode's block fits.
 
-    Where ``n_fft < frame_len`` each point of the transform sums the
-    frame's samples folded onto it, and the quietest mel bands of speech
-    frames sit at float32 rounding noise in both modes and in the plain
-    version, each in its own order of summation: values past rtol/atol
-    1e-3 of the plain version remain in either mode (``chip_smoke.py``'s
-    ``mfcc`` sweep; an open fault, ``ROADMAP.md`` section 3)."""
+    Where ``n_fft < frame_len`` (:func:`folded`) either mode takes its
+    frames through the float64 folded path (``csrc/mfcc_fused.cu``), as the
+    plain version does (``ops/frontend.py:power_spectrum``)."""
     return fft_plan(cfg) or gemm_plan(cfg)
 
 
@@ -106,6 +117,14 @@ def fft_twiddles_np(n_fft: int) -> np.ndarray:
     """e^{-2 pi i k / n_fft} for k < n_fft/2 as float64 [n_fft/2, 2] (re, im)."""
     ang = 2.0 * np.pi * np.arange(n_fft // 2, dtype=np.float64) / n_fft
     return np.stack([np.cos(ang), -np.sin(ang)], axis=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def fold_twiddles(n_fft: int, device: str | torch.device = "cuda") -> torch.Tensor:
+    """The folded path's table: e^{-2 pi i m / n_fft} for m < n_fft as
+    float64 [n_fft, 2] (re, im) on ``device`` (cached)."""
+    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    return torch.as_tensor(np.stack([np.cos(ang), -np.sin(ang)], axis=-1), device=device)
 
 
 @functools.lru_cache(maxsize=16)
@@ -204,9 +223,12 @@ def mfcc_frames_fused(frames: torch.Tensor,
         ptrs = (mats.dft_cos.data_ptr(), mats.dft_sin.data_ptr(), None, None, None,
                 mats.mel_fb_t.data_ptr())
         n_mel_w = 0
+    fold = ((fe.fold_matrices(cfg, frames.device)[0].data_ptr(),
+             fold_twiddles(cfg.n_fft, frames.device).data_ptr())
+            if folded(cfg) else (None, None))
     _build.launch("mfcc_fused", frames.device, frames.data_ptr(),
                   mats.window.data_ptr(), *ptrs, mats.dct_t.data_ptr(),
-                  mats.lifter.data_ptr(), out.data_ptr(), n, cfg.frame_len,
+                  mats.lifter.data_ptr(), *fold, out.data_ptr(), n, cfg.frame_len,
                   cfg.n_fft, cfg.n_mels, cfg.n_mfcc, n_mel_w, float(cfg.log_floor),
                   int(cfg.use_energy), MODES[plan.mode], plan.warps,
                   plan.frames_per_warp, plan.smem_bytes)

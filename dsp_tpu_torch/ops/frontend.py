@@ -9,10 +9,12 @@ products:
       square+add -> power [*, K]
       @ mel_fb [K, M] -> log -> @ DCT [M, C] -> lifter
 
-The constant matrices are built in float64 numpy from the same formulas
-as ``dsp_tpu/golden/frontend.py`` (``hamming``, ``mel_filterbank``,
-``dct_matrix``, ``lifter_coeffs`` are copied here) and must equal
-``dsp_tpu.ops.frontend._matrices_np`` exactly (tests/test_torch_config.py).
+Where ``n_fft`` is below the frame length the window, fold and DFT run in
+float64 (:func:`power_spectrum`).  The constant matrices are built in
+float64 numpy from the same formulas as ``dsp_tpu/golden/frontend.py``
+(``hamming``, ``mel_filterbank``, ``dct_matrix``, ``lifter_coeffs`` are
+copied here) and must equal ``dsp_tpu.ops.frontend._matrices_np`` exactly
+(tests/test_torch_config.py).
 
 Every function takes tensors with the batch dimensions written out in
 front; the time axis is -2 for feature tensors and -1 for signals.
@@ -152,6 +154,40 @@ def power_spectrum_dft(wframes: torch.Tensor, mats: FrontendMatrices,
     return (re * re + im * im) / float(n_fft)
 
 
+@functools.lru_cache(maxsize=8)
+def fold_matrices(cfg: FrontendConfig, device: str | torch.device = "cuda"):
+    """float64 constants of the folded spectrum: the window [L] and one
+    period's DFT, cos / -sin [n_fft, K] (the first n_fft rows of
+    :func:`matrices_np`'s)."""
+    window, cos, sin = matrices_np(cfg)[:3]
+    return tuple(torch.as_tensor(np.ascontiguousarray(m), dtype=torch.float64,
+                                 device=device)
+                 for m in (window, cos[:cfg.n_fft], sin[:cfg.n_fft]))
+
+
+def power_spectrum(frames_: torch.Tensor, mats: FrontendMatrices,
+                   cfg: FrontendConfig) -> torch.Tensor:
+    """Frames [..., T, L] -> windowed power spectrum [..., T, K], in the
+    frames' dtype.
+
+    Where ``n_fft < L`` each point of the transform sums the samples folded
+    onto it (the DFT matrix aliases sample n onto n mod n_fft), and the
+    quietest mel bands of speech frames, ~1e-7 of a frame's energy, sink to
+    float32 rounding in the fold and the transform.  There the window, the
+    fold and one period's DFT run in float64 and only the power returns to
+    the frames' dtype, as in the fused kernel's folded path
+    (``csrc/mfcc_fused.cu``); the JAX package keeps float32 there.
+    Otherwise: :func:`power_spectrum_dft`."""
+    length, n_fft = frames_.shape[-1], cfg.n_fft
+    if n_fft >= length:
+        return power_spectrum_dft(frames_ * mats.window, mats, n_fft)
+    window, cos, sin = fold_matrices(cfg, frames_.device)
+    wx = torch.nn.functional.pad(frames_.to(torch.float64) * window, (0, -length % n_fft))
+    folded = wx.reshape(*wx.shape[:-1], -1, n_fft).sum(dim=-2)
+    re, im = torch.matmul(folded, cos), torch.matmul(folded, sin)
+    return ((re * re + im * im) / float(n_fft)).to(frames_.dtype)
+
+
 def spectral_subtract(pspec: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """Berouti spectral subtraction on [..., T, K] power spectrograms.
 
@@ -196,8 +232,7 @@ def mfcc_from_frames(frames_: torch.Tensor, mats: FrontendMatrices,
     """Frames of the pre-emphasised signal [..., T, L] -> MFCC [..., T, C].
 
     The plain version of the fused MFCC kernel (kernels/mfcc_fused.py)."""
-    wframes = frames_ * mats.window
-    pspec = power_spectrum_dft(wframes, mats, cfg.n_fft)
+    pspec = power_spectrum(frames_, mats, cfg)
     if cfg.denoise == "spectral_subtraction":
         pspec = spectral_subtract(pspec, cfg)
     elif cfg.denoise is not None:

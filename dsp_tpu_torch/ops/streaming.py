@@ -194,7 +194,7 @@ def process_chunk_batch(state: StreamState, chunks: torch.Tensor,
         # the offline estimate (the k lowest-energy frames of the whole
         # recording) is non-causal; the carry sums the PSD of the VAD's
         # first n_init valid frames instead (count shared via n_noise)
-        pspec = fe.power_spectrum_dft(frames_y * mats.window, mats, fcfg.n_fft)
+        pspec = fe.power_spectrum(frames_y, mats, fcfg)
         vf = frame_valid.to(torch.float32)
         n_before = state.n_noise[:, None] + torch.cumsum(vf, dim=-1) - vf
         collect = vf * (n_before < vcfg.n_init).to(torch.float32)

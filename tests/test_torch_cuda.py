@@ -23,6 +23,10 @@ one add per cell).  Wavefront microbenchmark kernels (``mb_*``): equal bits
 to their plain versions (dp_diet: exact mins and one add a cell; anatomy:
 product and sum rounded apart, as the plain version rounds them; trivial,
 transpose and skew move values), the fetch's accumulator at rtol 1e-6.
+GMM-HMM (no kernel): one E-step on the card within 1e-2 of the CPU's
+(max |a - b| / (1 + |b|); chip_smoke.py's HMM_STEP_TOL), transition
+counts, decode paths and labels equal, scores on the same features and
+parameters at rtol 1e-5; the lattice loops never wait for the card.
 """
 
 import dataclasses
@@ -1130,3 +1134,69 @@ def test_spring_chunk_invariance_on_the_card(dev, f):
                                                 bank.cpu(), lens.cpu())
     torch.testing.assert_close(runs[0][0].cpu(), want_n[0], rtol=2e-5, atol=1e-6)
     assert torch.equal(runs[0][1].cpu(), want_s[0])
+
+
+def test_gmm_hmm_on_the_card_matches_the_cpu(dev):
+    """BASELINE config 3 at a small size: the card's fit against the CPU's
+    EM on the same features from the same draws (labels equal; one E-step
+    within chip_smoke.py's 1e-2 with equal transition counts), decode and
+    scores on the same parameters (paths equal, scores rtol 1e-5)."""
+    from dsp_tpu_torch import GmmHmmRecognizer
+    from dsp_tpu_torch.config import HmmConfig
+    from dsp_tpu_torch.models import gmm_hmm as pg
+
+    hmm = HmmConfig(n_states=4, n_mix=2, n_iter=3)
+    train = {w: [synth_word(w, i) for i in range(3)] for w in ("zero", "one", "two")}
+    rec = GmmHmmRecognizer(PipelineConfig(), hmm, device=dev)
+    rec.fit(train)
+    feats_w, lens_w = pg.stack_words([rec.extract(train[w]) for w in rec.labels], dev)
+    w, _, _, f = feats_w.shape
+    host = pg.fit_words_batched(feats_w.cpu(), lens_w.cpu(), pg.word_jitter(hmm, w, f, "cpu"),
+                                hmm)
+    p0 = pg.init_params(feats_w, lens_w, hmm, pg.word_jitter(hmm, w, f, dev))
+    s_card = pg.em_suff_stats(feats_w, lens_w, p0, hmm)
+    s_host = pg.em_suff_stats(feats_w.cpu(), lens_w.cpu(),
+                              pg.HmmParams(*(a.cpu() for a in p0)), hmm)
+    for name in ("stay_cnt", "trans_cnt"):
+        assert torch.equal(getattr(s_card, name).cpu(), getattr(s_host, name))
+    for name in ("tot", "sx", "sxx", "loglik"):
+        a, b = getattr(s_card, name).cpu().double(), getattr(s_host, name).double()
+        assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-2, name
+
+    queries = [synth_word(wd, 50 + i) for wd in ("zero", "one", "two") for i in range(2)]
+    feats = rec.extract(queries)
+    got = pg.score_words(feats.feats, feats.length, rec.params)
+    want = pg.score_words(feats.feats.cpu(), feats.length.cpu(),
+                          pg.HmmParams(*(a.cpu() for a in rec.params)))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+    cpu_rec = GmmHmmRecognizer(PipelineConfig(), hmm, device="cpu")
+    cpu_rec.labels, cpu_rec.params = rec.labels, host
+    assert rec.classify_batch(queries) == cpu_rec.classify_batch(queries)
+
+    logb = torch.logsumexp(pg._mixture_loglik(feats_w, rec.params), dim=-1)
+    _, paths = pg.viterbi_decode(rec.params.log_pi[..., None, :],
+                                 rec.params.log_a[..., None, :, :], logb, lens_w)
+    _, h_paths = pg.viterbi_decode(rec.params.log_pi.cpu()[..., None, :],
+                                   rec.params.log_a.cpu()[..., None, :, :], logb.cpu(),
+                                   lens_w.cpu())
+    assert torch.equal(paths.cpu(), h_paths)
+
+
+def test_hmm_lattice_loops_never_wait_for_the_card(dev):
+    from dsp_tpu_torch.models import gmm_hmm as pg
+    from dsp_tpu_torch.ops import viterbi as tvit
+
+    rng = np.random.default_rng(0)
+    log_b = torch.from_numpy(rng.standard_normal((6, 40, 4)).astype(np.float32)).to(dev)
+    log_pi = torch.log_softmax(torch.randn(4, device=dev), -1)
+    log_a = torch.log_softmax(torch.randn(4, 4, device=dev), -1)
+    lengths = torch.tensor([40, 1, 7, 39, 20, 3], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tvit.viterbi_score(log_pi, log_a, log_b.transpose(0, 1).contiguous(), lengths)
+        tvit.forward_score(log_pi, log_a, log_b.transpose(0, 1).contiguous(), lengths)
+        tvit.viterbi_decode(log_pi, log_a, log_b, lengths)
+        pg._forward_backward(log_pi, log_a, log_b, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
