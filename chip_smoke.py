@@ -195,6 +195,52 @@ each of which raises on failure (non-zero exit):
              ``score_words``) and the device ops and device time of one
              ``score_words`` and one ``fit_words_batched`` under
              ``torch.profiler``.
+14. cascade — the HMM and cascade keyword spotters (ROADMAP item 12b) on
+             a default ``HmmConfig`` model fitted on the card (10 digits x
+             10), carried to a CPU recognizer through ``params_to_numpy``.
+             ``HmmSpotter.scores`` at bench_all.py's spot-hmm cell (64
+             streams of 3 connected digits zero-padded to 96,000 samples,
+             598 frames) against the CPU: where the entry witnesses agree,
+             LLRs within HMM_SPOT_LLR_TOL; where they differ, the best-path
+             log-liks within 1e-4 relative (near-ties) at under 0.1 % of the
+             sites; ``spot`` events at the LLR floor -30 equal except in
+             streams with such a tie.  Prints
+             hmm_spotting_audio_seconds_per_sec (the clips' unpadded audio s,
+             as bench_all.py's ``clens``, over the median of 3 synchronized
+             ``scores`` passes) and one pass's device ops and device time
+             under ``torch.profiler``.  ``StreamingHmmSpotter`` over 4 of
+             phase spotter's streams against the card's offline spotter by
+             JAX's rule (tests/test_spot_hmm.py:238-246: labels in order,
+             spans within 2 frames, scores rtol 1e-3 / atol 2e-3), ms a
+             chunk.  ``CascadeSpotter`` with phase spotter's bank (zero to
+             four x 20, calibrated threshold) over its 64 streams: kernel
+             3's count reset just before ``spot`` and read just after (> 0,
+             no other kernel); the window batches that pass hands to
+             ``rerank_windows`` are kept, and kernel 3 on each whole batch is
+             held against the plain scan (in slices under
+             ``_COST_BUDGET_ELEMS``) by ``compare_spot`` at rtol 1e-4
+             (identical BIG pattern, witnesses equal except at near-ties);
+             ``rescored`` on 8 streams against the CPU cascade (the plain
+             scan on the CPU's own features): equal labels and spans,
+             scores rtol 2e-4, except in streams whose stage-1 events differ
+             between the devices or with a rerank near-tie (picks within
+             1e-4); keyword hit rate, false alarms,
+             cascade_audio_seconds_per_sec (median of 3 ``spot`` passes) and
+             one pass by stage, timed around the calls ``rescored`` makes
+             (``_candidates``: features, stage-1 scan, events, window cut;
+             ``_rescore``: the rerank through kernel 3; suppression), with
+             ``HmmSpotter.scores`` on the same streams timed alone beside
+             it.  ``StreamingCascadeSpotter`` over 4 streams, with that bank
+             and with one enrolled at ``add_deltas=False`` (where the JAX
+             package's clamped readiness check reranks windows cut short):
+             on every stream against the same spotter on the CPU (labels
+             and spans equal, scores rtol 2e-4) unless the two devices'
+             streaming stage-1 landmarks part, and against the card's
+             offline cascade (labels in order, spans within 3 frames) where
+             the streaming stage-1 landmarks meet the offline ones.  Kernel
+             3's launches here join phase spotter's in the kernel table, and
+             its error there is the larger of phase spot's and the rerank
+             windows'.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -317,6 +363,24 @@ HMM_NOISE_SIGMA = 0.05      # tests/test_noise_adapt.py:59's mismatch
 # transition counts, whole fits 2.6e-2 (segmental) and 1.5e-1 (Baum-Welch)
 HMM_STEP_TOL = 1e-2         # one segmental E-step from the same parameters
 HMM_FIT_SPREAD = 0.5        # whole fits: a bound on gross breaks; labels are the check
+# phase cascade (ROADMAP item 12b) on phase hmm's model (default HmmConfig,
+# 10 digits x HMM_TRAIN_PER_WORD).  HmmSpotter at bench_all.py:244-264's
+# spot-hmm cell: 64 streams of 3 connected digits (bench_all.py:170-180),
+# zero-padded to 96,000 samples, 598 frames
+HMM_SPOT_STREAMS = 64
+HMM_SPOT_SAMPLES = 96_000
+# card against CPU where the entry witnesses agree: per-frame LLRs, whose
+# readout subtracts two float32 UBM prefix sums after features that part by
+# ~1e-4.  Measured by this phase on an H100 (700 W): max abs err 2.9e-3
+# (8.1e-4 relative at the worst site), no witness flip in 382,720 sites
+HMM_SPOT_LLR_TOL = dict(rtol=1e-3, atol=1e-2)
+# the LLR floor of the event comparisons (tests/test_spot_hmm.py:223's): at
+# the default 0.0 this model's LLRs, which a 3-mixture UBM beats on most
+# frames, give one event in 16 streams
+HMM_SPOT_THRESHOLD = -30.0
+CASCADE_CPU_STREAMS = 8     # of phase spotter's 64 streams, against the CPU cascade:
+                            # its plain scan of the rerank windows takes seconds a stream
+CASCADE_PASSES = 3
 
 
 def fail(msg: str):
@@ -777,9 +841,9 @@ def main_phase(dev, report):
     return out["fused"]["launches"]
 
 
-def compare_spot(got, want, s_lens, b_lens, what: str) -> dict:
+def compare_spot(got, want, s_lens, b_lens, what: str, rtol: float = 2e-4) -> dict:
     """Tie-aware comparison of two (norm [B,K,U], start [B,K,U]) fields
-    (numpy): identical BIG pattern; norms at rtol 2e-4 where the witnesses
+    (numpy): identical BIG pattern; norms at ``rtol`` where the witnesses
     agree; raw costs at 1e-4 where they differ, at under 0.1% of the valid
     (stream, template, end column) sites."""
     import numpy as np
@@ -796,7 +860,7 @@ def compare_spot(got, want, s_lens, b_lens, what: str) -> dict:
     agree, flip = valid & (gs == ws), valid & (gs != ws)
     abs_err = np.abs(gn - wn)[agree]
     rel = abs_err / np.maximum(np.abs(wn[agree]), 1e-30)
-    if ((abs_err > 2e-4 * np.abs(wn[agree]) + 1e-5)).any():
+    if ((abs_err > rtol * np.abs(wn[agree]) + 1e-5)).any():
         fail(f"{what}: norms differ where the witnesses agree: max rel err {rel.max():.3e}")
     tl = np.maximum(np.asarray(b_lens), 1).astype(np.float64)[None, :, None]
     raw_g, raw_w = gn * (tl + j - gs + 1), wn * (tl + j - ws + 1)
@@ -1583,6 +1647,395 @@ def hmm_phase(seed: int, dev, report) -> int:
     return n_mfcc
 
 
+def hmm_raw_scores(llr, start, ubm_ll):
+    """The best-path log-liks behind LLR fields [B, W, U] (numpy): llr x span
+    plus the UBM log-lik over the span, in float64."""
+    import numpy as np
+
+    b, w, u = llr.shape
+    p = np.concatenate([np.zeros((b, 1)), np.cumsum(ubm_ll.astype(np.float64), axis=1)], axis=1)
+    p_w = np.broadcast_to(p[:, None, :], (b, w, u + 1))
+    ubm_span = p_w[..., 1:] - np.take_along_axis(p_w, start.astype(np.int64), axis=2)
+    return llr.astype(np.float64) * (np.arange(u) - start + 1) + ubm_span
+
+
+def compare_hmm_fields(spotter, host, sigs, what: str):
+    """Card against CPU ``HmmSpotter.scores`` on the same signals: where the
+    entry witnesses agree, LLRs within HMM_SPOT_LLR_TOL; where they differ,
+    the best-path log-liks within 1e-4 relative (near-ties) at under 0.1 %
+    of the sites.  Returns (card fields, stats, streams with a flip)."""
+    import numpy as np
+
+    from dsp_tpu_torch import pipeline as pl
+    from dsp_tpu_torch.ops import spot_hmm as tsh
+
+    fields = []
+    for sp_ in (spotter, host):
+        llr, start = (np.stack(a) for a in zip(*sp_.scores(sigs)))
+        f = sp_.cfg.frontend
+        x, n = pl.pad_signals(sigs, HMM_SPOT_SAMPLES, sp_.rec.device)
+        feats = pl.extract_recording_features(
+            x, n, sp_.cfg, 1 + (HMM_SPOT_SAMPLES - f.frame_len) // f.hop_len)
+        ubm_ll = tsh._ubm_loglik(feats.feats, sp_.rec.ubm).cpu().numpy()
+        fields.append((llr, start, hmm_raw_scores(llr, start, ubm_ll)))
+    (gl, gs, gv), (wl, ws, wv) = fields
+    if gl.shape != wl.shape or not np.isfinite(gl).all():
+        fail(f"{what}: LLR fields {gl.shape} vs {wl.shape}, finite {np.isfinite(gl).all()}")
+    agree, flip = gs == ws, gs != ws
+    err = np.abs(gl - wl)[agree]
+    tol = HMM_SPOT_LLR_TOL["atol"] + HMM_SPOT_LLR_TOL["rtol"] * np.abs(wl[agree])
+    if (err > tol).any():
+        fail(f"{what}: LLRs differ where the witnesses agree: max abs err {err.max():.3e}")
+    raw_rel = np.abs(gv - wv)[flip] / np.abs(wv[flip])
+    if (raw_rel > 1e-4).any():
+        fail(f"{what}: witnesses differ at {int(flip.sum())} sites, best paths up to "
+             f"{raw_rel.max():.3e} apart (not near-ties)")
+    share = float(flip.sum() / flip.size)
+    if share >= 1e-3:
+        fail(f"{what}: witnesses differ at {share:.2e} of the sites (>= 0.1%)")
+    rel = err / np.maximum(np.abs(wl[agree]), 1e-30)
+    stats = dict(n_sites=int(flip.size), max_abs_err=float(err.max()),
+                 max_rel_err=float(rel.max()), witness_flips=int(flip.sum()),
+                 flip_share=share,
+                 max_raw_rel_at_flips=float(raw_rel.max()) if raw_rel.size else 0.0)
+    return (gl, gs), stats, set(np.nonzero(flip.any(axis=(1, 2)))[0].tolist())
+
+
+def same_hmm_events(got, want) -> bool:
+    """Labels and spans equal, LLR scores within HMM_SPOT_LLR_TOL."""
+    return [ev[:3] for ev in got] == [ev[:3] for ev in want] and all(
+        abs(g[3] - w[3]) <= HMM_SPOT_LLR_TOL["atol"] + HMM_SPOT_LLR_TOL["rtol"] * abs(w[3])
+        for g, w in zip(got, want))
+
+
+def near_spots(got, want, frames: int, score_tol=None) -> bool:
+    """JAX's streaming-against-offline rules (tests/test_spot_hmm.py:238-246,
+    tests/test_cascade_spot.py): labels equal in order, spans within
+    ``frames``, scores within ``score_tol`` = (rtol, atol) where given."""
+    return [ev[0] for ev in got] == [ev[0] for ev in want] and all(
+        abs(g[1] - w[1]) <= frames and abs(g[2] - w[2]) <= frames
+        and (score_tol is None or abs(g[3] - w[3]) <= score_tol[1] + score_tol[0] * abs(w[3]))
+        for g, w in zip(got, want))
+
+
+def cascade_stage_ms(cas, signals, reps: int = 3) -> dict:
+    """Host-clock ms of the stages of one ``CascadeSpotter.spot`` pass, each
+    ended by a synchronize (median of ``reps``), timed around the calls that
+    ``rescored`` makes: candidates (``_candidates``: the scoring models,
+    whole-recording features, the stage-1 scan and its fields back to the
+    host, event extraction, the window cut), rerank (``_rescore``: windows
+    padded into one batch and copied, kernel 3 with the argmin on the card,
+    four numbers a window back) and the threshold filter with suppression
+    (host), as ``spot`` runs it."""
+    import torch
+
+    keys = ("candidates", "rerank", "suppress")
+    times = {k: [] for k in keys}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wins, owners = cas._candidates(signals)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pairs = cas._rescore(wins, owners)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = [[] for _ in signals]
+        for i, ev in pairs:
+            out[i].append(ev)
+        for evs in out:
+            cas.suppress([ev for ev in evs if ev[3] < cas.threshold])
+        t3 = time.perf_counter()
+        for key, lo, hi in zip(keys, (t0, t1, t2), (t1, t2, t3)):
+            times[key].append((hi - lo) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def rerank_batches_vs_plain(batches) -> dict:
+    """Kernel 3 against its plain version on the window batches a cascade
+    handed to ``rerank_windows``: the kernel on each whole batch, as the
+    rerank launched it; the plain scan in slices of at most
+    ``_COST_BUDGET_ELEMS`` cost cells; ``compare_spot`` at rtol 1e-4 over
+    every row (the padding rows too)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.models.spotter import _COST_BUDGET_ELEMS
+    from dsp_tpu_torch.ops.spot import subseq_dtw_batch
+
+    got, want, lens = [], [], []
+    for wins, win_lens, bank, bank_lens, squared in batches:
+        n, w, _ = wins.shape
+        k, t, _ = bank.shape
+        fused = subseq_dtw_batch(wins, win_lens, bank, bank_lens, squared=squared,
+                                 impl="fused")
+        torch.cuda.synchronize()
+        got.append([a.cpu().numpy() for a in fused])
+        step = max(1, _COST_BUDGET_ELEMS // (k * t * w))
+        plain = [subseq_dtw_batch(wins[lo:lo + step], win_lens[lo:lo + step], bank,
+                                  bank_lens, squared=squared, impl="scan")
+                 for lo in range(0, n, step)]
+        want.append([torch.cat(a).cpu().numpy() for a in zip(*plain)])
+        lens.append(win_lens.cpu().numpy())
+    b_lens = batches[0][3].cpu().numpy()
+    cmp = compare_spot([np.concatenate(a) for a in zip(*got)],
+                       [np.concatenate(a) for a in zip(*want)], np.concatenate(lens),
+                       b_lens, "cascade rerank windows", rtol=1e-4)
+    return dict(shape=[sum(len(x) for x in lens), *batches[0][2].shape[:2],
+                       batches[0][0].shape[1]], batches=len(batches), **cmp)
+
+
+def cascade_phase(seed: int, dev, report) -> int:
+    """Phase cascade (ROADMAP item 12b): the HMM and cascade spotters at full
+    width on the card against the CPU; returns kernel 3's launches in the
+    cascade's spot pass."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import GmmHmmRecognizer, KeywordSpotter, KnnDtwRecognizer
+    from dsp_tpu_torch.config import FrontendConfig, HmmConfig, PipelineConfig
+    from dsp_tpu_torch.io import DIGITS, synth_connected, synth_spotting_stream, synth_word
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.models import (CascadeSpotter, HmmSpotter, StreamingCascadeSpotter,
+                                      StreamingHmmSpotter)
+    from dsp_tpu_torch.models import gmm_hmm as pg
+    from dsp_tpu_torch.ops import spot as sp_ops
+
+    out = report["cascade"]
+    smi = "; ".join(report["nvidia_smi"])
+    hmm = HmmConfig()
+    rec = GmmHmmRecognizer(PipelineConfig(), hmm, device=dev)
+    rec.fit({lab: [synth_word(lab, i) for i in range(HMM_TRAIN_PER_WORD)] for lab in DIGITS})
+    host = GmmHmmRecognizer(PipelineConfig(), hmm, device="cpu")
+    host.labels = rec.labels
+    host.params = pg.params_from_numpy(pg.params_to_numpy(rec.params), "cpu")
+    host.ubm = pg.ubm_from_numpy([a.cpu().numpy() for a in rec.ubm], "cpu")
+
+    # 1. HmmSpotter at the spot-hmm cell, card against CPU
+    sigs, clens = [], []
+    for i in range(HMM_SPOT_STREAMS):
+        x = synth_connected([DIGITS[(i + w) % 10] for w in range(3)], 300 + i)
+        pad = np.zeros(HMM_SPOT_SAMPLES, np.float32)
+        clens.append(min(len(x), HMM_SPOT_SAMPLES))
+        pad[:clens[-1]] = x[:clens[-1]]
+        sigs.append(pad)
+    spotter = HmmSpotter(rec, threshold=HMM_SPOT_THRESHOLD)
+    h_spotter = HmmSpotter(host, threshold=HMM_SPOT_THRESHOLD)
+    (llr, _), cmp, flip_streams = compare_hmm_fields(spotter, h_spotter, sigs,
+                                                     "HmmSpotter.scores")
+    events, h_events = spotter.spot(sigs), h_spotter.spot(sigs)
+    differ = [i for i, (a, b) in enumerate(zip(events, h_events)) if not same_hmm_events(a, b)]
+    if set(differ) - flip_streams:
+        fail(f"HmmSpotter events differ from the CPU's in streams "
+             f"{sorted(set(differ) - flip_streams)} with no witness near-tie")
+    passes = synced_ms(lambda: spotter.scores(sigs), CASCADE_PASSES)
+    # the clips' own lengths, as bench_all.py's clens: the zero padding
+    # gives every stream the same 598 frames of work but is not audio
+    audio_s = sum(clens) / rec.cfg.frontend.sample_rate
+    rate = audio_s / (statistics.median(passes) / 1e3)
+    ops, dev_ms = device_ops(lambda: spotter.scores(sigs))
+    n_events = sum(map(len, events))
+    print(f"cascade hmm spotter: {len(sigs)} streams x {llr.shape[-1]} frames x "
+          f"{llr.shape[1]} words (S={hmm.n_states}, M={hmm.n_mix}); against the CPU: "
+          f"witness flips {cmp['witness_flips']} of {cmp['n_sites']} (best paths within "
+          f"{cmp['max_raw_rel_at_flips']:.2e}), LLR max abs err {cmp['max_abs_err']:.3e} "
+          f"(rel {cmp['max_rel_err']:.3e}) where they agree; {n_events} events at threshold "
+          f"{spotter.threshold}, streams with other events {len(differ)}; "
+          f"hmm_spotting_audio_seconds_per_sec {rate:.1f} ({audio_s:.2f} s of audio, median "
+          f"{statistics.median(passes):.3f} ms of {CASCADE_PASSES} scores passes) on {smi}; "
+          f"one scores pass: {ops} device "
+          f"ops, {ms_text(dev_ms)} device time", flush=True)
+    out["hmm_spotter"] = dict(n_streams=len(sigs), frames=int(llr.shape[-1]), **cmp,
+                              n_events=n_events, streams_with_other_events=len(differ),
+                              audio_seconds=audio_s, pass_ms=passes,
+                              hmm_spotting_audio_seconds_per_sec=rate,
+                              device_ops=ops, device_ms=dev_ms)
+
+    # 2. StreamingHmmSpotter against the card's offline HmmSpotter
+    streams = [synth_spotting_stream(SPOT_KEYWORDS, DIGITS, seed * 1000 + i, n_words=8)
+               for i in range(SPOT_STREAMS)]
+    sp_sigs = [sig for sig, _ in streams]
+    few = sp_sigs[:STREAM_SPOTTER_STREAMS]
+    offline = spotter.spot(few)
+    chunk_ms, n_ev = [], 0
+    for i, sig in enumerate(few):
+        got, ms, _ = feed_stream(StreamingHmmSpotter(rec, chunk_len=STREAM_CHUNK,
+                                                     threshold=HMM_SPOT_THRESHOLD),
+                                 sig, STREAM_CHUNK, tail=True)
+        if not near_spots(got, offline[i], 2, (1e-3, 2e-3)):
+            fail(f"StreamingHmmSpotter stream {i}: {got} against offline {offline[i]}")
+        chunk_ms += ms
+        n_ev += len(got)
+    if n_ev == 0:
+        fail("StreamingHmmSpotter found no event to compare")
+    ms = statistics.median(chunk_ms)
+    print(f"cascade streaming hmm spotter: {len(few)} streams, {n_ev} events as the "
+          f"offline spotter's (labels, spans within 2 frames, scores rtol 1e-3 / atol 2e-3); "
+          f"{ms:.3f} ms a 100 ms chunk (median of {len(chunk_ms)} feeds)", flush=True)
+    out["streaming_hmm_spotter"] = dict(n_streams=len(few), events=n_ev, chunk_ms=ms)
+
+    # 3. CascadeSpotter with phase spotter's bank and streams; kernel 3 counted
+    bank = KnnDtwRecognizer(device=dev)
+    for lab in SPOT_KEYWORDS:
+        bank.enroll(lab, [synth_word(lab, i) for i in range(SPOT_TEMPLATES_PER_WORD)])
+    bank.spot_threshold = KeywordSpotter(bank).calibrate_threshold()
+    cas = CascadeSpotter(rec, bank)
+    cas.spot(sp_sigs[:2])
+    torch.cuda.synchronize()
+    # the counted pass also keeps the window batches the rerank hands to
+    # rerank_windows, to hold kernel 3 against its plain version on them
+    batches, rerank = [], sp_ops.rerank_windows
+
+    def recorded(wins, win_lens, mids, bank_feats, bank_lens, squared=False):
+        batches.append((wins, win_lens, bank_feats, bank_lens, squared))
+        return rerank(wins, win_lens, mids, bank_feats, bank_lens, squared=squared)
+
+    sp_ops.rerank_windows = recorded
+    try:
+        _build.reset_launches()
+        c_events = cas.spot(sp_sigs)
+        torch.cuda.synchronize()
+        launches = _build.LAUNCHES["spot_subseq"]
+    finally:
+        sp_ops.rerank_windows = rerank
+    others = {k: v for k, v in _build.LAUNCHES.items() if v and k != "spot_subseq"}
+    if launches == 0 or others or not batches:
+        fail(f"the cascade launched kernel 3 {launches} times and {others}, "
+             f"{len(batches)} rerank batches")
+    win_cmp = rerank_batches_vs_plain(batches)
+    del batches
+    print(f"cascade rerank windows: kernel 3 against its plain version on the "
+          f"{win_cmp['batches']} batches of the counted pass, [N, K, T, W] = "
+          f"{win_cmp['shape']}: flips {win_cmp['witness_flips']} ({win_cmp['flip_share']:.2e}), "
+          f"max abs err {win_cmp['max_abs_err']:.3e} (rel {win_cmp['max_rel_err']:.3e}) where "
+          f"the witnesses agree, identical BIG pattern", flush=True)
+    out["rerank_windows"] = win_cmp
+    h_bank = KnnDtwRecognizer.from_arrays(np.stack(bank._bank_feats), bank._bank_lens,
+                                          bank._bank_label_ids, bank.labels,
+                                          PipelineConfig(), device="cpu")
+    h_bank.spot_threshold = bank.spot_threshold
+    h_cas = CascadeSpotter(host, h_bank)
+    few = sp_sigs[:CASCADE_CPU_STREAMS]
+    resc, h_resc = cas.rescored(few), h_cas.rescored(few)
+    # stage 1's candidates on both devices: a stream whose events part
+    # (a witness near-tie moved a landmark) reranks other windows
+    s1_differ = {i for i, (a, b) in enumerate(zip(cas.stage1.spot(few), h_cas.stage1.spot(few)))
+                 if [ev[:3] for ev in a] != [ev[:3] for ev in b]}
+    rerank_ties = 0
+    for i, (a, b) in enumerate(zip(resc, h_resc)):
+        if [ev[:3] for ev in a] == [ev[:3] for ev in b] and all(
+                abs(x[3] - y[3]) <= 2e-4 * abs(y[3]) for x, y in zip(a, b)):
+            continue
+        # a rerank near-tie: two picks whose scores round apart
+        ties = len(a) == len(b) and all(abs(x[3] - y[3]) <= 1e-4 * abs(y[3])
+                                        for x, y in zip(a, b))
+        if not (ties or i in s1_differ):
+            fail(f"cascade stream {i}: rescored {a} against the CPU's {b}, with equal "
+                 "stage-1 events and no rerank near-tie")
+        rerank_ties += 1
+    hop = bank.cfg.frontend.hop_len
+    n_truth = hits = false_alarms = 0
+    for evs, (_, truth) in zip(c_events, streams):
+        spans = [(lab, s // hop, e // hop) for lab, s, e in truth]
+        n_truth += len(spans)
+        hits += sum(any(ev[0] == lab and s <= (ev[1] + ev[2]) / 2 <= e for ev in evs)
+                    for lab, s, e in spans)
+        false_alarms += sum(not any(ev[0] == lab and s <= (ev[1] + ev[2]) / 2 <= e
+                                    for lab, s, e in spans) for ev in evs)
+    if n_truth == 0 or hits == 0:
+        fail(f"the cascade found {hits} of {n_truth} keywords")
+    passes = synced_ms(lambda: cas.spot(sp_sigs), CASCADE_PASSES)
+    c_audio = sum(len(s) for s in sp_sigs) / bank.cfg.frontend.sample_rate
+    c_rate = c_audio / (statistics.median(passes) / 1e3)
+    stages = cascade_stage_ms(cas, sp_sigs)
+    # stage 1's own entry point on the same streams (not a part of the pass):
+    # the scoring models, features and the scan, fields back to the host
+    stages["hmm_scores_alone"] = statistics.median(
+        synced_ms(lambda: cas.stage1.scores(sp_sigs), CASCADE_PASSES))
+    n_wins = sum(map(len, cas.rescored(sp_sigs)))
+    print(f"cascade: K={bank.n_templates} streams={len(sp_sigs)} ({c_audio:.1f} s audio) "
+          f"threshold {cas.threshold:.4f}  kernel 3 launches {launches} for {n_wins} "
+          f"windows  keyword hits {hits}/{n_truth} ({hits / n_truth:.4f})  false alarms "
+          f"{false_alarms}; against the CPU cascade on {len(few)} streams: rescored equal "
+          f"except {rerank_ties} streams (stage-1 events differ in "
+          f"{len(s1_differ)}); cascade_audio_seconds_per_sec {c_rate:.1f} (median "
+          f"{statistics.median(passes):.3f} ms of {CASCADE_PASSES} spot passes) on {smi}; "
+          "one spot pass, ms: " + "  ".join(f"{k} {v:.2f}" for k, v in stages.items()),
+          flush=True)
+    out["cascade"] = dict(n_templates=bank.n_templates, n_streams=len(sp_sigs),
+                          audio_seconds=c_audio, threshold=cas.threshold, launches=launches,
+                          windows=n_wins, keyword_hits=hits, keywords=n_truth,
+                          hit_rate=hits / n_truth, false_alarms=false_alarms,
+                          cpu_streams=len(few), streams_at_near_ties=rerank_ties,
+                          stage1_differ_streams=len(s1_differ), pass_ms=passes,
+                          cascade_audio_seconds_per_sec=c_rate, stage_ms=stages)
+
+    # 4. StreamingCascadeSpotter on the card against the same spotter on the
+    # CPU (same parameters and bank) on every stream, and against the card's
+    # offline cascade; with the default bank and one enrolled at
+    # add_deltas=False (where the JAX package's clamped readiness check
+    # reranks windows cut short, ROADMAP.md section 3).  A stream whose
+    # streaming stage-1 landmarks part from the offline ones (the streaming
+    # spotter's abutting-match rule, the reference's design: a landmark
+    # within min_gap of a better later one is replaced online, kept offline)
+    # is held to the CPU only; one whose stage-1 landmarks part between the
+    # card and the CPU (a witness near-tie) is held to the offline cascade
+    # only
+    flat_cfg = PipelineConfig(frontend=FrontendConfig(add_deltas=False))
+    flat = KnnDtwRecognizer(flat_cfg, device=dev)
+    for lab in SPOT_KEYWORDS:
+        flat.enroll(lab, [synth_word(lab, i) for i in range(SPOT_TEMPLATES_PER_WORD)])
+    h_flat = KnnDtwRecognizer.from_arrays(np.stack(flat._bank_feats), flat._bank_lens,
+                                          flat._bank_label_ids, flat.labels, flat_cfg,
+                                          device="cpu")
+    few = sp_sigs[:STREAM_SPOTTER_STREAMS]
+    s1_off = cas.stage1.spot(few)
+    s1_parts, s1_cpu_parts = [], []
+    for i, sig in enumerate(few):
+        got, h_got = (feed_stream(StreamingHmmSpotter(r, STREAM_CHUNK, cas.hmm_threshold,
+                                                      min_gap=cas.stage1.min_gap),
+                                  sig, STREAM_CHUNK, tail=True)[0] for r in (rec, host))
+        if not near_spots(got, s1_off[i], 2):
+            s1_parts.append(i)
+        if [ev[:3] for ev in got] != [ev[:3] for ev in h_got]:
+            s1_cpu_parts.append(i)
+    for name, b, hb in (("default", bank, h_bank), ("add_deltas_false", flat, h_flat)):
+        offline = CascadeSpotter(rec, b)
+        want = offline.spot(few)
+        chunk_ms, n_ev, held, held_cpu = [], 0, 0, 0
+        for i, sig in enumerate(few):
+            got, ms, _ = feed_stream(StreamingCascadeSpotter(rec, b, chunk_len=STREAM_CHUNK),
+                                     sig, STREAM_CHUNK, tail=True)
+            h_got, _, _ = feed_stream(StreamingCascadeSpotter(host, hb, chunk_len=STREAM_CHUNK),
+                                      sig, STREAM_CHUNK, tail=True)
+            chunk_ms += ms
+            n_ev += len(got)
+            if i not in s1_cpu_parts:
+                if len(got) != len(h_got) or not near_spots(got, h_got, 0, (2e-4, 0.0)):
+                    fail(f"StreamingCascadeSpotter ({name} bank) stream {i}: card {got} "
+                         f"against the CPU's {h_got}")
+                held_cpu += 1
+            if i not in s1_parts:
+                if not near_spots(got, want[i], 3):
+                    fail(f"StreamingCascadeSpotter ({name} bank) stream {i}: {got} against "
+                         f"offline {want[i]}")
+                held += 1
+        if n_ev == 0:
+            fail(f"StreamingCascadeSpotter ({name} bank) gave no event to compare")
+        ms = statistics.median(chunk_ms)
+        print(f"cascade streaming ({name} bank, threshold {offline.threshold:.4f}): {n_ev} events "
+              f"in {len(few)} streams; equal to the CPU's streaming cascade in {held_cpu} "
+              f"(labels and spans, scores rtol 2e-4; streams {s1_cpu_parts} not held: their "
+              f"stage-1 landmarks part between the devices); as the offline cascade's in "
+              f"{held} (labels, spans within 3 frames; streams {s1_parts} not held: their "
+              f"stage-1 landmarks part online by the abutting-match rule); {ms:.3f} ms a 100 "
+              f"ms chunk (median of {len(chunk_ms)} feeds)", flush=True)
+        out[f"streaming_{name}"] = dict(n_streams=len(few), held_cpu=held_cpu, held=held,
+                                        events=n_ev, stage1_parting_streams=s1_parts,
+                                        stage1_cpu_parting_streams=s1_cpu_parts, chunk_ms=ms)
+    return launches
+
+
 def walk_counts(strips, cost_cells, lens_a, lens_b, pad_a: int, pad_b: int):
     """(costs computed, lane-steps) of kernel 4 or 3 for these lengths, from
     the walk its wrapper module states (``strips``, ``cost_cells``)."""
@@ -2159,7 +2612,7 @@ def main() -> int:
 
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
-              "streaming": {}, "hmm": {}, "nvidia_smi": smi}
+              "streaming": {}, "hmm": {}, "cascade": {}, "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
     mfcc_phase(dev, report)
@@ -2175,6 +2628,8 @@ def main() -> int:
     launches.update(mb_wavefront_phase(args.seed, dev, report))
     report["streaming"]["launches"] = streaming_phase(args.seed, dev, report)
     report["hmm"]["launches"] = {"mfcc_fused": hmm_phase(args.seed, dev, report)}
+    report["cascade"]["launches"] = {"spot_subseq": cascade_phase(args.seed, dev, report)}
+    launches["spot_subseq"] += report["cascade"]["launches"]["spot_subseq"]
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")
 
@@ -2197,8 +2652,13 @@ def main() -> int:
               "dsp_tpu/kernels/dtw_fused_banded.py:415", report["dtw"]["default"]),
         entry("mfcc_fused", "dsp_tpu_torch/csrc/mfcc_fused.cu",
               "dsp_tpu/kernels/mfcc_pallas.py:123", report["mfcc"]["default"]),
+        # kernel 3 launches in phases spotter and cascade: its error is the
+        # larger of phase spot's bench shape and the cascade's rerank windows
         entry("spot_subseq", "dsp_tpu_torch/csrc/spot_subseq.cu",
-              "dsp_tpu/kernels/spot_fused.py:231", report["spot"]["bench"]),
+              "dsp_tpu/kernels/spot_fused.py:231", dict(
+                  report["spot"]["bench"], max_abs_err=max(
+                      report["spot"]["bench"]["max_abs_err"],
+                      report["cascade"]["rerank_windows"]["max_abs_err"]))),
         entry("dtw_fused", "dsp_tpu_torch/csrc/dtw_fused.cu",
               "dsp_tpu/kernels/dtw_fused.py:191", report["fused"]["default"]),
         entry("dtw_wavefront", "dsp_tpu_torch/csrc/dtw_wavefront.cu",

@@ -8,7 +8,9 @@ path (the chunked streaming front-end with a causal VAD,
 ``StreamingRecognizer`` and the SPRING ``StreamingSpotter``), and the
 GMM-HMM recognizer (``GmmHmmRecognizer``: log-space Viterbi decode,
 segmental and Baum-Welch EM with a UBM and MAP adaptation, UBM-LLR
-rejection, PMC noise adaptation), with five
+rejection, PMC noise adaptation) with its keyword spotters
+(``HmmSpotter``, ``CascadeSpotter`` and their streaming forms, in
+``dsp_tpu_torch.models``), with five
 hand-written CUDA kernels for NVIDIA Hopper: banded DTW
 (``csrc/dtw_banded.cu``), the fused MFCC front-end (``csrc/mfcc_fused.cu``),
 subsequence DTW (``csrc/spot_subseq.cu``), unbanded closed-form DTW

@@ -15,8 +15,14 @@ route by its [B, K, T, U] cost.
 :class:`StreamingSpotter` searches raw audio chunks online: the causal
 front-end of ``ops/streaming.py``, the SPRING update of
 ``ops/spot.py:spot_chunk`` and a best-match hangover
-(:class:`_StreamingSpotterBase`).  The HMM and cascade spotters belong to
-later slices of the port.
+(:class:`_StreamingSpotterBase`).
+
+The GMM-HMM family spots through :class:`HmmSpotter` (the keyword/filler
+Viterbi of ``ops/spot_hmm.py`` against the recognizer's UBM) and its online
+form :class:`StreamingHmmSpotter`.  :class:`CascadeSpotter` takes the HMM
+spotter's landmarks as candidates and reranks each widened window against
+the template bank by subsequence DTW (``ops/spot.py:rerank_windows``, kernel
+3 on the card); :class:`StreamingCascadeSpotter` is its online form.
 """
 
 from __future__ import annotations
@@ -33,11 +39,19 @@ from dsp_tpu_torch.models.streaming import _np_deltas
 from dsp_tpu_torch.ops import frontend as fe
 from dsp_tpu_torch.ops import spot as sp
 from dsp_tpu_torch.ops import streaming as st
+from dsp_tpu_torch.ops.spot_hmm import spot_hmm_batch, spot_hmm_chunk, spot_hmm_init
 
 # cap on the [B, K, T, U] f32 cost of one plain-route call, and on the
 # [B, K, U] outputs of one kernel call (the JAX package's budgets)
 _COST_BUDGET_ELEMS = 64 * 1024 * 1024
 _OUT_BUDGET_ELEMS = 16 * 1024 * 1024
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
 
 # the 5-keyword-matrix threshold of the JAX package; decays at vocabulary
 # scale, which calibrate_threshold addresses
@@ -367,3 +381,499 @@ class StreamingSpotter(_StreamingSpotterBase):
 
     def _row_label(self, r: int) -> str:
         return self.rec.labels[int(self._ids[r])]
+
+
+def _require_filler(recognizer) -> None:
+    if recognizer.params is None:
+        raise ValueError("recognizer not fitted")
+    if getattr(recognizer, "ubm", None) is None:
+        raise ValueError("recognizer has no UBM filler model: fit() stores one "
+                         "(batched mode, the default); fit again or load a "
+                         "checkpoint that holds one")
+
+
+class StreamingHmmSpotter(_StreamingSpotterBase):
+    """Online HMM keyword/filler spotting: the frame-synchronous column
+    update of ``ops/spot_hmm.py:spot_hmm_chunk`` under the
+    :class:`_StreamingSpotterBase` contract.  The update carries the [W, S]
+    Viterbi front and, per path, the UBM prefix at its entry frame (the
+    streaming replacement for the offline readout's prefix lookup).  It is
+    invariant to chunk boundaries; witnesses equal the offline spotter's
+    and LLRs agree to emission-GEMM rounding.
+
+    ``threshold`` is the per-frame LLR floor (> 0 beats the filler), in
+    :class:`HmmSpotter`'s units; the confirmation logic minimises -LLR
+    inside.  ``min_gap`` widens the post-emit suppression as the offline
+    landmark extractor's margin does.  Needs a fitted recognizer with its
+    UBM (``fit`` stores one)."""
+
+    def __init__(self, recognizer, chunk_len: int = 1600,
+                 threshold: float = 0.0, hangover: int = 25,
+                 min_gap: int = 45):
+        _require_filler(recognizer)
+        self._params = recognizer.params
+        self._ubm = recognizer.ubm
+        self.min_gap = min_gap
+        super().__init__(recognizer, chunk_len, -threshold, hangover)
+
+    def _dp_reset(self) -> None:
+        w, s = self._params.log_pi.shape
+        self.dp = spot_hmm_init(w, s, self.rec.device)
+
+    def _dp_step(self, buf: np.ndarray, n_valid: int):
+        self.dp, llr, start = spot_hmm_chunk(
+            self.dp, torch.from_numpy(buf).to(self.rec.device), n_valid,
+            self._params, self._ubm)
+        return -llr.cpu().numpy(), start.cpu().numpy()
+
+    def _row_label(self, r: int) -> str:
+        return self.rec.labels[r]
+
+    @staticmethod
+    def _emit_score(sc: float) -> float:
+        return -sc          # back to LLR units (higher is better)
+
+
+def _check_frame_grid(hmm_recognizer, bank_recognizer) -> None:
+    fh, fb = hmm_recognizer.cfg.frontend, bank_recognizer.cfg.frontend
+    if (fh.sample_rate, fh.frame_len, fh.hop_len) != \
+            (fb.sample_rate, fb.frame_len, fb.hop_len):
+        raise ValueError(
+            "cascade stages must share a frame grid: hmm "
+            f"(sr={fh.sample_rate}, frame={fh.frame_len}, "
+            f"hop={fh.hop_len}) vs bank (sr={fb.sample_rate}, "
+            f"frame={fb.frame_len}, hop={fb.hop_len})")
+    if torch.device(hmm_recognizer.device) != torch.device(bank_recognizer.device):
+        raise ValueError("cascade stages must share a device: hmm on "
+                         f"{hmm_recognizer.device}, bank on {bank_recognizer.device}")
+
+
+def _rerank(wins, bank, squared: bool, n_rows: int):
+    """Stage 2 over host windows [(mid, rows [n, F])]: one padded
+    ``rerank_windows`` call a part of ``n_rows`` windows, each window
+    padded to a multiple of 32 frames.  Returns numpy (row, end, start,
+    score) per window."""
+    w_pad = -(-max(len(w) for _, w in wins) // 32) * 32
+    dev = bank.feats.device
+    outs = []
+    for base in range(0, len(wins), n_rows):
+        part = wins[base:base + n_rows]
+        x = np.zeros((n_rows, w_pad, part[0][1].shape[1]), np.float32)
+        lens = np.ones((n_rows,), np.int32)
+        mids = np.zeros((n_rows,), np.float32)
+        for n, (mid, w) in enumerate(part):
+            x[n, :len(w)] = w
+            lens[n] = len(w)
+            mids[n] = mid
+        # the rescore must contain the landmark midpoint: the window also
+        # covers neighbouring words, and an unconstrained argmin would
+        # elect a stronger neighbour, collapsing two occurrences into one
+        # after suppression
+        got = sp.rerank_windows(torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev),
+                                torch.from_numpy(mids).to(dev), bank.feats, bank.length,
+                                squared=squared)
+        outs.append([a.cpu().numpy()[:len(part)] for a in got])
+    return [np.concatenate(a) for a in zip(*outs)]
+
+
+class CascadeSpotter:
+    """Two-stage keyword spotting: HMM landmark scan, then an exact DTW
+    rerank.
+
+    * **Stage 1, candidates** (:class:`HmmSpotter` at a permissive LLR
+      floor): O(W·S) max-plus work a frame against the full-bank
+      subsequence DTW's O(K·U) cells.  Its labels are ignored: only the
+      landmark spans matter, so its cross-keyword confusions do not.
+    * **Stage 2, exact rerank**: each candidate span, widened by the
+      bank's longest template plus ``margin`` frames on each side, is cut
+      from the stream's features and matched against the whole bank by
+      subsequence DTW (``ops/spot.py:rerank_windows``, kernel 3 on the
+      card), the windows padded to a multiple of 32 frames and batched at
+      a power-of-two row count.  The best (template, end column) that
+      contains the landmark's midpoint relabels the candidate;
+      ``threshold`` is :class:`KeywordSpotter`'s span-normalised DTW
+      floor, so calibrations transfer.
+
+    Duplicate landmarks inside one occurrence rescore to overlapping DTW
+    spans and are suppressed best score first, which lets stage 1 run at
+    a smaller ``min_gap`` (``cand_min_gap``, 25) than the standalone HMM
+    spotter's 45.  Both recognizers must share a frame grid and a device;
+    feature configs may differ (each stage extracts its own).  Enroll a
+    ``cmn=False`` bank, as for :class:`KeywordSpotter`."""
+
+    def __init__(self, hmm_recognizer, bank_recognizer,
+                 threshold: float | None = None,
+                 hmm_threshold: float = -45.0,
+                 margin: int = 12, cand_min_gap: int = 25):
+        _check_frame_grid(hmm_recognizer, bank_recognizer)
+        self.stage1 = HmmSpotter(hmm_recognizer, threshold=hmm_threshold,
+                                 min_gap=cand_min_gap)
+        self.rec = bank_recognizer
+        self.threshold, self.threshold_source = resolve_spot_threshold(
+            bank_recognizer, threshold)
+        self.hmm_threshold = hmm_threshold
+        self.margin = margin
+        self.cfg = dataclasses.replace(bank_recognizer.cfg, use_vad=False)
+
+    def frame_to_seconds(self, frame: int) -> float:
+        f = self.cfg.frontend
+        return frame * f.hop_len / f.sample_rate
+
+    def rescored(self, signals):
+        """Stage-1 candidates rescored by the bank: per-stream lists of
+        ``(label, start_frame, end_frame, dtw_score)``, unfiltered and
+        unsuppressed (every candidate window yields its best bank match),
+        so a caller can sweep ``threshold`` without running either stage
+        again.  One front-end pass feeds both stages when their front-end
+        configs match."""
+        out = [[] for _ in signals]
+        for i, ev in self._rescore(*self._candidates(signals)):
+            out[i].append(ev)
+        return out
+
+    def _candidates(self, signals):
+        """Features, the stage-1 scan, its events and their widened windows:
+        ([(mid, rows [n, F])], [(stream, lo)]) on the host."""
+        wins, owners = [], []            # (mid, rows), (stream, lo)
+        if not len(signals):
+            return wins, owners
+        params, ubm = self.stage1.rec._scoring_models(signals)
+        same_fe = self.stage1.cfg.frontend == self.cfg.frontend
+        f = self.cfg.frontend
+        # a landmark is a few frames at a word's high-contrast core, so the
+        # whole occurrence can start up to about one template length before
+        # it and end as far after: extend by the longest template + margin
+        ext = int(self.rec.device_bank()[0].length.max()) + self.margin
+        for pad_len, idxs in pl.group_by_padded_len(signals, self.cfg.max_samples).items():
+            t_max = max(1, 1 + (pad_len - f.frame_len) // f.hop_len)
+            x, n = pl.pad_signals([signals[i] for i in idxs], pad_len, self.rec.device)
+            feats = pl.extract_recording_features(x, n, self.cfg, t_max)
+            s1 = feats if same_fe else pl.extract_recording_features(
+                x, n, self.stage1.cfg, t_max)
+            llr, start = spot_hmm_batch(s1.feats, s1.length, params, ubm)
+            llr, start = llr.cpu().numpy(), start.cpu().numpy()
+            fh, lens = feats.feats.cpu().numpy(), feats.length.cpu().numpy()
+            for row, i in enumerate(idxs):
+                t_i = int(lens[row])
+                evs = sp.extract_events(-llr[row, :, :t_i], start[row, :, :t_i],
+                                        -self.hmm_threshold,
+                                        min_gap=self.stage1.min_gap)
+                for _r, s, e, _neg in evs:
+                    lo = max(0, s - ext)
+                    hi = min(t_i, e + 1 + ext)
+                    if hi - lo >= 2:
+                        wins.append(((s + e) / 2.0 - lo, fh[row, lo:hi]))
+                        owners.append((i, lo))
+        return wins, owners
+
+    def _rescore(self, wins, owners):
+        """Stage 2 over :meth:`_candidates`' windows: (stream, event) pairs,
+        one a window that has a bank match containing its midpoint."""
+        if not wins:
+            return []
+        bank, ids = self.rec.device_bank()
+        ids = ids.cpu().numpy()
+        w_pad = -(-max(len(w) for _, w in wins) // 32) * 32
+        k, u_t = bank.feats.shape[0], bank.feats.shape[1]
+        if sp.production_impl(self.rec.device) == "fused":
+            # the kernel keeps no cost intermediate: its [N, K, W] outputs
+            # bound the batch
+            sub = max(1, _OUT_BUDGET_ELEMS // (k * w_pad))
+        else:
+            # the plain route's [n, K, T, W] cost; 8x the stream budget,
+            # since windows are short
+            sub = max(1, 8 * _COST_BUDGET_ELEMS // (k * u_t * w_pad))
+        # one padded row count: full parts share a shape, the tail pads up
+        n_rows = min(sub, _next_pow2(max(8, len(wins))))
+        r, j, s, score = _rerank(wins, bank, self.cfg.dtw.squared, n_rows)
+        return [(i, (self.rec.labels[int(ids[r[n]])], lo + int(s[n]), lo + int(j[n]),
+                     float(score[n])))
+                for n, (i, lo) in enumerate(owners) if score[n] < 0.5 * sp.BIG]
+
+    @staticmethod
+    def suppress(events):
+        """Greedy best-score-first overlap suppression (the rescored spans
+        are whole-word DTW spans, so plain overlap is the criterion)."""
+        kept = []
+        for lab, s, e, sc in sorted(events, key=lambda ev: ev[3]):
+            if all(e < ks or s > ke for _, ks, ke, _ in kept):
+                kept.append((lab, s, e, sc))
+        kept.sort(key=lambda ev: ev[1])
+        return kept
+
+    def spot(self, signals, threshold: float | None = None):
+        """Recordings -> [(label, start_frame, end_frame, score)] lists (DTW
+        span-normalised scores, :class:`KeywordSpotter`'s units)."""
+        thr = self.threshold if threshold is None else threshold
+        return [self.suppress([ev for ev in evs if ev[3] < thr])
+                for evs in self.rescored(signals)]
+
+
+class _CausalFeatureStream:
+    """The front-end half of :class:`_StreamingSpotterBase` with no DP: a
+    causal raw-cepstra history and windows cut on demand, so that the
+    streaming cascade reranks windows equal row for row to the offline
+    whole-recording features.
+
+    A [c, delta, delta-delta] row needs 2 * delta_width raw frames of
+    context on each side, so the rows of ``window(lo, hi)`` are final once
+    ``hi + 2w`` raw frames exist, or once the stream has ended (edge
+    replication at the true last frame, as offline)."""
+
+    def __init__(self, cfg, chunk_len: int, device):
+        self.cfg, self.chunk_len, self.device = cfg, chunk_len, device
+        f = cfg.frontend
+        self.mats = fe.make_matrices(f, device)
+        self._w = f.delta_width if f.add_deltas else 0
+        self.lag = 2 * self._w
+        self.reset()
+
+    def reset(self) -> None:
+        self.state = st.init_state(self.cfg.frontend, self.chunk_len, self.device)
+        self._frames: list[np.ndarray] = []
+        self._samples = 0
+
+    def ingest(self, chunk: np.ndarray, true_samples: int) -> None:
+        """One full chunk (zero-padded at flush; ``true_samples`` is the
+        unpadded count it advances the stream by)."""
+        f = self.cfg.frontend
+        self._samples += true_samples
+        x = torch.as_tensor(np.asarray(chunk, np.float32), device=self.device)
+        self.state, out = st.process_chunk(self.state, x, self.mats, f,
+                                           self.cfg.vad, self.chunk_len)
+        mfcc = out.mfcc.cpu().numpy()[out.frame_valid.cpu().numpy()]
+        base = len(self._frames)
+        keep = [i for i in range(len(mfcc))
+                if (base + i) * f.hop_len + f.frame_len <= self._samples]
+        self._frames.extend(mfcc[keep])
+
+    @property
+    def n_frames(self) -> int:
+        return len(self._frames)
+
+    def ready(self, hi: int, final: bool) -> bool:
+        """Are rows [.., hi) of ``window`` final yet?"""
+        return (hi + self.lag <= len(self._frames)) or \
+            (final and hi <= len(self._frames))
+
+    def window(self, lo: int, hi: int) -> np.ndarray:
+        """Rows [lo, hi) of the offline features over the whole stream."""
+        c_lo = max(0, lo - self.lag)
+        c_hi = min(hi + self.lag, len(self._frames))
+        ctx = np.stack(self._frames[c_lo:c_hi]).astype(np.float32)
+        if self._w == 0:
+            return ctx[lo - c_lo: hi - c_lo]
+        d1 = _np_deltas(ctx, self._w)
+        d2 = _np_deltas(d1, self._w)
+        rows = np.concatenate([ctx, d1, d2], axis=1)
+        return rows[lo - c_lo: hi - c_lo]
+
+
+class StreamingCascadeSpotter:
+    """Online two-stage spotting: :class:`StreamingHmmSpotter` landmarks
+    confirm online, and each confirmed candidate reranks against the
+    template bank (the constrained argmin of :class:`CascadeSpotter`) as
+    soon as its widened window's rows are final, so rescored whole-word
+    events emit with bounded lag:
+
+        lag <= stage-1 hangover + (longest template + margin) + 2w frames.
+
+    Offline and streaming agree on gap-separated keywords: stage 1's DP is
+    invariant to chunk boundaries, the rerank windows are the offline rows
+    (:class:`_CausalFeatureStream`), and the emission queue applies the
+    same greedy best-score-first overlap suppression locally (a pending
+    event emits once a later candidate starts after its end).
+
+    A candidate is ready on its whole window's end while the stream runs;
+    only at the end of the stream is that end clamped to the frames
+    received.  (The JAX package clamps it while the stream runs, so at
+    ``add_deltas=False`` it reranks windows cut short and parts from its
+    offline cascade.)
+
+    :class:`CascadeSpotter`'s envelope plus the streaming base's: a shared
+    frame grid and device, ``feature_type='mfcc'``, a ``cmn=False`` bank."""
+
+    def __init__(self, hmm_recognizer, bank_recognizer,
+                 chunk_len: int = 1600, threshold: float | None = None,
+                 hmm_threshold: float = -45.0, margin: int = 12,
+                 cand_min_gap: int = 25, hangover: int = 25):
+        _check_frame_grid(hmm_recognizer, bank_recognizer)
+        if bank_recognizer.cfg.frontend.cmn:
+            raise NotImplementedError(
+                "cmn is a whole-stream statistic; enroll a cmn=False "
+                "bank for streaming cascade spotting")
+        self.rec = bank_recognizer
+        self.cfg = dataclasses.replace(bank_recognizer.cfg, use_vad=False)
+        self.threshold, self.threshold_source = resolve_spot_threshold(
+            bank_recognizer, threshold)
+        self.margin = margin
+        self.chunk_len = chunk_len
+        self.stage1 = StreamingHmmSpotter(
+            hmm_recognizer, chunk_len, threshold=hmm_threshold,
+            hangover=hangover, min_gap=cand_min_gap)
+        bank, ids = bank_recognizer.device_bank()
+        self._bank, self._ids = bank, ids.cpu().numpy()
+        self._ext = int(bank.length.max()) + margin
+        self._feats = _CausalFeatureStream(self.cfg, chunk_len, bank_recognizer.device)
+        self.reset()
+
+    def reset(self) -> None:
+        self.stage1.reset()
+        self._feats.reset()
+        self._cands: list[tuple[int, float, int]] = []   # (lo, mid, hi)
+        self._pend_out = None          # rescored event awaiting suppression
+
+    def frame_to_seconds(self, frame: int) -> float:
+        f = self.cfg.frontend
+        return frame * f.hop_len / f.sample_rate
+
+    # ------------------------------------------------------------ internals
+    def _rerank_ready(self, final: bool):
+        """Rerank every queued candidate whose window rows are final;
+        returns rescored (label, s, e, score) events under the threshold."""
+        n_frames = self._feats.n_frames
+        # ready on the window's whole end; clamped only once the stream has
+        # ended, so no window is reranked cut short
+        ready = [c for c in self._cands
+                 if self._feats.ready(min(c[2], n_frames) if final else c[2], final)]
+        if not ready:
+            return []
+        self._cands = [c for c in self._cands if c not in ready]
+        wins, los = [], []
+        for lo, mid, hi in ready:
+            hi = min(hi, n_frames)
+            if hi - lo >= 2:
+                wins.append((mid, self._feats.window(lo, hi)))
+                los.append(lo)
+        if not wins:
+            return []
+        r, j, s, score = _rerank(wins, self._bank, self.cfg.dtw.squared,
+                                 _next_pow2(max(8, len(wins))))
+        out = []
+        for n, lo in enumerate(los):
+            if score[n] < min(self.threshold, 0.5 * sp.BIG):
+                out.append((self.rec.labels[int(self._ids[r[n]])],
+                            lo + int(s[n]), lo + int(j[n]), float(score[n])))
+        return out
+
+    def _suppressed(self, rescored, final: bool):
+        """Greedy suppression without retraction: a pending event emits once
+        a later candidate starts after its end; an overlapping better one
+        replaces it (:meth:`CascadeSpotter.suppress` for gap-separated
+        keywords)."""
+        events = []
+        for ev in sorted(rescored, key=lambda e: e[1]):
+            if self._pend_out is None:
+                self._pend_out = ev
+            elif ev[1] > self._pend_out[2]:
+                events.append(self._pend_out)
+                self._pend_out = ev
+            elif ev[3] < self._pend_out[3]:
+                self._pend_out = ev
+        if final and self._pend_out is not None:
+            events.append(self._pend_out)
+            self._pend_out = None
+        return events
+
+    def _emit_horizon(self):
+        """Bounded-lag release of the pending event: once the stage-1
+        frontier is a whole window extension + suppression gap past its
+        end, no candidate is queued, and stage 1 holds no pending match
+        that could rerank back into it, no later overlapping rescore can
+        arise for gap-separated keywords, so emit now instead of at the
+        next keyword or the flush."""
+        if self._pend_out is None or self._cands:
+            return []
+        horizon = self._ext + self.stage1.min_gap + self.stage1.hangover
+        s1p = self.stage1._pending
+        if (self.stage1._fed - self._pend_out[2] > horizon
+                and (s1p is None or s1p[1] - self._ext > self._pend_out[2])):
+            ev, self._pend_out = self._pend_out, None
+            return [ev]
+        return []
+
+    def _advance(self, s1_events, final: bool):
+        for _lab, s, e, _llr in s1_events:
+            lo = max(0, s - self._ext)
+            self._cands.append((lo, (s + e) / 2.0 - lo, e + 1 + self._ext))
+        events = self._suppressed(self._rerank_ready(final), final)
+        if not final:
+            events.extend(self._emit_horizon())
+        return events
+
+    # ------------------------------------------------------------ public
+    def feed(self, chunk: np.ndarray):
+        """One audio chunk -> confirmed rescored events ``(label,
+        start_frame, end_frame, dtw_score)``."""
+        if len(chunk) != self.chunk_len:
+            raise ValueError(f"chunk of {len(chunk)} samples, want {self.chunk_len}")
+        self._feats.ingest(chunk, len(chunk))
+        return self._advance(self.stage1.feed(chunk), final=False)
+
+    def flush(self, tail: np.ndarray | None = None):
+        """End of stream (an optional short last chunk): close stage 1,
+        rerank every remaining candidate, emit everything pending."""
+        if tail is not None and len(tail):
+            if len(tail) >= self.chunk_len:
+                raise ValueError(f"tail of {len(tail)} samples, want fewer "
+                                 f"than {self.chunk_len}")
+            buf = np.zeros(self.chunk_len, np.float32)
+            buf[: len(tail)] = tail
+            self._feats.ingest(buf, len(tail))
+        return self._advance(self.stage1.flush(tail), final=True)
+
+
+class HmmSpotter:
+    """HMM keyword spotting: open-endpoint Viterbi against the UBM filler.
+
+    Each trained word HMM may enter at any stream frame and exit at any
+    later frame; spans score by the per-frame Viterbi log-likelihood ratio
+    against the recognizer's universal background GMM
+    (``ops/spot_hmm.py``), so a fitted :class:`GmmHmmRecognizer` (which
+    stores its UBM) spots keywords with no extra training.  With the
+    recognizer's ``noise_adapt`` on, the word HMMs and the filler are
+    PMC-adapted together to the streams' noise floor.
+
+    ``threshold`` is the per-frame LLR floor: > 0 means the word HMM
+    explains the span better than the background model.  ``min_gap``
+    (frames) widens the landmark suppression: the LLR peaks on a word's
+    core, so a second landmark inside one occurrence may not literally
+    overlap the first (45 is the JAX package's best F1 on its spotting
+    matrix)."""
+
+    def __init__(self, recognizer, threshold: float = 0.0,
+                 min_gap: int = 45):
+        _require_filler(recognizer)
+        self.rec = recognizer
+        self.threshold = threshold
+        self.min_gap = min_gap
+        self.cfg = dataclasses.replace(recognizer.cfg, use_vad=False)
+
+    def scores(self, signals):
+        """Per-recording (llr [W, T_i], start [W, T_i]) numpy fields."""
+        if not len(signals):
+            return []
+        params, ubm = self.rec._scoring_models(signals)
+        f = self.cfg.frontend
+        results: dict = {}
+        for pad_len, idxs in pl.group_by_padded_len(signals, self.cfg.max_samples).items():
+            t_max = max(1, 1 + (pad_len - f.frame_len) // f.hop_len)
+            x, n = pl.pad_signals([signals[i] for i in idxs], pad_len, self.rec.device)
+            feats = pl.extract_recording_features(x, n, self.cfg, t_max)
+            llr, start = spot_hmm_batch(feats.feats, feats.length, params, ubm)
+            llr, start = llr.cpu().numpy(), start.cpu().numpy()
+            lens = feats.length.cpu().numpy()
+            for row, i in enumerate(idxs):
+                t_i = int(lens[row])
+                results[i] = (llr[row, :, :t_i], start[row, :, :t_i])
+        return [results[i] for i in range(len(signals))]
+
+    def spot(self, signals, threshold: float | None = None):
+        """Recordings -> [(label, start_frame, end_frame, llr)] lists."""
+        thr = self.threshold if threshold is None else threshold
+        out = []
+        for llr, start in self.scores(signals):
+            # extract_events minimises: negate the LLR field
+            evs = sp.extract_events(-llr, start, -thr, min_gap=self.min_gap)
+            out.append([(self.rec.labels[r], s, e, -neg) for r, s, e, neg in evs])
+        return out

@@ -27,6 +27,11 @@ GMM-HMM (no kernel): one E-step on the card within 1e-2 of the CPU's
 (max |a - b| / (1 + |b|); chip_smoke.py's HMM_STEP_TOL), transition
 counts, decode paths and labels equal, scores on the same features and
 parameters at rtol 1e-5; the lattice loops never wait for the card.
+HMM and cascade spotting (no kernel of their own; the cascade's rerank is
+kernel 3): the keyword/filler column update never waits for the card, its
+witnesses equal the CPU's and its LLRs agree at chip_smoke.py's
+HMM_SPOT_LLR_TOL; the cascade's rescored events equal the CPU's (scores
+rtol 2e-4) and the streaming cascade's the offline one's within 3 frames.
 """
 
 import dataclasses
@@ -1200,3 +1205,78 @@ def test_hmm_lattice_loops_never_wait_for_the_card(dev):
         pg._forward_backward(log_pi, log_a, log_b, lengths)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def _hmm_pair(dev):
+    """A small GMM-HMM fitted on the card, and a CPU recognizer on its
+    parameters and UBM."""
+    from dsp_tpu_torch import GmmHmmRecognizer
+    from dsp_tpu_torch.config import HmmConfig
+    from dsp_tpu_torch.models import gmm_hmm as pg
+
+    hmm = HmmConfig(n_states=4, n_mix=2, n_iter=3)
+    rec = GmmHmmRecognizer(PipelineConfig(), hmm, device=dev)
+    rec.fit({w: [synth_word(w, i) for i in range(3)] for w in ("zero", "one", "two")})
+    host = GmmHmmRecognizer(PipelineConfig(), hmm, device="cpu")
+    host.labels = rec.labels
+    host.params = pg.params_from_numpy(pg.params_to_numpy(rec.params), "cpu")
+    host.ubm = pg.ubm_from_numpy([a.cpu().numpy() for a in rec.ubm], "cpu")
+    return rec, host
+
+
+def test_spot_hmm_chunk_never_waits_for_the_card(dev):
+    """The keyword/filler column update on the card: no call waits for the
+    card (``n_valid`` an int tensor on the card, then an int); witnesses
+    equal to the CPU's on the same rows and parameters, LLRs at
+    chip_smoke.py's HMM_SPOT_LLR_TOL."""
+    from dsp_tpu_torch.ops import spot_hmm as tsh
+
+    rec, host = _hmm_pair(dev)
+    w, s = rec.params.log_pi.shape
+    rows = np.random.default_rng(0).normal(0.0, 3.0, (24, 39)).astype(np.float32)
+    buf = torch.from_numpy(rows).to(dev)
+    state = tsh.spot_hmm_init(w, s, dev)
+    n_valid = torch.tensor(20, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, llr, start = tsh.spot_hmm_chunk(state, buf, n_valid, rec.params, rec.ubm)
+        state, llr2, start2 = tsh.spot_hmm_chunk(state, buf, 7, rec.params, rec.ubm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = tsh.spot_hmm_init(w, s, "cpu")
+    for n, got_l, got_s in ((20, llr, start), (7, llr2, start2)):
+        ref, want_l, want_s = tsh.spot_hmm_chunk(ref, torch.from_numpy(rows), n,
+                                                 host.params, host.ubm)
+        assert torch.equal(got_s.cpu(), want_s)
+        torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-3, atol=1e-2)
+    assert int(state.n_fed) == 27
+
+
+def test_cascade_rerank_launches_kernel_3(dev):
+    """``CascadeSpotter`` on the card reranks through kernel 3 and gives the
+    CPU cascade's rescored events (labels and spans equal, scores rtol
+    2e-4, phase cascade's rule)."""
+    from dsp_tpu_torch.models import CascadeSpotter, StreamingCascadeSpotter
+
+    rec, host = _hmm_pair(dev)
+    bank = _small_bank(["zero", "one"], 3, dev)
+    bank_cpu = KnnDtwRecognizer.from_arrays(np.stack(bank._bank_feats), bank._bank_lens,
+                                            bank._bank_label_ids, bank.labels, PipelineConfig(),
+                                            device="cpu")
+    sig, _ = synth_spotting_stream(["zero", "one"], ["zero", "one", "two", "three", "four"],
+                                   seed=7, n_words=5)
+    before = _build.LAUNCHES["spot_subseq"]
+    got, = CascadeSpotter(rec, bank).rescored([sig])
+    assert _build.LAUNCHES["spot_subseq"] > before
+    want, = CascadeSpotter(host, bank_cpu).rescored([sig])
+    assert got and [ev[:3] for ev in got] == [ev[:3] for ev in want]
+    for g, w in zip(got, want):
+        assert g[3] == pytest.approx(w[3], rel=2e-4)
+    before = _build.LAUNCHES["spot_subseq"]
+    streamed = _feed_all(StreamingCascadeSpotter(rec, bank), sig, tail=True)
+    assert _build.LAUNCHES["spot_subseq"] > before
+    offline, = CascadeSpotter(rec, bank).spot([sig])
+    assert [ev[0] for ev in streamed] == [ev[0] for ev in offline]
+    for g, w in zip(streamed, offline):
+        assert abs(g[1] - w[1]) <= 3 and abs(g[2] - w[2]) <= 3
