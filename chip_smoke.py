@@ -241,6 +241,40 @@ each of which raises on failure (non-zero exit):
              3's launches here join phase spotter's in the kernel table, and
              its error there is the larger of phase spot's and the rerank
              windows'.
+15. connected — connected-word decoding (ROADMAP item 13) at
+             bench_all.py:167-214's cells: 64 recordings of 3 connected
+             digits (``synth_connected([DIGITS[(i + j) % 10] ...], 300 + i)``)
+             cut to 96,000 samples, the main phase's bank (10 digits x 10),
+             default ``PipelineConfig``.  (a) ``classify_connected(method=
+             "vad", max_segments=4)``: launch counts reset just before and
+             read just after (kernel 1 only, at least once); labels equal to
+             the ``DtwConfig(impl="scan")`` route's except where the plain
+             top-2 distances lie within 1e-4 relative; starts, ends and
+             segment counts integer-equal to a CPU run of the port; accuracy
+             against the truth; connected_words_per_sec_per_chip
+             (bench_all.py's: ``recognize_connected_batch`` on the padded
+             recordings on the card, median of 3 synchronized calls), with
+             its device ops and device time under ``torch.profiler``, and a
+             whole ``classify_connected`` pass.  (b) ``method="level"``,
+             ``max_levels=4``, ``word_penalty=0`` (no kernel may launch):
+             ``level_build``'s planes on the card's features against the
+             CPU's DP on 8 of the recordings (costs rtol 1e-4 with the BIG
+             pattern equal; words and starts may differ only at sites whose
+             costs agree, counted as near-ties; decoded sequences equal
+             except where their costs lie within 1e-4), accuracy,
+             level_building_words_per_sec_per_chip (``level_build`` on the
+             recordings' features, median of 3), its device ops, device
+             time and peak memory, and a whole pass.  (c) ``grammar=
+             Grammar.no_repeat(DIGITS)``: labels of 8 recordings equal to the
+             CPU's.  (d) a ``GmmHmmRecognizer`` fitted at the default
+             ``HmmConfig`` (10 digits x 10): ``vad`` and ``level`` labels of
+             8 recordings equal to a CPU run on the same parameters, pass
+             seconds and accuracy.  (e) ``StreamingConnectedRecognizer`` over
+             4 gapless 3-digit recordings in 100 ms chunks: events equal to
+             the card's offline ``method="level"`` decode, no kernel
+             launched, ms a chunk with and without the DP fed, and one
+             speech chunk's device ops and device time.  Kernel 1's launches
+             here join phase main's in the kernel table.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -381,6 +415,22 @@ HMM_SPOT_THRESHOLD = -30.0
 CASCADE_CPU_STREAMS = 8     # of phase spotter's 64 streams, against the CPU cascade:
                             # its plain scan of the rerank windows takes seconds a stream
 CASCADE_PASSES = 3
+# phase connected (ROADMAP item 13) at bench_all.py:167-214's cells: 64
+# recordings of 3 connected digits (synth_connected([DIGITS[(i + j) % 10]
+# for j in range(3)], 300 + i)) cut to 96,000 samples (598 frames), the
+# main phase's bank (10 digits x 10), max_segments = max_levels = 4
+CONN_RECORDINGS = 64
+CONN_WORDS = 3
+CONN_SAMPLES = 96_000
+CONN_MAX_SEGMENTS = 4
+CONN_CPU_RECORDINGS = 8     # of them against CPU runs of the port: its DP
+                            # loops take seconds a level there
+CONN_PASSES = 3
+CONN_STREAMS = 4            # gapless recordings through StreamingConnectedRecognizer
+CONN_PROFILED_CHUNK = 5     # the chunk of stream 0 run under the profiler (speech)
+# level-building planes, card against CPU on the same features: the cost
+# GEMM sums in another order on each device
+CONN_PLANE_RTOL = 1e-4
 
 
 def fail(msg: str):
@@ -2036,6 +2086,311 @@ def cascade_phase(seed: int, dev, report) -> int:
     return launches
 
 
+def connected_stage_ms(rec, clips, reps: int = 3) -> dict:
+    """Host-clock ms of each stage of one connected pass over ``clips``
+    padded to CONN_SAMPLES, each stage ended by a synchronize (median of
+    ``reps``).  VAD split: pad + copy, segment features (plain MFCC, the
+    splitter, the window gather), classify (kernel 1 + argmin), labels and
+    segments back with the host's label lists.  Level building: pad + copy,
+    whole-recording features, the DP, its planes back, the host backtrace."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import pipeline as pl
+    from dsp_tpu_torch.ops import level_building as lb
+
+    cfg, s_max = rec.cfg, CONN_MAX_SEGMENTS
+    f = cfg.frontend
+    t_max = 1 + (CONN_SAMPLES - f.frame_len) // f.hop_len
+    bank, ids = rec.device_bank()
+    times: dict = {}
+
+    def lap(key, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        times.setdefault(key, []).append((t1 - t0) * 1e3)
+        return t1
+
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x, n = pl.pad_signals(clips, CONN_SAMPLES, rec.device)
+        t = lap("vad_pad_h2d", t)
+        segs, starts, ends, n_segs = pl.extract_segments_features(x, n, cfg, s_max)
+        t = lap("vad_segments", t)
+        label_ids = pl.classify_features(pl._flat(segs), bank, ids, cfg=cfg)[0]
+        t = lap("vad_classify", t)
+        got = label_ids.cpu().reshape(len(clips), s_max)
+        n_host = n_segs.cpu().numpy()
+        starts.cpu(), ends.cpu()
+        [rec._ids_to_labels(got[b, :int(n_host[b])]) for b in range(len(clips))]
+        t = lap("vad_d2h_labels", t)
+        x, n = pl.pad_signals(clips, CONN_SAMPLES, rec.device)
+        t = lap("level_pad_h2d", t)
+        feats = pl.extract_recording_features(x, n, cfg, t_max)
+        t = lap("level_features", t)
+        planes = lb.level_build(feats.feats, feats.length, bank.feats, bank.length,
+                                s_max, 0.0, cfg.dtw.squared)
+        t = lap("level_dp", t)
+        planes = [p.cpu().numpy() for p in planes]
+        lens = feats.length.cpu().numpy()
+        t = lap("level_d2h", t)
+        [lb.backtrack(*(p[b] for p in planes), lens[b]) for b in range(len(clips))]
+        lap("level_backtrack", t)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def connected_phase(seed: int, dev, report) -> int:
+    """Phase connected: connected-word decoding (ROADMAP item 13) at full
+    width; returns kernel 1's launches in the counted VAD-split pass."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import GmmHmmRecognizer, KnnDtwRecognizer
+    from dsp_tpu_torch import pipeline as pl
+    from dsp_tpu_torch.config import DtwConfig, HmmConfig, PipelineConfig
+    from dsp_tpu_torch.io import DIGITS, synth_connected, synth_word
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.models import gmm_hmm as pg
+    from dsp_tpu_torch.models.streaming import StreamingConnectedRecognizer
+    from dsp_tpu_torch.ops import level_building as lb
+    from dsp_tpu_torch.ops.grammar import Grammar
+
+    out = report["connected"]
+    smi = "; ".join(report["nvidia_smi"])
+    cpu = torch.device("cpu")
+    cfg = PipelineConfig()
+    f = cfg.frontend
+    few, s_max = CONN_CPU_RECORDINGS, CONN_MAX_SEGMENTS
+    rec = KnnDtwRecognizer(cfg, device=dev)
+    for lab in DIGITS:
+        rec.enroll(lab, [synth_word(lab, i) for i in range(TEMPLATES_PER_WORD)])
+    arrays = (np.stack(rec._bank_feats), rec._bank_lens, rec._bank_label_ids, rec.labels)
+    plain = KnnDtwRecognizer.from_arrays(
+        *arrays, dataclasses.replace(cfg, dtw=DtwConfig(impl="scan")), device=dev)
+    host = KnnDtwRecognizer.from_arrays(*arrays, cfg, device=cpu)
+    bank, ids = rec.device_bank()
+    truth = [[DIGITS[(i + j) % 10] for j in range(CONN_WORDS)]
+             for i in range(CONN_RECORDINGS)]
+    clips = [synth_connected(w, 300 + i)[:CONN_SAMPLES] for i, w in enumerate(truth)]
+    n_words = CONN_RECORDINGS * CONN_WORDS
+
+    def accuracy(got, want=truth):
+        """(share of recordings decoded exactly, word accuracy 1 - edits / words)"""
+        edits = sum(pl.edit_distance(g, w) for g, w in zip(got, want))
+        return (float(np.mean([g == w for g, w in zip(got, want)])),
+                1.0 - edits / sum(len(w) for w in want))
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    # (a) the VAD split: one flat classify through kernel 1
+    _build.reset_launches()
+    (labels, starts, ends, n_segs), first_s = sync_s(
+        lambda: rec.classify_connected(clips, s_max, return_segments=True))
+    launches = dict(_build.LAUNCHES)
+    if launches["dtw_banded"] < 1 or sum(launches.values()) != launches["dtw_banded"]:
+        fail(f"connected vad: launches {launches}; expected kernel 1 only")
+    p_labels = plain.classify_connected(clips, s_max)
+    flat, _, _, _ = pl.segments_flat(clips, cfg, s_max, dev)
+    _, p_dists = pl.classify_features(flat, *plain.device_bank(), cfg=plain.cfg)
+    ties = near_ties(p_dists.cpu().numpy()).reshape(CONN_RECORDINGS, s_max)
+    vad_ties = 0
+    for b, (g, w) in enumerate(zip(labels, p_labels)):
+        if len(g) != len(w):
+            fail(f"connected vad: recording {b} has {len(g)} labels, plain {len(w)}")
+        for s_i, (x, y) in enumerate(zip(g, w)):
+            if x != y and not ties[b, s_i]:
+                fail(f"connected vad: recording {b} segment {s_i}: {x!r} against "
+                     f"the plain route's {y!r} outside a near-tie")
+            vad_ties += x != y
+    _, h_n, h_starts, h_ends = pl.segments_flat(clips, cfg, s_max, cpu)
+    for name, g, w in (("starts", starts, h_starts), ("ends", ends, h_ends),
+                       ("n_segs", n_segs, h_n)):
+        if not np.array_equal(g, w):
+            fail(f"connected vad: {name} differ from the CPU's")
+    x, n = pl.pad_signals(clips, CONN_SAMPLES, dev)
+
+    def vad_step():
+        return pl.recognize_connected_batch(x, n, bank, ids, n_labels=len(DIGITS),
+                                            cfg=cfg, max_segments=s_max)
+
+    vad_step()
+    vad_ms = statistics.median(synced_ms(vad_step, CONN_PASSES))
+    vad_ops, vad_dev_ms = device_ops(vad_step)
+    vad_pass = statistics.median(synced_ms(
+        lambda: rec.classify_connected(clips, s_max), CONN_PASSES))
+    exact, word_acc = accuracy(labels)
+    out["vad"] = dict(
+        launches=launches, first_pass_s=first_s, label_mismatches_at_near_ties=vad_ties,
+        segments=int(n_segs.sum()), recordings_exact=exact, word_accuracy=word_acc,
+        recognize_connected_batch_ms=vad_ms,
+        connected_words_per_sec_per_chip=n_words / (vad_ms / 1e3),
+        classify_connected_ms=vad_pass,
+        classify_connected_words_per_s=n_words / (vad_pass / 1e3),
+        device_ops=vad_ops, device_ms=vad_dev_ms,
+        busy_share=None if vad_dev_ms is None else vad_dev_ms / vad_ms)
+    print(f"connected vad: kernel 1 launches {launches['dtw_banded']}, "
+          f"{int(n_segs.sum())} segments, recordings exact {exact:.4f}, word accuracy "
+          f"{word_acc:.4f}, {vad_ties} labels apart from the plain route at near-ties, "
+          f"segments equal to the CPU's; recognize_connected_batch {vad_ms:.3f} ms "
+          f"(connected_words_per_sec_per_chip {n_words / (vad_ms / 1e3):.1f}), "
+          f"{vad_ops} device ops, device time {ms_text(vad_dev_ms)}; classify_connected "
+          f"{vad_pass:.3f} ms a pass ({n_words / (vad_pass / 1e3):.1f} words/s), on {smi}",
+          flush=True)
+
+    # (b) level building: plain PyTorch on the card, no kernel
+    _build.reset_launches()
+    (lv_labels, lv_costs), lv_first = sync_s(lambda: rec.classify_connected(
+        clips, s_max, method="level", return_segments=True))
+    if any(_build.LAUNCHES.values()):
+        fail(f"connected level: launched {dict(_build.LAUNCHES)}; level building has no kernel")
+    t_max = 1 + (CONN_SAMPLES - f.frame_len) // f.hop_len
+    feats = pl.extract_recording_features(x, n, cfg, t_max)
+
+    def dp():
+        return lb.level_build(feats.feats, feats.length, bank.feats, bank.length,
+                              s_max, 0.0, cfg.dtw.squared)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    planes = dp()
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    lv_ms = statistics.median(synced_ms(dp, CONN_PASSES))
+    lv_ops, lv_dev_ms = device_ops(dp)
+    lv_pass = statistics.median(synced_ms(
+        lambda: rec.classify_connected(clips, s_max, method="level"), CONN_PASSES))
+    h_planes = lb.level_build(feats.feats[:few].cpu(), feats.length[:few].cpu(),
+                              bank.feats.cpu(), bank.length.cpu(), s_max, 0.0,
+                              cfg.dtw.squared)
+    g_costs, g_words, g_starts = (p[:few].cpu().numpy() for p in planes)
+    w_costs, w_words, w_starts = (p.numpy() for p in h_planes)
+    live = w_costs < lb.BIG / 2
+    if not np.array_equal(g_costs < lb.BIG / 2, live):
+        fail("connected level: the planes' BIG pattern differs from the CPU's")
+    cost_err = float(np.max(np.abs(g_costs[live] - w_costs[live]) / np.abs(w_costs[live])))
+    if cost_err > CONN_PLANE_RTOL:
+        fail(f"connected level: costs {cost_err:.3e} relative from the CPU's")
+    # a site whose word or start differs while its cost agrees is a near-tie
+    plane_ties = int(((g_words != w_words) | (g_starts != w_starts))[live].sum())
+    lens = feats.length.cpu().numpy()
+    seq_ties = 0
+    for b in range(few):
+        g_seq, g_cost = lb.backtrack(g_costs[b], g_words[b], g_starts[b], lens[b])
+        w_seq, w_cost = lb.backtrack(w_costs[b], w_words[b], w_starts[b], lens[b])
+        if g_seq != w_seq:
+            if abs(g_cost - w_cost) > 1e-4 * abs(w_cost):
+                fail(f"connected level: recording {b} decodes to {g_seq}, the CPU to {w_seq}")
+            seq_ties += 1
+    exact_lv, word_acc_lv = accuracy(lv_labels)
+    out["level"] = dict(
+        first_pass_s=lv_first, recordings_exact=exact_lv, word_accuracy=word_acc_lv,
+        level_build_ms=lv_ms, level_building_words_per_sec_per_chip=n_words / (lv_ms / 1e3),
+        classify_connected_ms=lv_pass,
+        classify_connected_words_per_s=n_words / (lv_pass / 1e3),
+        device_ops=lv_ops, device_ms=lv_dev_ms,
+        busy_share=None if lv_dev_ms is None else lv_dev_ms / lv_ms,
+        peak_gb=peak_gb, cost_max_rel_err=cost_err, plane_sites=int(live.sum()),
+        plane_ties=plane_ties, sequence_ties=seq_ties)
+    print(f"connected level: recordings exact {exact_lv:.4f}, word accuracy "
+          f"{word_acc_lv:.4f}; planes of {few} recordings against the CPU: costs "
+          f"{cost_err:.3e} relative, {plane_ties} of {int(live.sum())} live sites apart "
+          f"at near-ties, {seq_ties} sequences apart at near-ties; level_build "
+          f"{lv_ms:.3f} ms (level_building_words_per_sec_per_chip "
+          f"{n_words / (lv_ms / 1e3):.1f}), {lv_ops} device ops, device time "
+          f"{ms_text(lv_dev_ms)}, peak {peak_gb:.3f} GB above the resident; "
+          f"classify_connected {lv_pass:.3f} ms a pass "
+          f"({n_words / (lv_pass / 1e3):.1f} words/s), on {smi}", flush=True)
+
+    stages = connected_stage_ms(rec, clips)
+    out["stage_ms"] = stages
+    print("connected one pass by stage, ms (median of 3): "
+          + "  ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+
+    # (c) a word-pair grammar (no immediate repeats) in the DP
+    grammar = Grammar.no_repeat(DIGITS)
+    gr_labels, gr_s = sync_s(lambda: rec.classify_connected(
+        clips, s_max, method="level", grammar=grammar))
+    h_gr = host.classify_connected(clips[:few], s_max, method="level", grammar=grammar)
+    if gr_labels[:few] != h_gr:
+        fail(f"connected grammar: {gr_labels[:few]} against the CPU's {h_gr}")
+    out["grammar"] = dict(seconds=gr_s, recordings_exact=accuracy(gr_labels)[0],
+                          word_accuracy=accuracy(gr_labels)[1])
+    print(f"connected grammar (no_repeat): {gr_s:.3f} s a pass, recordings exact "
+          f"{accuracy(gr_labels)[0]:.4f}, the first {few} equal to the CPU's", flush=True)
+
+    # (d) the GMM-HMM family at the default HmmConfig, on the same parameters
+    hmm = GmmHmmRecognizer(cfg, HmmConfig(), device=dev)
+    hmm.fit({lab: [synth_word(lab, i) for i in range(HMM_TRAIN_PER_WORD)] for lab in DIGITS})
+    hmm_host = GmmHmmRecognizer(cfg, HmmConfig(), device=cpu)
+    hmm_host.labels = hmm.labels
+    hmm_host.params = pg.params_from_numpy(pg.params_to_numpy(hmm.params), cpu)
+    hmm_host.ubm = pg.ubm_from_numpy([a.cpu().numpy() for a in hmm.ubm], cpu)
+    out["hmm"] = {}
+    for method in ("vad", "level"):
+        got, secs = sync_s(lambda: hmm.classify_connected(clips, s_max, method=method))
+        want = hmm_host.classify_connected(clips[:few], s_max, method=method)
+        if got[:few] != want:
+            fail(f"connected hmm {method}: {got[:few]} against the CPU's {want}")
+        exact_h, word_acc_h = accuracy(got)
+        out["hmm"][method] = dict(seconds=secs, recordings_exact=exact_h,
+                                  word_accuracy=word_acc_h)
+        print(f"connected hmm {method}: {secs:.3f} s a pass "
+              f"({n_words / secs:.1f} words/s), recordings exact {exact_h:.4f}, word "
+              f"accuracy {word_acc_h:.4f}, the first {few} equal to the CPU's", flush=True)
+
+    # (e) online gapless decoding, one [1, F] row a DP call
+    streams = [synth_connected([DIGITS[(i + j) % 10] for j in range(CONN_WORDS)], 400 + i,
+                               gap_ms=(0.0, 1.0), lead_ms=(120.0, 130.0))
+               for i in range(CONN_STREAMS)]
+    offline = rec.classify_connected(streams, s_max, method="level")
+    _build.reset_launches()
+    speech_ms, silence_ms, ops_chunk, dev_chunk = [], [], None, None
+    for i, sig in enumerate(streams):
+        sig = np.concatenate([sig, np.zeros((-len(sig)) % STREAM_CHUNK + 3 * STREAM_CHUNK,
+                                            np.float32)])
+        sc = StreamingConnectedRecognizer(rec, STREAM_CHUNK, max_levels=s_max)
+        events = []
+        for c, lo in enumerate(range(0, len(sig), STREAM_CHUNK)):
+            part = sig[lo:lo + STREAM_CHUNK]
+            fed = sc._utt["fed"] if sc._utt is not None else 0
+            if i == 0 and c == CONN_PROFILED_CHUNK:
+                ops_chunk, dev_chunk = device_ops(lambda: events.extend(sc.feed(part)))
+                continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = sc.feed(part)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            # the DP ran in this chunk: the open utterance took frames, or closed
+            dp_ran = bool(got) or (sc._utt is not None and sc._utt["fed"] > fed)
+            (speech_ms if dp_ran else silence_ms).append(ms)
+            events += got
+        events += sc.flush()
+        words = [w for ev in events for w in ev[0]]
+        if words != offline[i]:
+            fail(f"connected streaming: stream {i} gave {events}; offline level {offline[i]}")
+    if any(_build.LAUNCHES.values()):
+        fail(f"connected streaming: launched {dict(_build.LAUNCHES)}")
+    s_ms = statistics.median(speech_ms)
+    out["streaming"] = dict(
+        speech_chunk_ms=s_ms, silence_chunk_ms=statistics.median(silence_ms),
+        speech_chunks=len(speech_ms), device_ops_a_speech_chunk=ops_chunk,
+        device_ms_a_speech_chunk=dev_chunk, offline_equal=CONN_STREAMS)
+    print(f"connected streaming: {CONN_STREAMS} of {CONN_STREAMS} gapless streams "
+          f"equal to the offline level decode; {s_ms:.3f} ms a 100 ms chunk with the DP "
+          f"fed ({len(speech_ms)} chunks; real-time factor {100.0 / s_ms:.1f}), "
+          f"{statistics.median(silence_ms):.3f} ms without; a speech chunk "
+          f"{ops_chunk} device ops, device time {ms_text(dev_chunk)}", flush=True)
+    return launches["dtw_banded"]
+
+
 def walk_counts(strips, cost_cells, lens_a, lens_b, pad_a: int, pad_b: int):
     """(costs computed, lane-steps) of kernel 4 or 3 for these lengths, from
     the walk its wrapper module states (``strips``, ``cost_cells``)."""
@@ -2612,7 +2967,8 @@ def main() -> int:
 
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
-              "streaming": {}, "hmm": {}, "cascade": {}, "nvidia_smi": smi}
+              "streaming": {}, "hmm": {}, "cascade": {}, "connected": {},
+              "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
     mfcc_phase(dev, report)
@@ -2630,6 +2986,8 @@ def main() -> int:
     report["hmm"]["launches"] = {"mfcc_fused": hmm_phase(args.seed, dev, report)}
     report["cascade"]["launches"] = {"spot_subseq": cascade_phase(args.seed, dev, report)}
     launches["spot_subseq"] += report["cascade"]["launches"]["spot_subseq"]
+    report["connected"]["launches"] = {"dtw_banded": connected_phase(args.seed, dev, report)}
+    launches["dtw_banded"] += report["connected"]["launches"]["dtw_banded"]
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")
 

@@ -10,7 +10,10 @@ GMM-HMM recognizer (``GmmHmmRecognizer``: log-space Viterbi decode,
 segmental and Baum-Welch EM with a UBM and MAP adaptation, UBM-LLR
 rejection, PMC noise adaptation) with its keyword spotters
 (``HmmSpotter``, ``CascadeSpotter`` and their streaming forms, in
-``dsp_tpu_torch.models``), with five
+``dsp_tpu_torch.models``), and connected-word decoding (both recognizers'
+``classify_connected``: the multi-segment VAD split, or level building
+and the connected Viterbi with word-pair grammars; online through
+``models.streaming.StreamingConnectedRecognizer``), with five
 hand-written CUDA kernels for NVIDIA Hopper: banded DTW
 (``csrc/dtw_banded.cu``), the fused MFCC front-end (``csrc/mfcc_fused.cu``),
 subsequence DTW (``csrc/spot_subseq.cu``), unbanded closed-form DTW
@@ -36,6 +39,9 @@ Quick start::
     hmm = GmmHmmRecognizer()                 # on the card
     hmm.fit({"yes": [signal1, signal2], "no": [signal3, signal4]})
     label = hmm.recognize(test_signal)
+    words = rec.classify_connected([recording])              # VAD split
+    words = rec.classify_connected([recording], method="level",
+                                   grammar={"no_repeat": True})
 """
 
 import torch

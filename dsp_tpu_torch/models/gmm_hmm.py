@@ -50,7 +50,7 @@ from dsp_tpu_torch import pipeline as pl
 from dsp_tpu_torch.config import HmmConfig, PipelineConfig
 from dsp_tpu_torch.models.knn_dtw import (REJECT, _not_ported,
                                           check_frontend_signature,
-                                          frontend_signature)
+                                          frontend_signature, grammar_masks)
 from dsp_tpu_torch.ops import frontend as fe
 from dsp_tpu_torch.ops.viterbi import viterbi_decode, viterbi_score
 
@@ -679,11 +679,74 @@ class GmmHmmRecognizer:
         _, scores = self.classify_batch(signals, return_scores=True)
         return pl.nbest_from_scores(scores, self.labels, n, higher_better=True)
 
-    def resolve_grammar(self, *args, **kwargs):
-        raise _not_ported("resolve_grammar", "queue 1, item 13")
+    def resolve_grammar(self, grammar):
+        """A grammar argument -> word-level masks, as
+        ``KnnDtwRecognizer.resolve_grammar``; the HMM family has one model
+        a label, so a unit is a word (masks in ``self.labels`` order)."""
+        return grammar_masks(grammar, self.labels, self.labels, "trained")
 
-    def classify_connected(self, *args, **kwargs):
-        raise _not_ported("classify_connected", "queue 1, item 13")
+    def classify_connected(self, signals, max_segments: int = 8,
+                           method: str = "vad", word_penalty: float = 0.0,
+                           grammar=None):
+        """Recordings of SEVERAL words -> one label list a recording.
+
+        ``method="vad"``: the multi-segment VAD split
+        (``pipeline.decode_connected``) feeds every segment through the
+        batched Viterbi scorer of :meth:`classify_batch`; needs silence
+        between words.  ``method="level"``: the level-synchronous connected
+        Viterbi (``ops/connected_viterbi.py``) through the word-HMM network,
+        so gapless recordings decode; ``max_segments`` caps the word count
+        and ``word_penalty`` (>= 0, subtracted a word) biases it.
+        ``grammar`` (``"level"`` only) constrains the DP to a word syntax
+        (:meth:`resolve_grammar`); a recording the grammar cannot explain
+        gives ``[]``.  Both compose with ``noise_adapt`` (models adapted
+        to the recordings' own noise floor)."""
+        if self.params is None:
+            raise ValueError("model not fitted")
+        if grammar is not None and method != "level":
+            raise ValueError(
+                "grammar constraints require method='level' (the VAD "
+                "splitter classifies segments independently — there is "
+                "no joint sequence to constrain)")
+        params = self._scoring_models(signals)[0] if len(signals) else self.params
+        if method == "level":
+            from dsp_tpu_torch.ops import level_building as lb
+            from dsp_tpu_torch.ops.connected_viterbi import (
+                connected_viterbi, connected_viterbi_grammar)
+
+            backtrack_fn = None
+            if grammar is None:
+                def dp_fn(feats):
+                    scores, words, starts = connected_viterbi(
+                        feats.feats, feats.length, params, max_segments,
+                        word_penalty)
+                    # the MIN convention of level building: NEG_INF -> BIG
+                    return -scores, words, starts
+            else:
+                start_m, pair_m, end_m = self.resolve_grammar(grammar)
+                start_t = torch.as_tensor(start_m, device=self.device)
+                pair_t = torch.as_tensor(pair_m, device=self.device)
+
+                def dp_fn(feats):
+                    scores, starts = connected_viterbi_grammar(
+                        feats.feats, feats.length, params, start_t, pair_t,
+                        max_segments, word_penalty)
+                    return -scores, starts
+
+                def backtrack_fn(costs, starts, t_valid):
+                    return lb.backtrack_grammar(costs, starts, pair_m, end_m,
+                                                t_valid)
+
+            id_lists, _ = pl.decode_level_generic(
+                signals, self.cfg, dp_fn, torch.arange(len(self.labels)),
+                backtrack_fn, self.device)
+            return [[self.labels[i] for i in ids] for ids in id_lists]
+        if method != "vad":
+            raise ValueError(f"unknown connected method {method!r} (vad | level)")
+        return pl.decode_connected(
+            signals, self.cfg, max_segments,
+            lambda flat: score_words(flat.feats, flat.length, params).argmax(-1),
+            lambda ids: [self.labels[int(i)] for i in ids], self.device)[0]
 
     def recognize(self, signal, reject=None) -> str:
         return self.classify_batch([signal], reject=reject)[0]

@@ -23,6 +23,7 @@ import torch
 
 from dsp_tpu_torch import pipeline as pl
 from dsp_tpu_torch.config import PipelineConfig
+from dsp_tpu_torch.ops.grammar import Grammar
 
 NO_MATCH = "<no-match>"     # vote row with no live candidate (sentinel -1)
 REJECT = "<reject>"         # best bank distance fails the rejection threshold
@@ -283,8 +284,76 @@ class KnnDtwRecognizer:
         return pl.evaluate_corpus(
             lambda s: self.classify_batch(s, reject=thr), mapped)
 
-    def classify_connected(self, *args, **kwargs):
-        raise _not_ported("classify_connected", "queue 1, item 13")
+    def resolve_grammar(self, grammar):
+        """A grammar argument -> UNIT-level masks over the bank's templates.
+
+        ``grammar`` is an ``ops/grammar.py:Grammar``, a spec dict or the
+        path of a JSON spec (the last two compiled over this recognizer's
+        labels).  A ready Grammar is matched to the bank by label string
+        and must cover every enrolled label.  Returns ``(start [K], pairs
+        [K, K], end [K])`` numpy bools over the bank's rows."""
+        return grammar_masks(grammar, self.labels,
+                             [self.labels[i] for i in self._bank_label_ids],
+                             "enrolled")
+
+    def classify_connected(self, signals, max_segments: int = 8,
+                           return_segments: bool = False, method: str = "vad",
+                           word_penalty: float = 0.0, grammar=None):
+        """Recordings of SEVERAL words -> one label list a recording.
+
+        ``method="vad"``: the multi-segment VAD splits each recording into
+        at most ``max_segments`` utterances, and every segment is
+        classified in one flat batch by the matcher and vote of
+        :meth:`classify_batch` (kernel 1 on the card for ``matcher="dtw"``,
+        kernel 5's paired entry in the cascade's rerank).  Needs silence
+        between words.
+
+        ``method="level"``: the level-building DP against the whole bank
+        (``ops/level_building.py``; plain PyTorch, no kernel of its own)
+        chooses word count, words and boundaries jointly, so gapless
+        recordings decode; ``max_segments`` caps the word count and
+        ``word_penalty`` biases it.  The matcher does not apply.
+        ``grammar`` (``"level"`` only; see :meth:`resolve_grammar`)
+        constrains the DP to the grammar's sentences; a recording the
+        grammar cannot explain gives ``[]``.
+
+        With ``return_segments`` also returns (starts, ends, n_segs) in
+        frames for ``"vad"`` and the DP costs for ``"level"``.
+        """
+        if grammar is not None and method != "level":
+            raise ValueError(
+                "grammar constraints require method='level' (the VAD "
+                "splitter classifies segments independently — there is "
+                "no joint sequence to constrain)")
+        if method == "level":
+            bank, ids = self.device_bank()
+            masks = None if grammar is None else self.resolve_grammar(grammar)
+            id_lists, costs = pl.decode_connected_level(
+                signals, self.cfg, bank, ids, max_levels=max_segments,
+                word_penalty=word_penalty, grammar_masks=masks,
+                device=self.device)
+            out = [[self.labels[i] for i in ids_i] for ids_i in id_lists]
+            return (out, costs) if return_segments else out
+        if method != "vad":
+            raise ValueError(f"unknown connected method {method!r} (vad | level)")
+        bank, ids = self.device_bank()
+
+        def score(flat):
+            # the matcher routing of classify_batch
+            if self.matcher == "ltw":
+                return pl.classify_features_ltw(flat, bank, ids, self.ltw_len)[0]
+            if self.matcher == "cascade":
+                return pl.classify_features_cascade(
+                    flat, bank, ids, self.shortlist, self.k,
+                    n_labels=len(self.labels), target_len=self.ltw_len,
+                    cfg=self.cfg)[0]
+            return pl.classify_features(flat, bank, ids, n_labels=len(self.labels),
+                                        k=self.k, cfg=self.cfg)[0]
+
+        out, starts, ends, n_segs = pl.decode_connected(
+            signals, self.cfg, max_segments, score, self._ids_to_labels,
+            self.device)
+        return (out, starts, ends, n_segs) if return_segments else out
 
     def condense(self, *args, **kwargs):
         raise _not_ported("condense", "queue 1, item 14")
@@ -356,6 +425,26 @@ class KnnDtwRecognizer:
             rec.reject_threshold = rt if np.isfinite(rt) else None
             rec.reject_scale = str(data["reject_scale"]) or None
         return rec
+
+
+def grammar_masks(grammar, labels, unit_labels, what: str):
+    """A grammar argument -> unit-level masks ``(start [K], pairs [K, K],
+    end [K])`` (numpy bools) over units labelled ``unit_labels``.
+
+    ``grammar`` is an ``ops/grammar.py:Grammar``, a spec dict or the path
+    of a JSON spec; the last two are compiled over ``labels``.  A ready
+    Grammar is matched by label string (its word order need not be the
+    recognizer's) and must cover every one of ``labels``."""
+    if isinstance(grammar, str):
+        grammar = Grammar.load(grammar, labels)
+    elif isinstance(grammar, dict):
+        grammar = Grammar.from_spec(grammar, labels)
+    gidx = {w: i for i, w in enumerate(grammar.labels)}
+    missing = [w for w in labels if w not in gidx]
+    if missing:
+        raise ValueError(f"grammar does not cover {what} labels: "
+                         + ", ".join(missing))
+    return grammar.unit_masks([gidx[w] for w in unit_labels])
 
 
 def frontend_signature(cfg: PipelineConfig) -> dict:

@@ -1,1 +1,2 @@
-"""Plain PyTorch ops of the port: front-end, VAD, DTW, spotting."""
+"""Plain PyTorch ops of the port: front-end, VAD, DTW, spotting, HMM
+Viterbi, connected-word level building and grammars."""

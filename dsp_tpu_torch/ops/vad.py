@@ -154,3 +154,108 @@ def detect_endpoints(x: torch.Tensor,
             1 + torch.div(length_samples.to(torch.int64) - fcfg.frame_len,
                           fcfg.hop_len, rounding_mode="floor"), min=0)
     return detect_endpoints_frames(e, z, n_frames, vcfg)
+
+
+def _rank_positions(flag: torch.Tensor, size: int) -> torch.Tensor:
+    """Positions of the first ``size`` True entries of each row [B, T] ->
+    [B, size], in time order, 0 where a row has fewer (``jnp.nonzero(...,
+    size=size, fill_value=0)`` of the JAX package, with no read-back):
+    each True entry's rank is its prefix count, and entries of rank
+    >= ``size`` are written to a dropped spare column."""
+    b, t = flag.shape
+    rank = torch.cumsum(flag.to(torch.int64), dim=-1) - 1
+    sel = flag & (rank < size)
+    slot = torch.where(sel, rank, torch.full_like(rank, size))
+    pos = torch.arange(t, device=flag.device).expand(b, t)
+    out = torch.zeros((b, size + 1), dtype=torch.int64, device=flag.device)
+    return out.scatter_(1, slot, torch.where(sel, pos, torch.zeros_like(pos)))[:, :size]
+
+
+def detect_segments_frames(e: torch.Tensor, z: torch.Tensor,
+                           length: torch.Tensor | None = None,
+                           vcfg: VadConfig = VadConfig(),
+                           max_segments: int = 8):
+    """Connected-word splitter on per-frame energy/ZCR [B, T].
+
+    Matches ``dsp_tpu.golden.vad.detect_segments`` frame for frame with no
+    sequential state: core runs, audible extension, gap bridging,
+    hangover and the short-segment drop are each a run-length computation
+    on boolean masks (the cummax trick).  Returns ``(starts [B, S],
+    ends_exclusive [B, S], n_segs [B])`` with ``S = max_segments``; rows
+    past ``n_segs`` are 0.  A recording with more than ``S`` utterances
+    keeps its first ``S`` in time order.
+    """
+    b, t = e.shape
+    if length is None:
+        length = torch.full((b,), t, dtype=torch.int64, device=e.device)
+    length = length.to(torch.int64)
+    th, tl, zt, valid, idx = _noise_thresholds(e, z, length, vcfg)
+    pos = idx.expand(b, t)
+
+    def cummax_where(flag, fill):
+        return torch.cummax(torch.where(flag, pos, torch.full_like(pos, fill)),
+                            dim=-1).values
+
+    high = (e > th) & valid
+    audible = ((e > tl) | (z > zt)) & valid
+
+    # 1. core: frame sits inside a run of >= min_speech_frames highs
+    run_total = _run_ending_at(high) + _run_starting_at(high) - 1
+    core = high & (run_total >= vcfg.min_speech_frames)
+
+    # 2. regions: maximal (audible|core)-runs containing a core frame
+    conn = audible | core
+    run_start = idx - _run_ending_at(conn) + 1
+    run_end = idx + _run_starting_at(conn) - 1
+    last_core = cummax_where(core, -1)
+    # the reference's reversed cummax, kept as it is: ncr runs over the
+    # reversed flags with unreversed positions
+    ncr = cummax_where(core.flip(-1), -1)
+    next_core = t - 1 - ncr.flip(-1)       # == t when no core at/after idx
+    region = conn & ((last_core >= run_start) | (next_core <= run_end))
+
+    # 3. bridge interior silence gaps shorter than max_silence_frames
+    gap = ~region
+    g_start = idx - _run_ending_at(gap) + 1
+    g_end = idx + _run_starting_at(gap) - 1
+    bridge = (gap & (g_end - g_start + 1 < vcfg.max_silence_frames)
+              & (g_start > 0) & (g_end <= length[:, None] - 2))
+    merged = region | bridge
+
+    # 4. hangover after each region end (touching regions merge)
+    prev_m = cummax_where(merged, -(1 << 30))
+    final = merged | ((idx - prev_m <= vcfg.hangover_frames) & valid)
+
+    # 5. drop regions shorter than min_utterance_frames
+    f_len = _run_ending_at(final) + _run_starting_at(final) - 1
+    keep = final & (f_len >= vcfg.min_utterance_frames)
+
+    edge = torch.zeros((b, 1), dtype=torch.bool, device=e.device)
+    rising = keep & ~torch.cat([edge, keep[:, :-1]], dim=-1)
+    falling = keep & ~torch.cat([keep[:, 1:], edge], dim=-1)
+    n_segs = torch.clamp(rising.sum(dim=-1), max=max_segments)
+    live = torch.arange(max_segments, device=e.device)[None, :] < n_segs[:, None]
+    starts = _rank_positions(rising, max_segments)
+    ends = _rank_positions(falling, max_segments) + 1
+    zero = torch.zeros_like(starts)
+    return torch.where(live, starts, zero), torch.where(live, ends, zero), n_segs
+
+
+def detect_segments(x: torch.Tensor,
+                    fcfg: FrontendConfig = FrontendConfig(),
+                    vcfg: VadConfig = VadConfig(),
+                    length_samples: torch.Tensor | None = None,
+                    max_segments: int = 8):
+    """Signals [B, N] -> (starts [B, S], ends_exclusive [B, S], n_segs [B])
+    in frames: the connected-word counterpart of :func:`detect_endpoints`,
+    on the same raw-signal framing."""
+    frames = fe.frame(x, fcfg.frame_len, fcfg.hop_len)
+    e = short_time_energy(frames)
+    z = zero_crossing_rate(frames)
+    if length_samples is None:
+        n_frames = None
+    else:
+        n_frames = torch.clamp(
+            1 + torch.div(length_samples.to(torch.int64) - fcfg.frame_len,
+                          fcfg.hop_len, rounding_mode="floor"), min=0)
+    return detect_segments_frames(e, z, n_frames, vcfg, max_segments)

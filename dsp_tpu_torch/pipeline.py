@@ -24,6 +24,7 @@ import torch
 from dsp_tpu_torch.config import DtwConfig, PipelineConfig
 from dsp_tpu_torch.ops import dtw as tdtw
 from dsp_tpu_torch.ops import frontend as fe
+from dsp_tpu_torch.ops import level_building as lb
 from dsp_tpu_torch.ops import vad as tvad
 
 # Distances at or above this are dead (unreachable or masked) candidates:
@@ -64,20 +65,28 @@ def _cepstra(signals: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
 
 
 def _finalize_window(c: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
-                     cfg: PipelineConfig, t_max: int | None = None) -> Features:
+                     cfg: PipelineConfig, t_max: int | None = None,
+                     rows: torch.Tensor | None = None) -> Features:
     """Cepstra [B, T_rec, C] + frame windows [start, end) -> masked Features.
 
     Gathers ``t_max`` (default ``cfg.max_frames``) frames from each
     ``start`` (window length clamped to [1, t_max]), then applies CMN and
-    delta stacking as the JAX package's isolated path does.
+    delta stacking as the JAX package's isolated path does.  ``rows`` [W]
+    names the recording of each of W windows (the connected splitter's
+    segments); by default window b is recording b's.  The isolated, the
+    per-segment and the whole-recording extractors all finish here, so a
+    window's features are bit-identical whichever of them cut it.
     """
     f = cfg.frontend
     t_max = cfg.max_frames if t_max is None else t_max
-    length = torch.clamp(end - start, min=1, max=t_max)            # [B]
+    length = torch.clamp(end - start, min=1, max=t_max)            # [W]
     steps = torch.arange(t_max, device=c.device)
-    idx = torch.clamp(start[:, None] + steps, 0, c.shape[1] - 1)   # [B, t_max]
-    c = torch.take_along_dim(c, idx[..., None], dim=1)
-    valid = (steps[None, :] < length[:, None])[..., None]          # [B, t_max, 1]
+    idx = torch.clamp(start[:, None] + steps, 0, c.shape[1] - 1)   # [W, t_max]
+    if rows is None:
+        c = torch.take_along_dim(c, idx[..., None], dim=1)
+    else:
+        c = c[rows[:, None], idx]
+    valid = (steps[None, :] < length[:, None])[..., None]          # [W, t_max, 1]
     if f.cmn:
         if f.cmn_mode == "causal":
             # prefix-stable: valid rows never see the clamped tail rows
@@ -117,6 +126,18 @@ def extract_features(signals: torch.Tensor, n_samples: torch.Tensor,
     return _finalize_window(c, *_endpoints(signals, n_samples, cfg), cfg)
 
 
+def _plain_cepstra(signals: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
+    """Padded recordings [B, N] -> cepstra [B, T, n_mfcc] from the plain
+    MFCC whatever ``FrontendConfig.impl`` says: the connected-word front
+    halves take it, as in the JAX package."""
+    f = cfg.frontend
+    if f.feature_type == "lpcc":
+        raise NotImplementedError(
+            "feature_type='lpcc' is not ported yet (ROADMAP.md queue 1, "
+            "item 14)")
+    return fe.mfcc(signals, f, fe.make_matrices(f, signals.device))
+
+
 def extract_recording_features(signals: torch.Tensor, n_samples: torch.Tensor,
                                cfg: PipelineConfig, t_max: int) -> Features:
     """Padded recordings [B, N] -> whole-recording Features [B, t_max, F].
@@ -126,12 +147,7 @@ def extract_recording_features(signals: torch.Tensor, n_samples: torch.Tensor,
     deltas as always.  ``t_max`` must cover the recording's frame count.
     The cepstra come from the plain MFCC whatever ``FrontendConfig.impl``
     says, as in the JAX package."""
-    f = cfg.frontend
-    if f.feature_type == "lpcc":
-        raise NotImplementedError(
-            "feature_type='lpcc' is not ported yet (ROADMAP.md queue 1, "
-            "item 14)")
-    c = fe.mfcc(signals, f, fe.make_matrices(f, signals.device))
+    c = _plain_cepstra(signals, cfg)
     return _finalize_window(c, *_endpoints(signals, n_samples, cfg), cfg, t_max)
 
 
@@ -380,6 +396,193 @@ def recognize_batch(signals: torch.Tensor, n_samples: torch.Tensor,
     """Padded signals -> (label_ids [B], distances [B, K]) on their device."""
     feats = extract_features(signals, n_samples, cfg)
     return classify_features(feats, bank, bank_label_ids, cfg=cfg)
+
+
+# ---------------------------------------------------------- connected words
+def extract_segments_features(signals: torch.Tensor, n_samples: torch.Tensor,
+                              cfg: PipelineConfig = PipelineConfig(),
+                              max_segments: int = 8):
+    """Padded recordings [B, N] -> per-segment Features (connected words).
+
+    The cepstra are computed once over each whole recording (the plain
+    MFCC), the multi-segment VAD (``ops/vad.py:detect_segments``) finds up
+    to ``max_segments`` utterances, and each segment's frame window is cut
+    by :func:`_finalize_window`, so a segment's features are bit-identical
+    to the isolated pipeline's for the same window.  ``N`` may exceed
+    ``cfg.max_samples``; segments longer than ``cfg.max_frames`` are cut.
+
+    Returns ``(Features [B, S, T, F] / lengths [B, S], starts [B, S], ends
+    [B, S], n_segs [B])``; rows past ``n_segs`` hold length-1 dummy
+    features (mask with ``n_segs`` downstream).
+    """
+    c = _plain_cepstra(signals, cfg)
+    starts, ends, n_segs = tvad.detect_segments(
+        signals, cfg.frontend, cfg.vad, n_samples.to(torch.int64), max_segments)
+    b, s = starts.shape
+    rows = torch.arange(b, device=c.device).repeat_interleave(s)
+    segs = _finalize_window(c, starts.reshape(-1), ends.reshape(-1), cfg,
+                            rows=rows)
+    return (Features(segs.feats.reshape(b, s, *segs.feats.shape[1:]),
+                     segs.length.reshape(b, s)), starts, ends, n_segs)
+
+
+def _flat(segs: Features) -> Features:
+    b, s = segs.length.shape
+    return Features(segs.feats.reshape(b * s, *segs.feats.shape[2:]),
+                    segs.length.reshape(b * s))
+
+
+def recognize_connected_batch(signals: torch.Tensor, n_samples: torch.Tensor,
+                              bank: Features, bank_label_ids: torch.Tensor,
+                              n_labels: int | None = None, k: int = 1,
+                              cfg: PipelineConfig = PipelineConfig(),
+                              max_segments: int = 8):
+    """Padded recordings [B, N] -> per-segment labels (connected words).
+
+    Every segment is classified against the bank in one flat [B*S] batch
+    (the isolated path's matcher and kNN vote; kernel 1 on the card), and
+    absent segments get label id -1.  Returns ``(label_ids [B, S], n_segs
+    [B], starts [B, S], ends [B, S])``."""
+    segs, starts, ends, n_segs = extract_segments_features(
+        signals, n_samples, cfg, max_segments)
+    label_ids, _ = classify_features(_flat(segs), bank, bank_label_ids,
+                                     n_labels, k, cfg)
+    label_ids = label_ids.reshape(starts.shape)
+    live = torch.arange(max_segments, device=starts.device)[None, :] < n_segs[:, None]
+    return (torch.where(live, label_ids, torch.full_like(label_ids, -1)),
+            n_segs, starts, ends)
+
+
+def segments_flat(signals, cfg: PipelineConfig = PipelineConfig(),
+                  max_segments: int = 8, device: str | torch.device = "cuda"):
+    """Host list of connected recordings -> flat per-segment Features.
+
+    The family-independent half of connected-word decoding: pads the
+    recordings to a whole multiple of ``cfg.max_samples``, splits each
+    into utterances and returns ``(Features [B*S, T, F] on the device,
+    n_segs [B], starts [B, S], ends [B, S] as host numpy)``.  Rows past
+    ``n_segs`` are length-1 dummies."""
+    quantum = cfg.max_samples
+    n_max = max(1, max(len(np.asarray(s)) for s in signals))
+    x, n = pad_signals(signals, quantum * -(-n_max // quantum), device)
+    segs, starts, ends, n_segs = extract_segments_features(x, n, cfg, max_segments)
+    return (_flat(segs), n_segs.cpu().numpy(), starts.cpu().numpy(),
+            ends.cpu().numpy())
+
+
+def decode_connected(signals, cfg: PipelineConfig, max_segments: int,
+                     score_flat, ids_to_labels,
+                     device: str | torch.device = "cuda"):
+    """Family-independent connected-word decode over host recordings.
+
+    ``score_flat(Features [B*S]) -> label ids [B*S]`` (a tensor) is the
+    family's scorer and ``ids_to_labels(ids [n]) -> [str]`` its label
+    map.  Recordings go in chunks of ``256 // max_segments`` (at most ~256
+    flat segments a batch, as the isolated classify paths); the trailing
+    chunk is padded with repeats of its last recording to the next power
+    of two (at most log2(chunk) batch shapes, every result unchanged) and
+    trimmed.  Returns ``(label_lists, starts, ends, n_segs)`` as host
+    numpy.
+    """
+    if not len(signals):
+        z = np.zeros((0, max_segments), np.int64)
+        return [], z, z.copy(), np.zeros((0,), np.int64)
+    chunk = max(1, 256 // max_segments)
+    outs, sts, ens, nss = [], [], [], []
+    for lo in range(0, len(signals), chunk):
+        part = list(signals[lo:lo + chunk])
+        n_real = len(part)
+        size = min(chunk, 1 << max(0, n_real - 1).bit_length())
+        part += [part[-1]] * (size - n_real)      # pad, bucketed shapes
+        flat, n_segs, starts, ends = segments_flat(part, cfg, max_segments,
+                                                   device)
+        ids = score_flat(flat).cpu().reshape(len(part), max_segments)
+        outs.extend(ids_to_labels(ids[b, : int(n_segs[b])])
+                    for b in range(n_real))
+        sts.append(starts[:n_real])
+        ens.append(ends[:n_real])
+        nss.append(n_segs[:n_real])
+    return (outs, np.concatenate(sts), np.concatenate(ens),
+            np.concatenate(nss))
+
+
+def decode_connected_level(signals, cfg: PipelineConfig, bank: Features,
+                           bank_label_ids, max_levels: int = 8,
+                           word_penalty: float = 0.0, grammar_masks=None,
+                           mesh=None, device: str | torch.device = "cuda"):
+    """Level-building connected decode over host recordings (gapless ok).
+
+    Word boundaries come out of the joint DP of ``ops/level_building.py``
+    against the template bank, not out of an energy detector.
+    ``grammar_masks`` (unit-level ``(start [K], pairs [K, K], end [K])``
+    bools, ``ops/grammar.py:Grammar.unit_masks``) switch to the
+    syntax-constrained DP; the end mask applies in the backtrace.  The
+    local cost follows ``cfg.dtw.squared``; ``word_penalty`` is added once
+    a word.  Returns ``(label_id_lists, costs)``: per recording the
+    decoded templates' label ids (empty when nothing is reachable) and
+    the DP cost.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "decode_connected_level(mesh=) (bank-sharded level building) is "
+            "not ported yet (queue 1, item 15 in ROADMAP.md)")
+    squared = cfg.dtw.squared
+    if grammar_masks is None:
+        def dp_fn(feats):
+            return lb.level_build(feats.feats, feats.length, bank.feats,
+                                  bank.length, max_levels, word_penalty, squared)
+        return decode_level_generic(signals, cfg, dp_fn, bank_label_ids,
+                                    device=device)
+
+    start_m, pair_m, end_m = (np.asarray(m, bool) for m in grammar_masks)
+    start_t = torch.as_tensor(start_m, device=bank.feats.device)
+    pair_t = torch.as_tensor(pair_m, device=bank.feats.device)
+
+    def dp_fn(feats):
+        return lb.level_build_grammar(
+            feats.feats, feats.length, bank.feats, bank.length, start_t,
+            pair_t, max_levels, word_penalty, squared)
+
+    def backtrack_fn(costs, starts, t_valid):
+        return lb.backtrack_grammar(costs, starts, pair_m, end_m, t_valid)
+
+    return decode_level_generic(signals, cfg, dp_fn, bank_label_ids,
+                                backtrack_fn, device)
+
+
+def decode_level_generic(signals, cfg: PipelineConfig, dp_fn, word_ids,
+                         backtrack_fn=None, device: str | torch.device = "cuda"):
+    """The shared loop of the level-style connected decoders.
+
+    Groups recordings by padded length (whole multiples of
+    ``cfg.max_samples``), extracts whole-recording features a group, runs
+    ``dp_fn(Features)`` (the family's joint DP in the MIN convention of
+    ``ops/level_building.py``; HMM callers negate their log-liks, so
+    NEG_INF maps onto BIG) and reads each recording's planes back on the
+    host with ``backtrack_fn(*planes_row, t_valid) -> (unit ids, cost)``
+    (default ``level_building.backtrack`` over ``(costs, words, starts)``
+    [L, T]).  ``word_ids`` [W] (a tensor) maps DP word indices to label
+    ids.  Returns
+    ``(label_id_lists, costs)``.
+    """
+    if backtrack_fn is None:
+        backtrack_fn = lb.backtrack
+    if not len(signals):
+        return [], np.zeros((0,), np.float32)
+    f = cfg.frontend
+    ids_np = word_ids.cpu().numpy()
+    results: dict = {}
+    for pad_len, idxs in group_by_padded_len(signals, cfg.max_samples).items():
+        t_max = max(1, 1 + (pad_len - f.frame_len) // f.hop_len)
+        x, n = pad_signals([signals[i] for i in idxs], pad_len, device)
+        feats = extract_recording_features(x, n, cfg, t_max)
+        planes = [p.cpu().numpy() for p in dp_fn(feats)]
+        lens = feats.length.cpu().numpy()
+        for row, i in enumerate(idxs):
+            seq, cost = backtrack_fn(*(p[row] for p in planes), int(lens[row]))
+            results[i] = ([int(ids_np[v]) for v in seq], cost)
+    out = [results[i] for i in range(len(signals))]
+    return [ids for ids, _ in out], np.asarray([c for _, c in out], np.float32)
 
 
 # ------------------------------------------------------------ host readouts

@@ -32,6 +32,12 @@ kernel 3): the keyword/filler column update never waits for the card, its
 witnesses equal the CPU's and its LLRs agree at chip_smoke.py's
 HMM_SPOT_LLR_TOL; the cascade's rescored events equal the CPU's (scores
 rtol 2e-4) and the streaming cascade's the offline one's within 3 frames.
+Connected words (kernel 1 on the VAD split; level building and the
+connected Viterbi have no kernel): segments integer-equal to the CPU's;
+level-building costs at rtol 1e-4 with the BIG pattern equal, words and
+starts equal except at sites whose costs agree (near-ties, under 1 %);
+streaming level building bit-equal to the card's batch DP under any
+chunking; decoded labels and streaming events equal to the CPU's.
 """
 
 import dataclasses
@@ -53,8 +59,10 @@ from dsp_tpu_torch.kernels import mfcc_fused as kmf
 from dsp_tpu_torch.kernels import spot_fused as ksp
 from dsp_tpu_torch.models import StreamingSpotter
 from dsp_tpu_torch.ops import frontend as fe
+from dsp_tpu_torch.ops import level_building as tlb
 from dsp_tpu_torch.ops import spot as tsp
 from dsp_tpu_torch.ops import streaming as tst
+from dsp_tpu_torch.ops import vad as tvad
 
 pytestmark = pytest.mark.cuda
 
@@ -1280,3 +1288,124 @@ def test_cascade_rerank_launches_kernel_3(dev):
     assert [ev[0] for ev in streamed] == [ev[0] for ev in offline]
     for g, w in zip(streamed, offline):
         assert abs(g[1] - w[1]) <= 3 and abs(g[2] - w[2]) <= 3
+
+
+# ------------------------------------------------------------ connected words
+def _connected_batch(n=6):
+    from dsp_tpu_torch.io import DIGITS
+
+    sigs = [synth_connected([DIGITS[(i + j) % 10] for j in range(1 + i % 5)], 300 + i)
+            for i in range(n)]
+    x = np.zeros((n, 96_000), np.float32)
+    for i, sig in enumerate(sigs):
+        x[i, :min(len(sig), 96_000)] = sig[:96_000]
+    lens = np.asarray([min(len(sig), 96_000) for sig in sigs], np.int64)
+    lens[-1] = 0
+    return torch.from_numpy(x), torch.from_numpy(lens)
+
+
+@pytest.mark.parametrize("mode", ["noise_mult", "two_pass"])
+def test_detect_segments_on_the_card_matches_the_cpu(dev, mode):
+    x, n = _connected_batch()
+    vcfg = VadConfig(threshold_mode=mode)
+    for s in (3, 8):
+        got = tvad.detect_segments(x.to(dev), FrontendConfig(), vcfg, n.to(dev), s)
+        want = tvad.detect_segments(x, FrontendConfig(), vcfg, n, s)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def _level_inputs(dev, b, t, k=8, u=20, f=39, seed=0):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, t, f)).astype(np.float32))
+    bank = torch.from_numpy(rng.standard_normal((k, u, f)).astype(np.float32))
+    lens = torch.from_numpy(rng.integers(3, u + 1, k).astype(np.int32))
+    return (q, bank, lens), (q.to(dev), bank.to(dev), lens.to(dev))
+
+
+def _check_planes(got_costs, want_costs, got_ids, want_ids):
+    got_costs, want_costs = got_costs.cpu().numpy(), want_costs.numpy()
+    live = want_costs < tlb.BIG / 2
+    assert np.array_equal(got_costs < tlb.BIG / 2, live)
+    np.testing.assert_allclose(got_costs[live], want_costs[live], rtol=1e-4)
+    for g, w in zip(got_ids, want_ids):
+        assert (g.cpu().numpy() != w.numpy())[live].mean() < 0.01
+
+
+@pytest.mark.parametrize("squared", [False, True])
+def test_level_build_on_the_card_matches_the_cpu(dev, squared):
+    cpu, card = _level_inputs(dev, 3, 60)
+    got = tlb.level_build(card[0], None, *card[1:], 4, 0.5, squared)
+    want = tlb.level_build(cpu[0], None, *cpu[1:], 4, 0.5, squared)
+    _check_planes(got[0], want[0], got[1:], want[1:])
+    start = torch.tensor([1, 1, 0, 1, 1, 0, 1, 1], dtype=torch.bool)
+    pairs = torch.from_numpy(np.random.default_rng(1).random((8, 8)) < 0.6)
+    got = tlb.level_build_grammar(card[0], None, *card[1:], start.to(dev),
+                                  pairs.to(dev), 4, 0.5, squared)
+    want = tlb.level_build_grammar(cpu[0], None, *cpu[1:], start, pairs, 4, 0.5, squared)
+    _check_planes(got[0], want[0], got[1:], want[1:])
+
+
+def test_level_build_chunk_on_the_card_equals_the_batch(dev):
+    cpu, card = _level_inputs(dev, 1, 45, seed=2)
+    want = tlb.level_build(card[0], None, *card[1:], 3, 0.7)
+    for chunk in (1, 7, 45):
+        state, parts = tlb.level_stream_init(3, 8, 20, dev), []
+        for lo in range(0, 45, chunk):
+            state, planes = tlb.level_build_chunk(state, card[0][0, lo:lo + chunk],
+                                                  *card[1:], 0.7)
+            parts.append(planes)
+        for i, w in enumerate(want):
+            assert torch.equal(torch.cat([p[i] for p in parts], dim=1), w[0])
+    cpu_want = tlb.level_build(cpu[0], None, *cpu[1:], 3, 0.7)
+    _check_planes(want[0], cpu_want[0], want[1:], cpu_want[1:])
+
+
+def test_connected_dps_never_wait_for_the_card(dev):
+    from dsp_tpu_torch.ops.connected_viterbi import connected_viterbi
+
+    _, card = _level_inputs(dev, 2, 12)
+    rec, _ = _hmm_pair(dev)
+    x, n = _connected_batch(2)
+    x, n = x.to(dev), n.to(dev)
+    state = tlb.level_stream_init(2, 8, 20, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tlb.level_build(card[0], None, *card[1:], 2)
+        tlb.level_build_chunk(state, card[0][0, :5], *card[1:])
+        connected_viterbi(card[0], None, rec.params, 2)
+        tpl.extract_segments_features(x, n, PipelineConfig(), 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_connected_decoders_on_the_card_match_the_cpu(dev):
+    from dsp_tpu_torch.models.streaming import StreamingConnectedRecognizer
+
+    rec = _small_bank(["zero", "one", "two", "three"], 2, dev)
+    rec_cpu = KnnDtwRecognizer.from_arrays(np.stack(rec._bank_feats), rec._bank_lens,
+                                           rec._bank_label_ids, rec.labels, PipelineConfig(),
+                                           device="cpu")
+    clips = [synth_connected(["two", "zero", "three"], 5), synth_connected(["one"], 6),
+             synth_connected(["three", "one"], 7, gap_ms=(0.0, 1.0), lead_ms=(50.0, 60.0))]
+    before = dict(_build.LAUNCHES)
+    got = rec.classify_connected(clips, max_segments=4, return_segments=True)
+    assert _build.LAUNCHES["dtw_banded"] - before["dtw_banded"] == 1
+    want = rec_cpu.classify_connected(clips, max_segments=4, return_segments=True)
+    assert got[0] == want[0]
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(g, w)
+    before = dict(_build.LAUNCHES)
+    for grammar in (None, {"no_repeat": True}):
+        level = rec.classify_connected(clips, max_segments=4, method="level",
+                                       grammar=grammar)
+        assert level == rec_cpu.classify_connected(clips, max_segments=4, method="level",
+                                                   grammar=grammar)
+    assert level[2] == ["three", "one"] and dict(_build.LAUNCHES) == before
+    sig = np.concatenate([synth_connected(["three", "one"], 11, gap_ms=(0.0, 1.0),
+                                          lead_ms=(120.0, 130.0)),
+                          np.zeros(4800, np.float32)])
+    events = _feed_all(StreamingConnectedRecognizer(rec, max_levels=4), sig)
+    assert events == _feed_all(StreamingConnectedRecognizer(rec_cpu, max_levels=4), sig)
+    assert [w for ev in events for w in ev[0]] == ["three", "one"]

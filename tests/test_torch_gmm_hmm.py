@@ -385,8 +385,9 @@ def test_errors_and_not_ported_paths(port_rec):
         GmmHmmRecognizer(device="cpu").fit(TRAIN, mesh=object())
     with pytest.raises(NotImplementedError, match="item 15"):
         pg.fit_word(torch.zeros(1, 4, 3), torch.ones(1, dtype=torch.int32), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port_rec.classify_connected(QUERIES[:1])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port_rec.resolve_grammar({})
+    # connected words run (tests/test_torch_connected.py holds them to JAX)
+    assert port_rec.classify_connected(QUERIES[:1]) == [port_rec.classify_batch(QUERIES[:1])]
+    assert port_rec.classify_connected([]) == []
+    masks = port_rec.resolve_grammar({})
+    assert [m.shape for m in masks] == [(3,), (3, 3), (3,)] and all(m.all() for m in masks)
     assert port_rec.classify_nbest([]) == []

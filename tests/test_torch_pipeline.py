@@ -216,9 +216,9 @@ def test_default_device_is_the_card():
 def test_unported_recognizer_options_raise(port_rec):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KnnDtwRecognizer(PipelineConfig(), device="cpu", mesh=object())
-    for call in (lambda: port_rec.classify_connected([]), port_rec.condense):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    assert port_rec.classify_connected([]) == []
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_rec.condense()
     with pytest.raises(ValueError, match="unknown matcher"):
         KnnDtwRecognizer(PipelineConfig(), device="cpu", matcher="bogus")
     cfg = dataclasses.replace(PipelineConfig(), dtw=DtwConfig(impl="bogus"))

@@ -335,11 +335,6 @@ def test_recognizer_rejects_lpcc(jax_rec):
         StreamingRecognizer(rec, CHUNK)
 
 
-def test_streaming_connected_recognizer_is_not_ported(jax_rec):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tms.StreamingConnectedRecognizer(_port_rec(jax_rec, PipelineConfig()))
-
-
 def test_np_deltas_matches_the_ports_deltas():
     c = np.random.default_rng(4).standard_normal((37, 13)).astype(np.float32)
     want = tfe.deltas(torch.from_numpy(c), 2).numpy()
