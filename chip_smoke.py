@@ -275,6 +275,38 @@ each of which raises on failure (non-zero exit):
              launched, ms a chunk with and without the DP fed, and one
              speech chunk's device ops and device time.  Kernel 1's launches
              here join phase main's in the kernel table.
+16. remainder — the rest of one device (ROADMAP item 14) at config 1's
+             shapes (10 digits x 10 templates, 1024 queries, chunks of
+             256).  (a) An LPCC ``KnnDtwRecognizer``: launch counts reset
+             just before and read just after a classify of the queries
+             (kernel 1 x 4, nothing else), again at ``impl="pallas"``
+             (still no kernel 2: LPCC has none); labels equal to the plain
+             route's except at near-ties; one chunk's features against the
+             CPU's at rtol/atol 1e-3 (the measured error printed) with
+             the VAD endpoints equal; accuracy, alignments/s and one
+             chunk by stage.  (b) ``condense("medoid")`` and
+             ``condense("dba", n_iter=3)`` on the main bank, counted
+             (kernel 1 once a word, unbanded): each word's medoid equal
+             to the CPU's except at near-ties (summed distances within
+             1e-4), the medoid bank the medoid templates, DBA centers at
+             rtol/atol 1e-4 of the CPU's, two DBA runs bit-equal; the
+             10-template bank's labels equal to the plain route's
+             (counted: kernel 1 x 4), accuracy beside the full bank's,
+             alignments/s, the condense seconds and one word's device
+             ops and busy share under ``torch.profiler``.  (c)
+             ``VqRecognizer`` at the default ``VqConfig``: one Lloyd step
+             from the same init against the CPU (assignments equal except
+             at near-ties, centroids within 1e-5 as max |a - b| / (1 +
+             |b|)), the fit's labels equal to a CPU fit's except at
+             near-ties (the codebooks' distance printed), no kernel
+             launched, ``classify_connected`` on phase connected's 64
+             recordings equal to the CPU's; fit seconds, queries/s and
+             accuracy.  (d) ``dtw_batch_windowed`` and ``dtw_batch_bidi``
+             at 256 x 100, T = U = 198 against ``dtw_batch``: the BIG
+             pattern identical, rtol 1e-5, each timed beside the scan.
+             (e) ``extract_mfcc`` and ``mfcc(use_fft=True)`` against the
+             DFT path at rtol/atol 1e-3.  Kernel 1's launches here join
+             the kernel table's.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -431,6 +463,17 @@ CONN_PROFILED_CHUNK = 5     # the chunk of stream 0 run under the profiler (spee
 # level-building planes, card against CPU on the same features: the cost
 # GEMM sums in another order on each device
 CONN_PLANE_RTOL = 1e-4
+REM_PASSES = 3              # phase remainder: timed passes after the checked one
+# LPCC features, card against CPU: the MFCC rule; the Levinson-Durbin and
+# cepstral recursions amplify rounding (the JAX package holds its LPCC to
+# the float64 oracle at 2e-2, tests/test_lpc.py:52), so the value is printed
+REM_LPCC_TOL = 1e-3
+REM_DBA_TOL = 1e-4          # DBA centers, card against CPU (rtol and atol)
+# one Lloyd step's centroids, card against CPU, as max |a - b| / (1 + |b|):
+# a centroid sums ~1,000 frames whose c0 reaches tens, so its float32 GEMM
+# rounds to ~1e-5 absolute
+REM_VQ_STEP_TOL = 1e-5
+REM_SCAN_RTOL = 1e-5        # windowed and bidirectional DTW against the scan
 
 
 def fail(msg: str):
@@ -2391,6 +2434,323 @@ def connected_phase(seed: int, dev, report) -> int:
     return launches["dtw_banded"]
 
 
+def remainder_phase(seed: int, dev, report) -> int:
+    """Phase remainder: LPCC features, template condensing, the VQ
+    recognizer, the windowed and bidirectional DTW, ``extract_mfcc`` and
+    the exact-rFFT path (ROADMAP item 14) at config 1's shapes; returns
+    kernel 1's launches in its counted runs."""
+    import numpy as np
+    import torch
+
+    import dsp_tpu_torch
+    from dsp_tpu_torch import KnnDtwRecognizer, VqRecognizer
+    from dsp_tpu_torch import pipeline as pl
+    from dsp_tpu_torch.config import DtwConfig, FrontendConfig, PipelineConfig, VqConfig
+    from dsp_tpu_torch.io import DIGITS, synth_connected, synth_word
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.models import vq as tvq
+    from dsp_tpu_torch.ops import align as talign
+    from dsp_tpu_torch.ops import dtw as tdtw
+    from dsp_tpu_torch.ops import dtw_banded as tbanded
+    from dsp_tpu_torch.ops import frontend as fe
+
+    out = report["remainder"]
+    smi = "; ".join(report["nvidia_smi"])
+    cpu = torch.device("cpu")
+    bank_sigs = {lab: [synth_word(lab, i) for i in range(TEMPLATES_PER_WORD)]
+                 for lab in DIGITS}
+    queries, truth = synth_batch(N_QUERIES, 1000)
+    chunks = -(-N_QUERIES // 256)
+    total = 0
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+
+    def accuracy(labels):
+        return float(np.mean([a == b for a, b in zip(labels, truth)]))
+
+    def counted(fn):
+        """fn's result and the launches it made, counted from 0."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    def pass_s(fn):
+        return statistics.median(synced_ms(fn, REM_PASSES)) / 1e3
+
+    def labels_vs_plain(what, got, plain):
+        """Labels against the plain route's (near-ties excepted); returns
+        the count apart at near-ties."""
+        p_labels, p_dists = plain.classify_batch(queries, return_distances=True)
+        diff = np.array([a != b for a, b in zip(got, p_labels)])
+        if (diff & ~near_ties(p_dists)).any():
+            fail(f"remainder {what}: {int((diff & ~near_ties(p_dists)).sum())} labels "
+                 "differ from the plain route's outside near-ties")
+        return int(diff.sum())
+
+    def bank_arrays(rec):
+        return (np.stack(rec._bank_feats), rec._bank_lens, rec._bank_label_ids, rec.labels)
+
+    def scan_cfg(cfg):
+        return dataclasses.replace(cfg, dtw=DtwConfig(impl="scan"))
+
+    # (1) LPCC features: plain PyTorch on the card, kernel 1 for the DTW
+    lpcc = PipelineConfig(frontend=FrontendConfig(feature_type="lpcc"))
+    rec = KnnDtwRecognizer(lpcc, device=dev)
+    for lab in DIGITS:
+        rec.enroll(lab, bank_sigs[lab])
+    arrays = bank_arrays(rec)
+    labels, launches = counted(lambda: rec.classify_batch(queries))
+    if launches != {"dtw_banded": chunks}:
+        fail(f"remainder lpcc: launches {launches}; expected kernel 1 x {chunks} only")
+    total += launches["dtw_banded"]
+    fused_cfg = PipelineConfig(frontend=FrontendConfig(feature_type="lpcc", impl="pallas"))
+    rec_p = KnnDtwRecognizer.from_arrays(*arrays, fused_cfg, device=dev)
+    labels_p, launches_p = counted(lambda: rec_p.classify_batch(queries))
+    if launches_p != {"dtw_banded": chunks}:
+        fail(f"remainder lpcc impl='pallas': launches {launches_p}; LPCC takes no kernel 2")
+    total += launches_p["dtw_banded"]
+    if labels_p != labels:
+        fail("remainder lpcc: impl='pallas' labels differ from impl='xla' (same features)")
+    lpcc_ties = labels_vs_plain(
+        "lpcc", labels, KnnDtwRecognizer.from_arrays(*arrays, scan_cfg(lpcc), device=dev))
+    x, n = pl.pad_signals(queries[:256], lpcc.max_samples, dev)
+    got = pl.extract_features(x, n, lpcc)
+    want = pl.extract_features(x.cpu(), n.cpu(), lpcc)
+    for g, w in zip(pl._endpoints(x, n, lpcc), pl._endpoints(x.cpu(), n.cpu(), lpcc)):
+        if not torch.equal(g.cpu(), w):
+            fail("remainder lpcc: VAD endpoints differ from the CPU's")
+    g, w = got.feats.cpu().numpy(), want.feats.numpy()
+    lpcc_abs = float(np.abs(g - w).max())
+    lpcc_ratio = float((np.abs(g - w) / (REM_LPCC_TOL * (1.0 + np.abs(w)))).max())
+    if lpcc_ratio > 1.0:
+        fail(f"remainder lpcc: features {lpcc_abs:.3e} from the CPU's, past rtol/atol "
+             f"{REM_LPCC_TOL}")
+    seconds = pass_s(lambda: rec.classify_batch(queries))
+    stages = stage_ms(rec, queries[:256])
+    n_align = N_QUERIES * rec.n_templates
+    out["lpcc"] = dict(launches=launches, launches_pallas=launches_p,
+                       accuracy=accuracy(labels), label_mismatches_at_near_ties=lpcc_ties,
+                       features_max_abs_err_vs_cpu=lpcc_abs, seconds=seconds,
+                       alignments_per_s=n_align / seconds, chunk_stage_ms=stages)
+    print(f"remainder lpcc: kernel 1 launches {launches['dtw_banded']} (impl='pallas': "
+          f"{launches_p}), accuracy {accuracy(labels):.4f}, {lpcc_ties} labels apart from "
+          f"the plain route at near-ties; features {lpcc_abs:.3e} from the CPU's (rtol/atol "
+          f"{REM_LPCC_TOL}), endpoints equal; {n_align / seconds:.1f} alignments/s (median "
+          f"{seconds:.4f} s of {REM_PASSES} passes); one 256-chunk, ms: "
+          + "  ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; on {smi}", flush=True)
+
+    lap("lpcc")
+
+    # (2) condensing the main bank: medoids through kernel 1, DBA plain
+    cfg = PipelineConfig()
+    main = KnnDtwRecognizer(cfg, device=dev)
+    for lab in DIGITS:
+        main.enroll(lab, bank_sigs[lab])
+    arrays = bank_arrays(main)
+    full_labels = main.classify_batch(queries)
+    align_cfg = DtwConfig(band_frac=None)
+    bank, ids = main.device_bank()
+    medoids, tied = [], np.zeros(len(DIGITS), bool)
+    for lab_id in range(len(DIGITS)):
+        rows = torch.nonzero(ids == lab_id)[:, 0]
+        feats, lens = bank.feats[rows], bank.length[rows]
+        mi = talign.medoid(feats, lens, align_cfg, pl.dtw_pairs)
+        sums = tdtw.dtw_batch(feats.cpu(), lens.cpu(), feats.cpu(), lens.cpu(),
+                              align_cfg).sum(dim=-1)
+        mh = int(torch.argmin(sums))
+        if mi != mh:
+            if abs(float(sums[mi] - sums[mh])) > 1e-4 * abs(float(sums[mh])):
+                fail(f"remainder condense: label {lab_id} medoid {mi}, the CPU's {mh}")
+            tied[lab_id] = True
+        medoids.append(int(rows[mi]))
+    out["condense"] = {"medoid_ties": int(tied.sum())}
+    for method in ("medoid", "dba"):
+        rec = KnnDtwRecognizer.from_arrays(*arrays, cfg, device=dev)
+        host = KnnDtwRecognizer.from_arrays(*arrays, cfg, device=cpu)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, launches = counted(lambda: rec.condense(method, n_iter=3))
+        secs = time.perf_counter() - t0
+        if launches != {"dtw_banded": len(DIGITS)}:
+            fail(f"remainder condense {method}: launches {launches}; expected kernel 1 "
+                 f"once a label ({len(DIGITS)})")
+        total += launches["dtw_banded"]
+        # one word's condense under the profiler (~26,000 device ops for dba):
+        # its host-clock time unprofiled, then its device ops and time
+        word = [KnnDtwRecognizer.from_arrays(*(a[:TEMPLATES_PER_WORD] for a in arrays[:3]),
+                                             arrays[3], cfg, device=dev) for _ in range(2)]
+        word_ms = synced_ms(lambda: word[0].condense(method, 3), 1)[0]
+        ops, dev_ms = device_ops(lambda: word[1].condense(method, 3))
+        host.condense(method, n_iter=3)
+        if method == "medoid" and not np.array_equal(np.stack(rec._bank_feats),
+                                                      arrays[0][medoids]):
+            fail("remainder condense medoid: the bank is not the medoid templates")
+        # a label whose medoid is a near-tie apart starts DBA elsewhere
+        g, w = np.stack(rec._bank_feats)[~tied], np.stack(host._bank_feats)[~tied]
+        center_abs = float(np.abs(g - w).max())
+        center_rel = float((np.abs(g - w) / (1.0 + np.abs(w))).max())
+        if (np.asarray(rec._bank_lens)[~tied] != np.asarray(host._bank_lens)[~tied]).any() \
+                or not np.allclose(g, w, rtol=REM_DBA_TOL, atol=REM_DBA_TOL):
+            fail(f"remainder condense {method}: centers {center_abs:.3e} from the CPU's, "
+                 f"past rtol/atol {REM_DBA_TOL}")
+        c_labels, c_launches = counted(lambda: rec.classify_batch(queries))
+        if c_launches != {"dtw_banded": chunks}:
+            fail(f"remainder condense {method}: classify launches {c_launches}")
+        total += c_launches["dtw_banded"]
+        c_ties = labels_vs_plain(f"condense {method}", c_labels, KnnDtwRecognizer.from_arrays(
+            *bank_arrays(rec), scan_cfg(cfg), device=dev))
+        c_s = pass_s(lambda: rec.classify_batch(queries))
+        rate = N_QUERIES * rec.n_templates / c_s
+        out["condense"][method] = dict(
+            seconds=secs, launches=launches, word_ms=word_ms, word_device_ops=ops,
+            word_device_ms=dev_ms, busy_share=None if dev_ms is None else dev_ms / word_ms,
+            center_max_abs_err_vs_cpu=center_abs, center_max_rel_err_vs_cpu=center_rel,
+            accuracy=accuracy(c_labels), full_bank_accuracy=accuracy(full_labels),
+            label_mismatches_at_near_ties=c_ties, classify_launches=c_launches,
+            alignments_per_s=rate, pass_seconds=c_s)
+        print(f"remainder condense {method}: {secs:.3f} s (kernel 1 launches "
+              f"{launches['dtw_banded']}); one word {word_ms:.3f} ms, {ops} device ops, "
+              f"device time {ms_text(dev_ms)}"
+              + ("" if dev_ms is None else f" (busy {dev_ms / word_ms:.3f})")
+              + f"; centers {center_abs:.3e} from the CPU's (max |a-b|/(1+|b|) "
+              f"{center_rel:.3e}, {int(tied.sum())} medoid near-ties); 10-template bank "
+              f"accuracy {accuracy(c_labels):.4f} against the full bank's "
+              f"{accuracy(full_labels):.4f}, {c_ties} labels apart from the plain route at "
+              f"near-ties, {rate:.1f} alignments/s (median {c_s:.4f} s a pass); on {smi}",
+              flush=True)
+    feats, lens = bank.feats[:TEMPLATES_PER_WORD], bank.length[:TEMPLATES_PER_WORD]
+    runs = [talign.dba_average(feats, lens, feats[0], int(lens[0]), 3, align_cfg)
+            for _ in range(2)]
+    if not torch.equal(runs[0], runs[1]):
+        fail("remainder condense: two DBA runs on the card differ")
+
+    lap("condense")
+
+    # (3) the VQ recognizer at the default VqConfig
+    vq_cfg = VqConfig()
+    vq = VqRecognizer(cfg, vq_cfg, device=dev)
+    host = VqRecognizer(cfg, vq_cfg, device=cpu)
+    for lab in DIGITS:
+        vq.enroll(lab, bank_sigs[lab])
+        host.enroll(lab, bank_sigs[lab])
+    frames, mask = vq.pooled_frames()
+    init = tvq.kmeans_init(frames, mask, vq_cfg.n_codes)
+    fc, mc, ic = frames.cpu(), mask.cpu(), init.cpu()
+    d_host = tvq._sq_dists(fc, ic)
+    a_dev = torch.argmin(tvq._sq_dists(frames, init), dim=-1).cpu()
+    a_host = torch.argmin(d_host, dim=-1)
+    top2 = torch.topk(d_host, 2, dim=-1, largest=False).values
+    tie = (top2[..., 1] - top2[..., 0]) <= 1e-5 * top2[..., 0]
+    apart = (a_dev != a_host) & (mc > 0)
+    if (apart & ~tie).any():
+        fail(f"remainder vq: {int((apart & ~tie).sum())} assignments of one Lloyd step "
+             "differ from the CPU's outside near-ties")
+    step_d, step_h = tvq.lloyd_step(frames, mask, init).cpu(), tvq.lloyd_step(fc, mc, ic)
+    # codes whose members differ at a near-tie are not held to the centroid bound
+    moved = torch.zeros(step_h.shape[:2], dtype=torch.bool)
+    for w_i, n_i in zip(*torch.nonzero(apart, as_tuple=True)):
+        moved[w_i, a_dev[w_i, n_i]] = moved[w_i, a_host[w_i, n_i]] = True
+    step_abs = float((step_d - step_h).abs()[~moved].max())
+    step_err = float(((step_d - step_h).abs() / (1.0 + step_h.abs()))[~moved].max())
+    if step_err > REM_VQ_STEP_TOL:
+        fail(f"remainder vq: one Lloyd step's centroids {step_err:.3e} (max |a-b|/(1+|b|); "
+             f"{step_abs:.3e} absolute) from the CPU's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_, launches) = counted(vq.fit)
+    fit_s = time.perf_counter() - t0
+    host.fit()
+    cb_err = float(np.abs(vq.codebooks - host.codebooks).max())
+    (vq_labels, vq_d), v_launches = counted(
+        lambda: vq.classify_batch(queries, return_distances=True))
+    if launches or v_launches:
+        fail(f"remainder vq: launched {launches or v_launches}; VQ has no kernel")
+    cross = VqRecognizer(cfg, vq_cfg, device=dev)
+    cross.labels, cross.codebooks = host.labels, host.codebooks
+    h_labels, h_d = cross.classify_batch(queries, return_distances=True)
+    fit_apart = np.array([a != b for a, b in zip(vq_labels, h_labels)])
+    if (fit_apart & ~near_ties(h_d)).any():
+        fail(f"remainder vq: the card's fit labels {int(fit_apart.sum())} queries apart "
+             f"from a CPU fit's (codebooks {cb_err:.3e} apart)")
+    clips = [synth_connected([DIGITS[(i + j) % 10] for j in range(CONN_WORDS)],
+                             300 + i)[:CONN_SAMPLES] for i in range(CONN_RECORDINGS)]
+    same = VqRecognizer(cfg, vq_cfg, device=cpu)
+    same.labels, same.codebooks = vq.labels, vq.codebooks
+    conn = vq.classify_connected(clips, CONN_MAX_SEGMENTS)
+    if conn != same.classify_connected(clips, CONN_MAX_SEGMENTS):
+        fail("remainder vq: classify_connected differs from the CPU's")
+    conn_exact = float(np.mean([c == [DIGITS[(i + j) % 10] for j in range(CONN_WORDS)]
+                                for i, c in enumerate(conn)]))
+    vq_s = pass_s(lambda: vq.classify_batch(queries))
+    out["vq"] = dict(fit_seconds=fit_s, accuracy=accuracy(vq_labels),
+                     queries_per_s=N_QUERIES / vq_s, pass_seconds=vq_s,
+                     step_assignments_apart_at_near_ties=int(apart.sum()),
+                     step_centroid_max_abs_err=step_abs, step_centroid_max_rel_err=step_err,
+                     codebook_max_abs_err_vs_cpu_fit=cb_err,
+                     labels_apart_from_cpu_fit_at_near_ties=int(fit_apart.sum()),
+                     connected_recordings_exact=conn_exact)
+    print(f"remainder vq: fit {fit_s:.3f} s ({vq_cfg.n_codes} codes, {vq_cfg.n_iter} "
+          f"iterations), accuracy {accuracy(vq_labels):.4f}, {N_QUERIES / vq_s:.1f} "
+          f"queries/s (median {vq_s:.4f} s a pass); one Lloyd step: {int(apart.sum())} "
+          f"assignments apart at near-ties, centroids {step_abs:.3e} from the CPU's "
+          f"(max |a-b|/(1+|b|) {step_err:.3e}); "
+          f"whole fits' codebooks {cb_err:.3e} apart, {int(fit_apart.sum())} labels apart "
+          f"at near-ties; classify_connected equal to the CPU's ({conn_exact:.4f} of "
+          f"{CONN_RECORDINGS} recordings exact); on {smi}", flush=True)
+
+    lap("vq")
+
+    # (4) the windowed and bidirectional scans against the full-width scan
+    b, k, t, u = MAIN_SHAPE
+    q, ql, bk, bl = dtw_inputs(np.random.default_rng([seed, 4]), dev, b, k, t, u)
+    dcfg = DtwConfig()
+    window = tbanded.window_for_band(dcfg.band_frac, t, u)
+    runs = {"scan": lambda: tdtw.dtw_batch(q, ql, bk, bl, dcfg),
+            "windowed": lambda: tbanded.dtw_batch_windowed(q, ql, bk, bl, window, dcfg),
+            "bidi": lambda: tdtw.dtw_batch_bidi(q, ql, bk, bl, dcfg)}
+    ref = runs["scan"]()
+    out["scans"] = {"window": window}
+    for name, fn in runs.items():
+        if name != "scan":
+            rel, abs_err, fin = compare_dtw(fn(), ref, REM_SCAN_RTOL)
+            out["scans"][name] = dict(max_rel_err=rel, max_abs_err=abs_err)
+        out["scans"].setdefault(name, {})["ms"] = time_ms(fn, reps=3, warmup=False)
+    print(f"remainder scans at {b} x {k}, T = U = {t}: "
+          + ", ".join(f"{name} {out['scans'][name]['ms']:.3f} ms" for name in runs)
+          + f" (window {window}); windowed and bidi rel err "
+          f"{out['scans']['windowed']['max_rel_err']:.3e} / "
+          f"{out['scans']['bidi']['max_rel_err']:.3e} against the scan (rtol "
+          f"{REM_SCAN_RTOL}, BIG pattern equal); on {smi}", flush=True)
+
+    lap("scans")
+
+    # (5) extract_mfcc and the exact-rFFT path against the DFT path
+    one = dsp_tpu_torch.extract_mfcc(queries[0], cfg, device=dev)
+    ref = main.extract(queries[:1])
+    ref = ref.feats[0, : int(ref.length[0])].cpu().numpy()
+    if one.shape != ref.shape or not np.allclose(one, ref, rtol=1e-3, atol=1e-3):
+        fail("remainder: extract_mfcc differs from the recognizer's features")
+    x, _ = pl.pad_signals(queries[:256], cfg.max_samples, dev)
+    fft = fe.mfcc(x, cfg.frontend, use_fft=True)
+    dft = fe.mfcc(x, cfg.frontend)
+    fft_err = float((fft - dft).abs().max())
+    if not torch.allclose(fft, dft, rtol=1e-3, atol=1e-3):
+        fail(f"remainder: mfcc(use_fft=True) {fft_err:.3e} from the DFT path")
+    out["mfcc_fft_max_abs_err"] = fft_err
+    lap("mfcc")
+    out["section_seconds"] = laps
+    print(f"remainder: extract_mfcc equal to the recognizer's features ({one.shape}); "
+          f"mfcc(use_fft=True) {fft_err:.3e} from the DFT path on {x.shape[0]} "
+          f"utterances; the phase {sum(laps.values()):.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")", flush=True)
+    return total
+
+
 def walk_counts(strips, cost_cells, lens_a, lens_b, pad_a: int, pad_b: int):
     """(costs computed, lane-steps) of kernel 4 or 3 for these lengths, from
     the walk its wrapper module states (``strips``, ``cost_cells``)."""
@@ -2968,7 +3328,7 @@ def main() -> int:
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
               "streaming": {}, "hmm": {}, "cascade": {}, "connected": {},
-              "nvidia_smi": smi}
+              "remainder": {}, "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
     mfcc_phase(dev, report)
@@ -2988,6 +3348,8 @@ def main() -> int:
     launches["spot_subseq"] += report["cascade"]["launches"]["spot_subseq"]
     report["connected"]["launches"] = {"dtw_banded": connected_phase(args.seed, dev, report)}
     launches["dtw_banded"] += report["connected"]["launches"]["dtw_banded"]
+    report["remainder"]["launches"] = {"dtw_banded": remainder_phase(args.seed, dev, report)}
+    launches["dtw_banded"] += report["remainder"]["launches"]["dtw_banded"]
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")
 

@@ -13,7 +13,10 @@ rejection, PMC noise adaptation) with its keyword spotters
 ``dsp_tpu_torch.models``), and connected-word decoding (both recognizers'
 ``classify_connected``: the multi-segment VAD split, or level building
 and the connected Viterbi with word-pair grammars; online through
-``models.streaming.StreamingConnectedRecognizer``), with five
+``models.streaming.StreamingConnectedRecognizer``), the VQ-codebook
+recognizer (``VqRecognizer``), template condensing
+(``KnnDtwRecognizer.condense``: medoid or DTW barycenter averaging) and
+LPCC features (``FrontendConfig(feature_type="lpcc")``), with five
 hand-written CUDA kernels for NVIDIA Hopper: banded DTW
 (``csrc/dtw_banded.cu``), the fused MFCC front-end (``csrc/mfcc_fused.cu``),
 subsequence DTW (``csrc/spot_subseq.cu``), unbanded closed-form DTW
@@ -42,6 +45,10 @@ Quick start::
     words = rec.classify_connected([recording])              # VAD split
     words = rec.classify_connected([recording], method="level",
                                    grammar={"no_repeat": True})
+    rec.condense("dba")                      # one averaged template a word
+    vq = VqRecognizer()                      # on the card
+    vq.fit({"yes": [signal1, signal2], "no": [signal3, signal4]})
+    label = vq.recognize(test_signal)
 """
 
 import torch
@@ -68,16 +75,30 @@ from dsp_tpu_torch.models.gmm_hmm import GmmHmmRecognizer  # noqa: E402
 from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer  # noqa: E402
 from dsp_tpu_torch.models.spotter import KeywordSpotter  # noqa: E402
 from dsp_tpu_torch.models.streaming import StreamingRecognizer  # noqa: E402
+from dsp_tpu_torch.models.vq import VqRecognizer  # noqa: E402
 from dsp_tpu_torch.pipeline import (  # noqa: E402
     Features,
     classify_features,
     extract_features,
+    extract_signals,
     recognize_batch,
+    recognize_connected_batch,
 )
+
+
+def extract_mfcc(x, cfg: PipelineConfig = PipelineConfig(),
+                 device: str | torch.device = "cuda"):
+    """One host signal -> numpy features [T, n_feats], VAD-trimmed (the
+    reference's ``mfcc(x, sr) -> [T, C]`` surface; LPCC where
+    ``cfg.frontend.feature_type`` says so)."""
+    feats = extract_signals([x], cfg, device)
+    return feats.feats[0, : int(feats.length[0])].cpu().numpy()
+
 
 __all__ = [
     "FrontendConfig", "VadConfig", "DtwConfig", "HmmConfig", "VqConfig",
     "PipelineConfig", "KnnDtwRecognizer", "GmmHmmRecognizer", "KeywordSpotter",
-    "StreamingRecognizer", "Features",
+    "StreamingRecognizer", "VqRecognizer", "Features",
     "extract_features", "classify_features", "recognize_batch",
+    "recognize_connected_batch", "extract_mfcc",
 ]

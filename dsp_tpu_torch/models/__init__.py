@@ -6,7 +6,8 @@ from dsp_tpu_torch.models.spotter import (CascadeSpotter, HmmSpotter, KeywordSpo
                                           StreamingCascadeSpotter, StreamingHmmSpotter,
                                           StreamingSpotter)
 from dsp_tpu_torch.models.streaming import StreamingRecognizer
+from dsp_tpu_torch.models.vq import VqRecognizer
 
 __all__ = ["KnnDtwRecognizer", "GmmHmmRecognizer", "KeywordSpotter", "StreamingRecognizer",
            "StreamingSpotter", "HmmSpotter", "StreamingHmmSpotter", "CascadeSpotter",
-           "StreamingCascadeSpotter"]
+           "StreamingCascadeSpotter", "VqRecognizer"]

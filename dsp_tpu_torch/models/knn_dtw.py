@@ -16,6 +16,7 @@ enrolled by either package loads in the other (:meth:`KnnDtwRecognizer.load`,
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -23,6 +24,7 @@ import torch
 
 from dsp_tpu_torch import pipeline as pl
 from dsp_tpu_torch.config import PipelineConfig
+from dsp_tpu_torch.ops import align as talign
 from dsp_tpu_torch.ops.grammar import Grammar
 
 NO_MATCH = "<no-match>"     # vote row with no live candidate (sentinel -1)
@@ -355,8 +357,39 @@ class KnnDtwRecognizer:
             self.device)
         return (out, starts, ends, n_segs) if return_segments else out
 
-    def condense(self, *args, **kwargs):
-        raise _not_ported("condense", "queue 1, item 14")
+    def condense(self, method: str = "dba", n_iter: int = 3) -> None:
+        """Collapse each label's templates into one: the medoid, or with
+        ``method="dba"`` the DTW barycenter average started from it.
+
+        Shrinks the bank K-fold at a little accuracy.  Alignments run
+        unbanded with the config's slope (condensing is offline, and the
+        averages are better with exact alignments); on the card each
+        label's all-pairs medoid distances are one launch of the banded
+        DTW kernel in its unbanded mode (``pipeline.dtw_pairs``), and the
+        averaging is ``ops/align.py:dba_average``."""
+        if method not in ("dba", "medoid"):
+            raise ValueError(f"unknown condense method {method!r} (dba | medoid)")
+        align_cfg = dataclasses.replace(self.cfg.dtw, band_frac=None)
+        new_feats, new_lens, new_ids = [], [], []
+        for label_id in range(len(self.labels)):
+            idx = [i for i, lab in enumerate(self._bank_label_ids) if lab == label_id]
+            if not idx:
+                continue
+            feats = torch.as_tensor(np.stack([self._bank_feats[i] for i in idx]),
+                                    dtype=torch.float32, device=self.device)
+            lens = torch.as_tensor(np.asarray([self._bank_lens[i] for i in idx],
+                                              np.int32), device=self.device)
+            mi = talign.medoid(feats, lens, align_cfg, pl.dtw_pairs)
+            center, len_c = feats[mi], int(self._bank_lens[idx[mi]])
+            if method == "dba" and len(idx) > 1:
+                center = talign.dba_average(feats, lens, center, len_c, n_iter,
+                                            align_cfg)
+            new_feats.append(center.cpu().numpy())
+            new_lens.append(len_c)
+            new_ids.append(label_id)
+        self._bank_feats, self._bank_lens = new_feats, new_lens
+        self._bank_label_ids = new_ids
+        self._device_bank = None
 
     # ---------------------------------------------------------- checkpoint
     def save(self, path: str) -> None:

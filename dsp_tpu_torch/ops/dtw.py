@@ -1,5 +1,7 @@
 """Plain DTW in PyTorch (port of ``dsp_tpu/ops/dtw.py``): all pairs
-(:func:`dtw_batch`) and paired (:func:`dtw_pairs_scan`).
+(:func:`dtw_batch`), paired (:func:`dtw_pairs_scan`), one pair
+(:func:`dtw_distance`), and the bidirectional half-depth scan
+(:func:`dtw_batch_bidi`).
 
 This is the port's CPU path and, on the card, the oracle that the DTW
 kernels are held to (kernels/dtw_fused_banded.py; the wavefront kernel of
@@ -85,6 +87,34 @@ def _start_column(d_prev: torch.Tensor, first_row: bool) -> torch.Tensor:
     return torch.full_like(d_prev[..., :1], 0.0 if first_row else BIG)
 
 
+def _row_step(d_prev: torch.Tensor, c_row: torch.Tensor,
+              first_row: bool) -> torch.Tensor:
+    """One row of the unconstrained DP: D_i [..., U] from D_{i-1} and the
+    row's costs (every scan of this module and ``ops/align.py``'s tables
+    take this step, so their cells agree bit for bit)."""
+    shifted = torch.cat([_start_column(d_prev, first_row), d_prev[..., :-1]], dim=-1)
+    return _minplus_scan(torch.minimum(d_prev, shifted) + c_row, c_row)
+
+
+def _itakura_row_step(d_prev: torch.Tensor, n_prev: torch.Tensor,
+                      c_row: torch.Tensor, first_row: bool):
+    """One row of the Itakura DP -> (D_i, N_i):
+
+        N_i = c_i + min(shift1(D_{i-1}), shift2(D_{i-1}))
+        D_i = min(N_i, c_i + N_{i-1})"""
+    u = d_prev.shape[-1]
+    s1 = torch.cat([_start_column(d_prev, first_row), d_prev[..., :-1]], dim=-1)
+    s2 = torch.cat([torch.full_like(d_prev[..., :2], BIG), d_prev[..., :-2]],
+                   dim=-1)[..., :u]
+    n_row = c_row + torch.minimum(s1, s2)
+    return torch.minimum(n_row, c_row + n_prev), n_row
+
+
+def _one_len(n, like: torch.Tensor) -> torch.Tensor:
+    """A length (int or tensor) as the [1] int64 tensor of one pair."""
+    return torch.as_tensor(n, device=like.device).reshape(1).to(torch.int64)
+
+
 def _read_answer(d_row: torch.Tensor, len_b: torch.Tensor) -> torch.Tensor:
     col = torch.clamp(len_b.to(torch.int64) - 1, min=0)[..., None]
     return torch.take_along_dim(d_row, col, dim=-1)[..., 0]
@@ -100,11 +130,7 @@ def dtw_from_cost(cost: torch.Tensor, len_a: torch.Tensor,
     d_prev = torch.full_like(cost[..., 0, :], BIG)
     acc = torch.zeros_like(cost[..., 0, 0])
     for i in range(t):
-        c_row = cost[..., i, :]
-        shifted = torch.cat([_start_column(d_prev, i == 0), d_prev[..., :-1]],
-                            dim=-1)
-        a = torch.minimum(d_prev, shifted) + c_row
-        d_prev = _minplus_scan(a, c_row)
+        d_prev = _row_step(d_prev, cost[..., i, :], i == 0)
         acc = torch.where(len_a == i + 1, _read_answer(d_prev, len_b), acc)
     return acc / (len_a + len_b).to(cost.dtype)
 
@@ -113,24 +139,15 @@ def dtw_from_cost_itakura(cost: torch.Tensor, len_a: torch.Tensor,
                           len_b: torch.Tensor) -> torch.Tensor:
     """Itakura slope-constrained DP over masked costs [..., T, U].
 
-    Steps {(1,0),(1,1),(1,2)}, no two consecutive (1,0):
-
-        N_i = c_i + min(shift1(D_{i-1}), shift2(D_{i-1}))
-        D_i = min(N_i, c_i + N_{i-1})
-
-    Each row is elementwise work on the previous row."""
-    t, u = cost.shape[-2:]
+    Steps {(1,0),(1,1),(1,2)}, no two consecutive (1,0)
+    (:func:`_itakura_row_step`); each row is elementwise work on the
+    previous row."""
+    t = cost.shape[-2]
     d_prev = torch.full_like(cost[..., 0, :], BIG)
     n_prev = torch.full_like(d_prev, BIG)
     acc = torch.zeros_like(cost[..., 0, 0])
-    big2 = torch.full_like(d_prev[..., :2], BIG)
     for i in range(t):
-        c_row = cost[..., i, :]
-        s1 = torch.cat([_start_column(d_prev, i == 0), d_prev[..., :-1]], dim=-1)
-        s2 = torch.cat([big2, d_prev[..., :-2]], dim=-1)[..., :u]
-        n_row = c_row + torch.minimum(s1, s2)
-        d_prev = torch.minimum(n_row, c_row + n_prev)
-        n_prev = n_row
+        d_prev, n_prev = _itakura_row_step(d_prev, n_prev, cost[..., i, :], i == 0)
         acc = torch.where(len_a == i + 1, _read_answer(d_prev, len_b), acc)
     return acc / (len_a + len_b).to(cost.dtype)
 
@@ -199,10 +216,16 @@ def window_valid(t: int, u: int, len_a: torch.Tensor, len_b: torch.Tensor,
 
 
 def _mask_cost(sq: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
-               cfg: DtwConfig) -> torch.Tensor:
+               cfg: DtwConfig, window_mask: torch.Tensor | None = None
+               ) -> torch.Tensor:
     """Squared costs [*P, T, U] + lengths broadcastable to P -> local cost
     (sqrt unless ``cfg.squared``) with BIG at cells outside the lengths,
-    the integer band and the window schedule."""
+    the integer band and the window schedule.
+
+    ``window_mask`` [*P, T, U] (True = inside) replaces the window
+    schedule: the bidirectional scan hands each half-depth pass its slice
+    of the full problem's schedule, which a schedule planned from the
+    half's own row count would narrow."""
     cost = sq if cfg.squared else torch.sqrt(sq)
     t, u = cost.shape[-2:]
     dev = cost.device
@@ -215,7 +238,9 @@ def _mask_cost(sq: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
         lbm1 = (lb - 1)[..., None, None]
         r2 = band_r2(la, lb, cfg.band_frac)                   # [*P]
         invalid = invalid | (torch.abs(j * lam1 - i * lbm1) > r2[..., None, None])
-        invalid = invalid | ~window_valid(t, u, la, lb, r2, cfg)
+        if window_mask is None:
+            window_mask = window_valid(t, u, la, lb, r2, cfg)
+        invalid = invalid | ~window_mask
     return torch.where(invalid, torch.full_like(cost, BIG), cost)
 
 
@@ -261,6 +286,19 @@ def dtw_batch(queries: torch.Tensor, q_lens: torch.Tensor,
     return torch.cat(outs, dim=0)
 
 
+def dtw_distance(a: torch.Tensor, b: torch.Tensor,
+                 len_a: torch.Tensor | int | None = None,
+                 len_b: torch.Tensor | int | None = None,
+                 cfg: DtwConfig = DtwConfig()) -> torch.Tensor:
+    """DTW distance between a [T,F] and b [U,F] (padded, with true
+    lengths; default the whole sequences) -> scalar tensor: one pair of
+    :func:`dtw_batch`, through the same masked cost and row DP."""
+    la = _one_len(a.shape[0] if len_a is None else len_a, a)
+    lb = _one_len(b.shape[0] if len_b is None else len_b, a)
+    cost = masked_cost_pairs(a[None], la, b[None], lb, cfg)
+    return _dp_for(cfg)(cost, la, lb)[0]
+
+
 def dtw_pairs_scan(a: torch.Tensor, len_a: torch.Tensor,
                    b: torch.Tensor, len_b: torch.Tensor,
                    cfg: DtwConfig = DtwConfig()) -> torch.Tensor:
@@ -276,3 +314,92 @@ def dtw_pairs_scan(a: torch.Tensor, len_a: torch.Tensor,
         cost = masked_cost_pairs(a[lo:lo + step], la, b[lo:lo + step], lb, cfg)
         outs.append(dp(cost, la.to(torch.int64), lb.to(torch.int64)))
     return torch.cat(outs, dim=0)
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [N, T, ...] gathered along axis 1 at per-row indices idx [N, R]."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+def _bidi_chunk(queries, q_lens, bank, bank_lens, cfg: DtwConfig):
+    """All-pairs bidirectional DTW of one query chunk -> [B, K]."""
+    b, t, _ = queries.shape
+    k, u, _ = bank.shape
+    dev = queries.device
+    la, lb = q_lens.to(torch.int64), bank_lens.to(torch.int64)
+    n_rows = t // 2 + 1
+    idx_n = torch.arange(n_rows, device=dev)
+    idx_u = torch.arange(u, device=dev)
+    m_f = torch.div(la, 2, rounding_mode="floor")
+    m_r = la - 1 - m_f                              # reversed row index of m_f
+    rows_r = torch.clamp(la[:, None] - 1 - idx_n, 0, t - 1)          # [B, n_rows]
+    cols_r = torch.clamp(lb[:, None] - 1 - idx_u, 0, u - 1)          # [K, U]
+    a_r = _take_rows(queries, rows_r)
+    b_rev = _take_rows(bank, cols_r)
+    la2, lb2 = la[:, None], lb[None, :]
+    # The rhombus band is point-symmetric under (i, j) -> (la-1-i, lb-1-j),
+    # so each half evaluates it in its own coordinates; the quantised
+    # window schedule is planned over the full row count and handed to
+    # the forward half as its row prefix, to the backward half reflected.
+    wv_f = wv_b = None
+    if cfg.band_frac is not None and cfg.max_warp_scale is not None:
+        wv = window_valid(t, u, la2, lb2, band_r2(la2, lb2, cfg.band_frac), cfg)
+        wv_f = wv[..., :n_rows, :]
+        wv_b = wv[torch.arange(b, device=dev)[:, None, None, None],
+                  torch.arange(k, device=dev)[None, :, None, None],
+                  rows_r[:, None, :, None], cols_r[None, :, None, :]]
+    cost_f = _mask_cost(pairwise_sq_cost(queries[:, None, :n_rows], bank[None]),
+                        la2, lb2, cfg, wv_f)                        # [B, K, n_rows, U]
+    cost_b = _mask_cost(pairwise_sq_cost(a_r[:, None], b_rev[None]),
+                        la2, lb2, cfg, wv_b)
+    cost2 = torch.stack([cost_f, cost_b], dim=-2)                   # [B, K, n_rows, 2, U]
+    m2 = torch.stack([m_f, m_r], dim=-1)[:, None, :, None]          # [B, 1, 2, 1]
+    d_prev = torch.full_like(cost2[..., 0, :, :], BIG)
+    kept = torch.full_like(d_prev, BIG)
+    for i in range(n_rows):
+        d_prev = _row_step(d_prev, cost2[..., i, :, :], i == 0)
+        kept = torch.where(m2 == i, d_prev, kept)
+    f_row = kept[..., 0, :]
+    # align the backward row: B[m_f, j] = F_rev[m_r, lb-1-j]
+    b_row = torch.take_along_dim(kept[..., 1, :], cols_r[None], dim=-1)
+    m_row = torch.clamp(m_f, 0, n_rows - 1)[:, None, None, None].expand(b, k, 1, u)
+    c_row = torch.take_along_dim(cost_f, m_row, dim=-2)[..., 0, :]
+    comb = f_row + b_row - c_row
+    # columns >= lb hold BIG + finite - BIG == 0 in float32: mask them out
+    total = torch.where(idx_u < lb[None, :, None], comb,
+                        torch.full_like(comb, BIG)).amin(dim=-1)
+    return total / (la2 + lb2).to(queries.dtype)
+
+
+def dtw_batch_bidi(queries: torch.Tensor, q_lens: torch.Tensor,
+                   bank: torch.Tensor, bank_lens: torch.Tensor,
+                   cfg: DtwConfig = DtwConfig()) -> torch.Tensor:
+    """All-pairs DTW by bidirectional (Hirschberg-split) row scans ->
+    [B, K], the same function as :func:`dtw_batch`.
+
+    Every monotone warp path visits row m = len_a // 2, so
+    D = min_j (F[m, j] + B[m, j] - cost[m, j]) with F the forward DP into
+    (m, j) and B the backward DP from it (a forward DP on the reversed
+    sequences).  Both half-depth scans run stacked in one row loop of
+    T // 2 + 1 rows.  A measured-negative path in the JAX package that no
+    default reaches; queries run in chunks of at most ``_MAX_COST_CELLS``
+    cost cells."""
+    if cfg.slope is not None:
+        # the F+B merge at the split row cannot see the vertical-step
+        # flag across the seam (two (1,0) steps could meet there)
+        raise ValueError("dtw_batch_bidi does not support cfg.slope")
+    b, t, _ = queries.shape
+    k, u, _ = bank.shape
+    step = max(1, _MAX_COST_CELLS // max(1, 2 * k * (t // 2 + 1) * u))
+    return torch.cat([_bidi_chunk(queries[lo:lo + step], q_lens[lo:lo + step],
+                                  bank, bank_lens, cfg)
+                      for lo in range(0, b, step)]
+                     + [queries.new_zeros((0, k))], dim=0)
+
+
+def dtw_distance_bidi(a: torch.Tensor, b: torch.Tensor,
+                      len_a: torch.Tensor | int, len_b: torch.Tensor | int,
+                      cfg: DtwConfig = DtwConfig()) -> torch.Tensor:
+    """Bidirectional DTW of one pair a [T,F] vs b [U,F] -> scalar tensor."""
+    return dtw_batch_bidi(a[None], _one_len(len_a, a), b[None], _one_len(len_b, a),
+                          cfg)[0, 0]

@@ -146,6 +146,13 @@ def frame(x: torch.Tensor, frame_len: int, hop_len: int) -> torch.Tensor:
     return x.unfold(-1, frame_len, hop_len)
 
 
+def power_spectrum_fft(wframes: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """Exact rFFT power spectrum (the parity path; ``torch.fft.rfft``
+    truncates or zero-pads each frame to ``n_fft``)."""
+    spec = torch.fft.rfft(wframes, n=n_fft, dim=-1)
+    return (spec.real ** 2 + spec.imag ** 2) / float(n_fft)
+
+
 def power_spectrum_dft(wframes: torch.Tensor, mats: FrontendMatrices,
                        n_fft: int) -> torch.Tensor:
     """rFFT power as two fp32 GEMMs (TF32 is off package-wide)."""
@@ -228,11 +235,15 @@ def mfcc_from_pspec(pspec: torch.Tensor, frames_: torch.Tensor,
 
 
 def mfcc_from_frames(frames_: torch.Tensor, mats: FrontendMatrices,
-                     cfg: FrontendConfig = FrontendConfig()) -> torch.Tensor:
+                     cfg: FrontendConfig = FrontendConfig(),
+                     use_fft: bool = False) -> torch.Tensor:
     """Frames of the pre-emphasised signal [..., T, L] -> MFCC [..., T, C].
 
-    The plain version of the fused MFCC kernel (kernels/mfcc_fused.py)."""
-    pspec = power_spectrum(frames_, mats, cfg)
+    The plain version of the fused MFCC kernel (kernels/mfcc_fused.py);
+    ``use_fft`` takes the power spectrum from :func:`power_spectrum_fft`
+    instead."""
+    pspec = (power_spectrum_fft(frames_ * mats.window, cfg.n_fft) if use_fft
+             else power_spectrum(frames_, mats, cfg))
     if cfg.denoise == "spectral_subtraction":
         pspec = spectral_subtract(pspec, cfg)
     elif cfg.denoise is not None:
@@ -241,17 +252,15 @@ def mfcc_from_frames(frames_: torch.Tensor, mats: FrontendMatrices,
 
 
 def mfcc(x: torch.Tensor, cfg: FrontendConfig = FrontendConfig(),
-         mats: FrontendMatrices | None = None) -> torch.Tensor:
-    """Signal [..., N] -> MFCC [..., T, n_mfcc]."""
-    if cfg.feature_type != "mfcc":
-        raise NotImplementedError(
-            f"feature_type={cfg.feature_type!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 14)")
+         mats: FrontendMatrices | None = None,
+         use_fft: bool = False) -> torch.Tensor:
+    """Signal [..., N] -> MFCC [..., T, n_mfcc] (whatever
+    ``cfg.feature_type`` says: the pipeline picks LPCC, ``ops/lpc.py``)."""
     if mats is None:
         mats = make_matrices(cfg, x.device)
     y = preemphasis(x, cfg.preemphasis)
     frames_ = frame(y, cfg.frame_len, cfg.hop_len)
-    return mfcc_from_frames(frames_, mats, cfg)
+    return mfcc_from_frames(frames_, mats, cfg, use_fft)
 
 
 def time_normalize(feats: torch.Tensor, length: torch.Tensor,

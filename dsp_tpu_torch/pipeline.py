@@ -25,6 +25,7 @@ from dsp_tpu_torch.config import DtwConfig, PipelineConfig
 from dsp_tpu_torch.ops import dtw as tdtw
 from dsp_tpu_torch.ops import frontend as fe
 from dsp_tpu_torch.ops import level_building as lb
+from dsp_tpu_torch.ops import lpc
 from dsp_tpu_torch.ops import vad as tvad
 
 # Distances at or above this are dead (unreachable or masked) candidates:
@@ -50,12 +51,14 @@ def pad_signals(signals, max_samples: int, device: str | torch.device = "cuda"):
 
 
 def _cepstra(signals: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
-    """Padded signals [B, N] -> cepstra [B, T, n_mfcc]."""
+    """Padded signals [B, N] -> cepstra [B, T, n_mfcc].
+
+    ``feature_type`` is read before ``impl``: LPCC has no kernel, so
+    ``impl="pallas"`` with ``"lpcc"`` computes plain LPCC, as in the JAX
+    package."""
     f = cfg.frontend
-    if f.feature_type != "mfcc":
-        raise NotImplementedError(
-            f"feature_type={f.feature_type!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 14)")
+    if f.feature_type == "lpcc":
+        return lpc.lpcc(signals, f)
     if f.impl == "pallas":
         from dsp_tpu_torch.kernels.mfcc_fused import mfcc_fused
         return mfcc_fused(signals, f)
@@ -128,13 +131,11 @@ def extract_features(signals: torch.Tensor, n_samples: torch.Tensor,
 
 def _plain_cepstra(signals: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
     """Padded recordings [B, N] -> cepstra [B, T, n_mfcc] from the plain
-    MFCC whatever ``FrontendConfig.impl`` says: the connected-word front
-    halves take it, as in the JAX package."""
+    LPCC or MFCC whatever ``FrontendConfig.impl`` says: the connected-word
+    front halves take it, as in the JAX package."""
     f = cfg.frontend
     if f.feature_type == "lpcc":
-        raise NotImplementedError(
-            "feature_type='lpcc' is not ported yet (ROADMAP.md queue 1, "
-            "item 14)")
+        return lpc.lpcc(signals, f)
     return fe.mfcc(signals, f, fe.make_matrices(f, signals.device))
 
 

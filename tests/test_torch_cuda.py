@@ -38,6 +38,12 @@ level-building costs at rtol 1e-4 with the BIG pattern equal, words and
 starts equal except at sites whose costs agree (near-ties, under 1 %);
 streaming level building bit-equal to the card's batch DP under any
 chunking; decoded labels and streaming events equal to the CPU's.
+LPCC, condensing and VQ (no kernel of their own; a classify and the
+medoid's all-pairs distances are kernel 1): LPCC features at rtol/atol
+1e-3 with VAD lengths equal and no kernel 2 under ``impl="pallas"``;
+medoids equal, DBA centers at rtol/atol 1e-4 and bit-equal from run to
+run (no atomics in the sums); one Lloyd step's assignments equal and
+centroids within 1e-5; labels equal to the CPU's.
 """
 
 import dataclasses
@@ -1409,3 +1415,98 @@ def test_connected_decoders_on_the_card_match_the_cpu(dev):
     events = _feed_all(StreamingConnectedRecognizer(rec, max_levels=4), sig)
     assert events == _feed_all(StreamingConnectedRecognizer(rec_cpu, max_levels=4), sig)
     assert [w for ev in events for w in ev[0]] == ["three", "one"]
+
+
+def _cpu_twin(rec):
+    return KnnDtwRecognizer.from_arrays(np.stack(rec._bank_feats), rec._bank_lens,
+                                        rec._bank_label_ids, rec.labels, rec.cfg,
+                                        device="cpu")
+
+
+def test_lpcc_on_the_card_matches_the_cpu(dev):
+    cfg = PipelineConfig(frontend=FrontendConfig(feature_type="lpcc"))
+    sigs = [synth_word(lab, 40 + i) for i, lab in enumerate(["one", "six", "nine"] * 2)]
+    x, n = tpl.pad_signals(sigs, cfg.max_samples, "cpu")
+    want = tpl.extract_features(x, n, cfg)
+    before = dict(_build.LAUNCHES)
+    for impl in ("xla", "pallas"):
+        c = dataclasses.replace(cfg, frontend=FrontendConfig(feature_type="lpcc",
+                                                             impl=impl))
+        got = tpl.extract_features(x.to(dev), n.to(dev), c)
+        assert torch.equal(got.length.cpu(), want.length)
+        np.testing.assert_allclose(got.feats.cpu().numpy(), want.feats.numpy(),
+                                   rtol=1e-3, atol=1e-3)
+    assert dict(_build.LAUNCHES) == before          # LPCC takes no kernel 2
+    rec = KnnDtwRecognizer(cfg, device=dev)
+    for lab in ("one", "six", "nine"):
+        rec.enroll(lab, [synth_word(lab, i) for i in range(3)])
+    labels = rec.classify_batch(sigs)
+    assert _build.LAUNCHES["dtw_banded"] - before["dtw_banded"] == 1
+    assert labels == _cpu_twin(rec).classify_batch(sigs)
+
+
+def test_condense_on_the_card_matches_the_cpu(dev):
+    from dsp_tpu_torch.ops import align as talign
+
+    labels = ["zero", "one", "two", "three"]
+    for method in ("medoid", "dba"):
+        rec = _small_bank(labels, 3, dev)
+        host = _cpu_twin(rec)
+        before = _build.LAUNCHES["dtw_banded"]
+        rec.condense(method)
+        # one unbanded kernel-1 launch a label's medoid batch
+        assert _build.LAUNCHES["dtw_banded"] - before == len(labels)
+        host.condense(method)
+        assert rec._bank_lens == host._bank_lens
+        np.testing.assert_allclose(np.stack(rec._bank_feats), np.stack(host._bank_feats),
+                                   rtol=1e-4, atol=1e-4)
+        queries = [synth_word(lab, 30 + i) for i, lab in enumerate(labels * 2)]
+        assert rec.classify_batch(queries) == host.classify_batch(queries)
+    # the DBA sums are GEMMs: two runs give the same bits
+    bank, _ = _small_bank(labels[:1], 4, dev).device_bank()
+    cfg = DtwConfig(band_frac=None)
+    runs = [talign.dba_average(bank.feats, bank.length, bank.feats[0],
+                               int(bank.length[0]), 3, cfg) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_vq_on_the_card_matches_the_cpu(dev):
+    from dsp_tpu_torch.config import VqConfig
+    from dsp_tpu_torch.models import vq as tvq
+
+    corpus = {lab: [synth_word(lab, i) for i in range(3)] for lab in ("zero", "one", "two")}
+    rec = tvq.VqRecognizer(PipelineConfig(), VqConfig(n_codes=16, n_iter=5), device=dev)
+    for lab, sigs in corpus.items():
+        rec.enroll(lab, sigs)
+    frames, mask = rec.pooled_frames()
+    init = tvq.kmeans_init(frames, mask, 16)
+    got = tvq.lloyd_step(frames, mask, init)
+    fc, mc, ic = frames.cpu(), mask.cpu(), init.cpu()
+    assert torch.equal(torch.argmin(tvq._sq_dists(frames, init), dim=-1).cpu(),
+                       torch.argmin(tvq._sq_dists(fc, ic), dim=-1))
+    np.testing.assert_allclose(got.cpu().numpy(), tvq.lloyd_step(fc, mc, ic).numpy(),
+                               rtol=0, atol=1e-5)
+    rec.fit()
+    host = tvq.VqRecognizer(PipelineConfig(), VqConfig(n_codes=16, n_iter=5),
+                            device="cpu")
+    host.labels, host.codebooks = rec.labels, rec.codebooks
+    queries = [synth_word(lab, 30 + i) for i, lab in enumerate(list(corpus) * 3)]
+    before = dict(_build.LAUNCHES)
+    assert rec.classify_batch(queries) == host.classify_batch(queries)
+    assert dict(_build.LAUNCHES) == before          # VQ takes no kernel
+
+
+def test_condense_and_vq_default_to_the_card(dev):
+    from dsp_tpu_torch import VqRecognizer
+
+    rec = KnnDtwRecognizer()
+    for lab in ("zero", "one"):
+        rec.enroll(lab, [synth_word(lab, i) for i in range(2)])
+    before = _build.LAUNCHES["dtw_banded"]
+    rec.condense("dba", n_iter=1)
+    assert _build.LAUNCHES["dtw_banded"] - before == 2
+    assert rec.device_bank()[0].feats.device.type == "cuda"
+    vq = VqRecognizer()
+    vq.fit({lab: [synth_word(lab, i) for i in range(2)] for lab in ("zero", "one")})
+    assert vq.extract([synth_word("one", 9)]).feats.device.type == "cuda"
+    assert vq.recognize(synth_word("one", 9)) in ("zero", "one")

@@ -80,6 +80,28 @@ def test_plain_dtw_matches_fused_banded_interpret(case):
     _assert_close(got, want, 2e-5)
 
 
+@pytest.mark.parametrize("case", ["sqrt", "itakura", "unbanded", "default_band",
+                                  "sliding", "sliding_itakura"])
+def test_dtw_distance_matches_jax_and_dtw_batch(case):
+    """The single-pair dtw_distance: JAX's at rtol 1e-5, and bit-equal to
+    the port's dtw_batch entry (the same masked cost and row DP)."""
+    kw, (b, t), (k, u) = CASES[case]
+    q, ql, bk, bl = _inputs(b, t, k, u, seed=5)
+    batch = _port(q, ql, bk, bl, DtwConfig(**kw))
+    for i, j in ((0, 0), (b - 1, k - 1)):
+        got = tdtw.dtw_distance(torch.from_numpy(q[i]), torch.from_numpy(bk[j]),
+                                int(ql[i]), int(bl[j]), DtwConfig(**kw))
+        assert got.item() == batch[i, j]
+        want = float(jdtw.dtw_distance(jnp.asarray(q[i]), jnp.asarray(bk[j]),
+                                       jnp.asarray(ql[i]), jnp.asarray(bl[j]),
+                                       JDtwConfig(**kw)))
+        _assert_close(np.float32([got.item()]), np.float32([want]), 1e-5)
+    # default lengths: the whole sequences
+    whole = tdtw.dtw_distance(torch.from_numpy(q[0]), torch.from_numpy(bk[0]),
+                              cfg=DtwConfig(**kw))
+    assert whole.item() == batch[0, 0]
+
+
 def test_sliding_cases_really_slide():
     from dsp_tpu_torch.window_plan import LANE, plan_window, round_up
     for t, u in ((120, 300), (64, 200)):

@@ -131,11 +131,52 @@ def test_wrapper_guards():
         kmf.mfcc_frames_fused(torch.zeros((2, 4, 400)), FrontendConfig())
 
 
-def test_lpcc_not_ported():
-    cfg = PipelineConfig(frontend=FrontendConfig(feature_type="lpcc"))
-    x = torch.from_numpy(np.stack([synth_word("one", 0)]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpl.extract_features(x, torch.tensor([32000]), cfg)
+@pytest.mark.parametrize("kw", [{}, {"use_energy": True}, {"n_fft": 256},
+                                {"denoise": "spectral_subtraction"}])
+def test_mfcc_use_fft_matches_jax(kw):
+    """The exact-rFFT parity path against JAX's and against the DFT-GEMM
+    chain, at the front-end tolerance (n_fft 256 < 400: both FFTs cut the
+    frame to n_fft)."""
+    tc, jc = _both(**kw)
+    got = fe.mfcc(torch.from_numpy(SIGS), tc, use_fft=True).numpy()
+    want = np.asarray(jfe.mfcc(jnp.asarray(SIGS), jc, use_fft=True))
+    np.testing.assert_allclose(got, want, **TOL)
+    if tc.n_fft >= tc.frame_len:
+        np.testing.assert_allclose(got, fe.mfcc(torch.from_numpy(SIGS), tc).numpy(),
+                                   **TOL)
+    wframes = fe.frame(torch.from_numpy(SIGS), 400, 160) * fe.make_matrices(tc, "cpu").window
+    np.testing.assert_allclose(
+        fe.power_spectrum_fft(wframes, tc.n_fft).numpy(),
+        np.asarray(jfe.power_spectrum_fft(jnp.asarray(wframes.numpy()), tc.n_fft)),
+        rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("feature_type", ["mfcc", "lpcc"])
+def test_extract_mfcc_matches_jax(feature_type):
+    import dsp_tpu
+    import dsp_tpu_torch
+    from dsp_tpu.config import PipelineConfig as JPipelineConfig
+
+    x = synth_word("four", 3)
+    got = dsp_tpu_torch.extract_mfcc(
+        x, PipelineConfig(frontend=FrontendConfig(feature_type=feature_type)),
+        device="cpu")
+    want = dsp_tpu.extract_mfcc(
+        x, JPipelineConfig(frontend=JFrontendConfig(feature_type=feature_type)))
+    assert isinstance(got, np.ndarray) and got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_exports_cover_the_jax_package():
+    import dsp_tpu
+    import dsp_tpu.ops
+    import dsp_tpu_torch
+    import dsp_tpu_torch.ops
+
+    assert set(dsp_tpu_torch.ops.__all__) == set(dsp_tpu.ops.__all__)
+    assert set(dsp_tpu.__all__) - {"__version__"} <= set(dsp_tpu_torch.__all__)
+    for mod in (dsp_tpu_torch, dsp_tpu_torch.ops):
+        assert all(hasattr(mod, name) for name in mod.__all__)
 
 
 def test_pipeline_pallas_impl_on_cpu_equals_xla():

@@ -217,8 +217,12 @@ def test_unported_recognizer_options_raise(port_rec):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KnnDtwRecognizer(PipelineConfig(), device="cpu", mesh=object())
     assert port_rec.classify_connected([]) == []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_rec.condense()
+    # condense is ported (tests/test_torch_align.py holds it to JAX's)
+    rec = KnnDtwRecognizer.from_arrays(np.stack(port_rec._bank_feats),
+                                       port_rec._bank_lens, port_rec._bank_label_ids,
+                                       port_rec.labels, PipelineConfig(), device="cpu")
+    rec.condense("medoid")
+    assert rec._bank_label_ids == sorted(set(port_rec._bank_label_ids))
     with pytest.raises(ValueError, match="unknown matcher"):
         KnnDtwRecognizer(PipelineConfig(), device="cpu", matcher="bogus")
     cfg = dataclasses.replace(PipelineConfig(), dtw=DtwConfig(impl="bogus"))

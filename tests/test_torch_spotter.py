@@ -77,13 +77,6 @@ def test_extract_recording_features_matches_jax(use_vad, kw):
                                rtol=5e-3, atol=5e-3)
 
 
-def test_extract_recording_features_lpcc_raises():
-    x, n = tpl.pad_signals(SIGNALS[:1], 64000, device="cpu")
-    cfg = PipelineConfig(frontend=FrontendConfig(feature_type="lpcc"))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tpl.extract_recording_features(x, n, cfg, 398)
-
-
 @pytest.mark.parametrize("quantum", [32000, 16000, 7])
 def test_group_by_padded_len_matches_jax(quantum):
     sigs = SIGNALS + [synth_word("one", 3), np.zeros(0, np.float32),
