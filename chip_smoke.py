@@ -307,6 +307,39 @@ each of which raises on failure (non-zero exit):
              (e) ``extract_mfcc`` and ``mfcc(use_fft=True)`` against the
              DFT path at rtol/atol 1e-3.  Kernel 1's launches here join
              the kernel table's.
+17. mesh   — multi-GPU execution (ROADMAP item 15, BASELINE config 4) on a
+             one-rank NCCL mesh (``parallel.make_mesh(1, 1)`` in this plain
+             process: a one-rank group on a local store; the backend must
+             be NCCL and the mesh's device the card).  Each check runs the
+             same call with and without the mesh on the card.  (a) Config
+             4 at full width: 35 synthetic words w00..w34 x 3 templates =
+             105, 1,024 two-second queries of those words, the default
+             config; launch counts reset just before and read just after
+             each pass: labels equal, distances within 1e-6 relative (the
+             gap printed), kernel 1's launches equal (4 chunks), k = 3
+             labels equal, and sc2_style_35class_alignments_per_sec with
+             and without the mesh (medians of 6 synchronized passes each,
+             timed in turns: plain, mesh, mesh, plain); a
+             256-query chunk under ``FrontendConfig(impl="pallas")`` must
+             launch kernel 2 under the mesh, with the same labels.  (b)
+             ``KeywordSpotter`` over a meshed recognizer (phase spotter's
+             bank) on 8 of its streams: kernel 3 launches, the score fields
+             equal by phase spot's tie-aware rule, the events equal as
+             phase spotter holds them (the mesh path sub-batches streams by
+             the plain route's cost budget, as the JAX package does).  (c)
+             ``classify_connected`` by the VAD split, by level building
+             and under ``Grammar.no_repeat`` on 8 of phase connected's
+             recordings: labels equal.  (d) ``GmmHmmRecognizer.fit(mesh=)``
+             and ``fit_word(mesh=)`` at phase hmm's configuration: one
+             sharded E-step and M-step within ``HMM_STEP_TOL`` of the
+             unsharded one, the fits' labels on 256 queries equal, and the
+             meshed decode's labels and scores equal.  (e) ``VqRecognizer``
+             over the mesh: labels equal; ``shard_streams`` with
+             ``process_chunk_batch`` on 64 streams x 10 chunks: flags,
+             indices and features equal to the unsharded run's;
+             ``multihost.is_primary()`` and ``all_hosts_agree(accuracy)``.
+             Kernels 1, 2 and 3's counted launches here join the kernel
+             table's.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -474,6 +507,15 @@ REM_DBA_TOL = 1e-4          # DBA centers, card against CPU (rtol and atol)
 # rounds to ~1e-5 absolute
 REM_VQ_STEP_TOL = 1e-5
 REM_SCAN_RTOL = 1e-5        # windowed and bidirectional DTW against the scan
+MESH_WORDS = [f"w{i:02d}" for i in range(35)]   # config 4: bench_all.py:149-165
+MESH_TEMPLATES_PER_WORD = 3
+MESH_PASSES = 3             # rounds of timed classify passes: plain, mesh, mesh, plain
+MESH_DIST_RTOL = 1e-6       # mesh against no mesh: the same kernels on one rank
+MESH_SPOT_STREAMS = 8       # of phase spotter's 64
+MESH_CONN_RECORDINGS = 8    # of phase connected's 64
+MESH_HMM_QUERIES = 256
+MESH_STREAMS = 64
+MESH_STREAM_CHUNKS = 10
 
 
 def fail(msg: str):
@@ -2783,6 +2825,251 @@ def block_warps(module, run, plan, pad: int, f: int) -> dict:
     return out
 
 
+def mesh_phase(seed: int, dev, report) -> dict:
+    """Phase mesh: the ('data', 'bank') mesh on a one-rank NCCL group
+    (ROADMAP item 15); returns the counted launches of its kernels."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dsp_tpu_torch import (GmmHmmRecognizer, KeywordSpotter, KnnDtwRecognizer,
+                               VqRecognizer)
+    from dsp_tpu_torch.config import FrontendConfig, HmmConfig, PipelineConfig
+    from dsp_tpu_torch.io import DIGITS, synth_connected, synth_spotting_stream, synth_word
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.models import gmm_hmm as pg
+    from dsp_tpu_torch.ops import frontend as fe
+    from dsp_tpu_torch.ops import streaming as st
+    from dsp_tpu_torch.ops.grammar import Grammar
+    from dsp_tpu_torch.parallel import em_step_sharded, make_mesh, multihost
+
+    out = report["mesh"]
+    smi = "; ".join(report["nvidia_smi"])
+    t_phase = time.perf_counter()
+    multihost.initialize()                     # no torchrun environment: a no-op
+    mesh = make_mesh(1, 1)
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        fail(f"mesh: backend {dist.get_backend()} on {mesh.device_type}; "
+             "expected nccl on cuda")
+    counted = {"dtw_banded": 0, "mfcc_fused": 0, "spot_subseq": 0}
+
+    def run(fn):
+        """fn() with the launch counts reset just before and read just after."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, dict(_build.LAUNCHES)
+
+    def from_bank(rec, cfg=None, k=None, mesh=None):
+        return KnnDtwRecognizer.from_arrays(
+            np.stack(rec._bank_feats), rec._bank_lens, rec._bank_label_ids,
+            rec.labels, cfg or rec.cfg, k=k or rec.k, device=dev, mesh=mesh)
+
+    # (a) config 4 at full width
+    cfg = PipelineConfig()
+    plain = KnnDtwRecognizer(cfg, device=dev)
+    for w in MESH_WORDS:
+        plain.enroll(w, [synth_word(w, i) for i in range(MESH_TEMPLATES_PER_WORD)])
+    meshed = from_bank(plain, mesh=mesh)
+    truth = [MESH_WORDS[i % len(MESH_WORDS)] for i in range(N_QUERIES)]
+    queries = [synth_word(w, 1000 + i) for i, w in enumerate(truth)]
+    (labels_u, d_u), l_u = run(lambda: plain.classify_batch(queries, return_distances=True))
+    (labels_m, d_m), l_m = run(lambda: meshed.classify_batch(queries, return_distances=True))
+    l_m = {k: v for k, v in l_m.items() if v}
+    if labels_m != labels_u:
+        fail(f"mesh config 4: {sum(a != b for a, b in zip(labels_m, labels_u))} "
+             "labels differ from the unsharded pass")
+    gap = float(np.max(np.abs(d_m - d_u) / np.maximum(np.abs(d_u), 1e-30)))
+    if gap > MESH_DIST_RTOL:
+        fail(f"mesh config 4: distances {gap:.3e} apart (> {MESH_DIST_RTOL})")
+    if l_m.get("dtw_banded", 0) != l_u["dtw_banded"] or l_u["dtw_banded"] < 1:
+        fail(f"mesh config 4: kernel 1 launched {l_m.get('dtw_banded', 0)} times under the "
+             f"mesh, {l_u['dtw_banded']} without")
+    counted["dtw_banded"] += l_m["dtw_banded"]
+    lab3 = [r.classify_batch(queries) for r in (from_bank(plain, k=3),
+                                                from_bank(plain, k=3, mesh=mesh))]
+    if lab3[0] != lab3[1]:
+        fail("mesh config 4: k = 3 labels differ from the unsharded vote")
+    # timed in turns (plain, mesh, mesh, plain) x MESH_PASSES: host stages
+    # drift within a call
+    passes = {"plain": [], "mesh": []}
+    for _ in range(MESH_PASSES):
+        for name in ("plain", "mesh", "mesh", "plain"):
+            rec = meshed if name == "mesh" else plain
+            passes[name] += [v / 1e3 for v in synced_ms(lambda: rec.classify_batch(queries), 1)]
+    rates = {name: dict(seconds=statistics.median(secs), pass_seconds=secs,
+                        alignments_per_s=len(queries) * plain.n_templates
+                        / statistics.median(secs))
+             for name, secs in passes.items()}
+    acc = float(np.mean([a == b for a, b in zip(labels_m, truth)]))
+    fused_cfg = dataclasses.replace(cfg, frontend=FrontendConfig(impl="pallas"))
+    fl_u = from_bank(plain, fused_cfg).classify_batch(queries[:256])
+    fused = from_bank(plain, fused_cfg, mesh=mesh)
+    fl_m, l_f = run(lambda: fused.classify_batch(queries[:256]))
+    l_f = {k: v for k, v in l_f.items() if v}
+    if fl_m != fl_u or l_f.get("mfcc_fused", 0) < 1 or l_f.get("dtw_banded", 0) < 1:
+        fail(f"mesh fused front-end: launches {l_f}, labels equal {fl_m == fl_u}")
+    counted["dtw_banded"] += l_f["dtw_banded"]
+    counted["mfcc_fused"] += l_f["mfcc_fused"]
+    print(f"mesh config 4 ({smi}): {len(queries)} queries x {plain.n_templates} "
+          f"templates, labels equal, distances {gap:.3e} apart, kernel 1 x "
+          f"{l_m['dtw_banded']} with and without the mesh, k = 3 equal, accuracy "
+          f"{acc:.4f}; sc2_style_35class_alignments_per_sec "
+          f"{rates['mesh']['alignments_per_s']:.1f} on the mesh, "
+          f"{rates['plain']['alignments_per_s']:.1f} without (medians of "
+          f"{2 * MESH_PASSES} passes in turns); fused front-end under the mesh: {l_f}",
+          flush=True)
+    out["config4"] = dict(dist_rel_gap=gap, launches=l_m, accuracy=acc, rates=rates,
+                          fused_launches=l_f)
+
+    # (b) spotting over the meshed recognizer
+    srec = KnnDtwRecognizer(cfg, device=dev)
+    for lab in SPOT_KEYWORDS:
+        srec.enroll(lab, [synth_word(lab, i) for i in range(SPOT_TEMPLATES_PER_WORD)])
+    streams = [synth_spotting_stream(SPOT_KEYWORDS, DIGITS, seed * 1000 + i, n_words=8)[0]
+               for i in range(MESH_SPOT_STREAMS)]
+    sp_u, sp_m = KeywordSpotter(srec), KeywordSpotter(from_bank(srec, mesh=mesh))
+    want = sp_u.scores(streams)
+    got, l_s = run(lambda: sp_m.scores(streams))
+    l_s = {k: v for k, v in l_s.items() if v}
+    if l_s.get("spot_subseq", 0) < 1:
+        fail(f"mesh spotting: launches {l_s}; kernel 3 did not launch")
+    counted["spot_subseq"] += l_s["spot_subseq"]
+    b_lens = np.asarray(srec._bank_lens)
+    flips, norm_err = 0, 0.0
+    for i, ((gn, gs), (wn, ws)) in enumerate(zip(got, want)):
+        res = compare_spot((gn[None], gs[None]), (wn[None], ws[None]), [gn.shape[-1]],
+                           b_lens, f"mesh spotting stream {i}")
+        flips += res["witness_flips"]
+        norm_err = max(norm_err, res["max_rel_err"])
+    # the mesh path sub-batches the streams by the plain route's cost
+    # budget, as the JAX package does, so the features' GEMMs run at other
+    # batch shapes: events equal by (label, start, end), scores as phase
+    # spotter holds them
+    ev_u, ev_m = sp_u.spot(streams), sp_m.spot(streams)
+    same = all([e[:3] for e in a] == [e[:3] for e in b]
+               and all(abs(x[3] - y[3]) <= 2e-4 * abs(y[3]) + 1e-5 for x, y in zip(a, b))
+               for a, b in zip(ev_m, ev_u))
+    if not same and flips == 0:
+        fail("mesh spotting: events differ from the unsharded spotter's")
+    print(f"mesh spotting: {len(streams)} streams x {srec.n_templates} templates, "
+          f"kernel 3 x {l_s['spot_subseq']}, norms {norm_err:.3e} apart ({flips} witness "
+          f"flips at near-ties), {sum(map(len, ev_m))} events equal: {same}", flush=True)
+    out["spot"] = dict(launches=l_s, witness_flips=flips, norm_rel_err=norm_err,
+                       events_equal=same)
+
+    # (c) connected words
+    crec = KnnDtwRecognizer(cfg, device=dev)
+    for lab in DIGITS:
+        crec.enroll(lab, [synth_word(lab, i) for i in range(TEMPLATES_PER_WORD)])
+    cmesh = from_bank(crec, mesh=mesh)
+    words = [[DIGITS[(i + j) % 10] for j in range(CONN_WORDS)]
+             for i in range(MESH_CONN_RECORDINGS)]
+    clips = [synth_connected(w, 300 + i)[:CONN_SAMPLES] for i, w in enumerate(words)]
+    conn = {}
+    for name, kw in (("vad", {}), ("level", {"method": "level"}),
+                     ("grammar", {"method": "level", "grammar": Grammar.no_repeat(DIGITS)})):
+        t0 = time.perf_counter()
+        a = crec.classify_connected(clips, CONN_MAX_SEGMENTS, **kw)
+        t1 = time.perf_counter()
+        b = cmesh.classify_connected(clips, CONN_MAX_SEGMENTS, **kw)
+        t2 = time.perf_counter()
+        if a != b:
+            fail(f"mesh connected {name}: labels differ from the unsharded decode")
+        conn[name] = dict(seconds=t1 - t0, mesh_seconds=t2 - t1,
+                          exact=float(np.mean([g == w for g, w in zip(b, words)])))
+    print("mesh connected: labels equal; " + "; ".join(
+        f"{k} {v['mesh_seconds']:.3f} s on the mesh, {v['seconds']:.3f} s without, "
+        f"{v['exact']:.3f} exact" for k, v in conn.items()), flush=True)
+    out["connected"] = conn
+
+    # (d) training and decode at phase hmm's configuration
+    hmm = HmmConfig()
+    train = {lab: [synth_word(lab, i) for i in range(HMM_TRAIN_PER_WORD)] for lab in DIGITS}
+    hq, htruth = synth_batch(MESH_HMM_QUERIES, 1000)
+    h_u = GmmHmmRecognizer(cfg, hmm, device=dev)
+    h_m = GmmHmmRecognizer(cfg, hmm, device=dev, mesh=mesh)
+    secs = {}
+    for name, rec, kw in (("plain", h_u, {}), ("mesh", h_m, {"mesh": mesh})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.fit(train, **kw)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    feats_w, lens_w = pg.stack_words([h_u.extract(train[lab]) for lab in h_u.labels], dev)
+    w, n, t, f = feats_w.shape
+    p0 = pg.init_params(feats_w, lens_w, hmm, pg.word_jitter(hmm, w, f, dev))
+    p0w = pg.HmmParams(*(a[0] for a in p0))
+    s_m, ll_m = em_step_sharded(mesh, feats_w[0], lens_w[0], p0w, hmm)
+    s_u, ll_u = pg._em_iteration(feats_w[0], lens_w[0], p0w, hmm)
+    step_err = max(params_err(s_m, s_u),
+                   abs(float(ll_m) - float(ll_u)) / (1 + abs(float(ll_u))))
+    if step_err > HMM_STEP_TOL:
+        fail(f"mesh EM: one sharded step parts from the unsharded one by {step_err:.3e}")
+    fw_err = params_err(pg.fit_word(feats_w[0], lens_w[0], hmm, mesh=mesh),
+                        pg.fit_word(feats_w[0], lens_w[0], hmm))
+    if fw_err > HMM_STEP_TOL:
+        fail(f"mesh fit_word: parts from the unsharded fit by {fw_err:.3e}")
+    fit_err = params_err(h_m.params, h_u.params)
+    lab_u = h_u.classify_batch(hq)
+    h_fit = GmmHmmRecognizer(cfg, hmm, device=dev)
+    h_fit.labels, h_fit.params = h_m.labels, h_m.params
+    lab_fit, s_fit = h_fit.classify_batch(hq, return_scores=True)
+    lab_dec, s_dec = h_m.classify_batch(hq, return_scores=True)
+    if lab_fit != lab_u:
+        fail("mesh fit: labels of the mesh-fitted models differ from the unsharded fit's")
+    dec_gap = float(np.max(np.abs(s_dec - s_fit) / np.abs(s_fit)))
+    if lab_dec != lab_fit or dec_gap > MESH_DIST_RTOL:
+        fail(f"mesh decode: labels equal {lab_dec == lab_fit}, scores {dec_gap:.3e} apart")
+    h_acc = float(np.mean([a == b for a, b in zip(lab_dec, htruth)]))
+    print(f"mesh hmm: one E-step + M-step {step_err:.3e} from the unsharded (held at "
+          f"{HMM_STEP_TOL}), fit_word {fw_err:.3e}, fit {fit_err:.3e} ({secs['mesh']:.3f} s "
+          f"on the mesh, {secs['plain']:.3f} s without), labels equal, decode scores "
+          f"{dec_gap:.3e} apart, accuracy {h_acc:.4f}", flush=True)
+    out["hmm"] = dict(e_step_err=step_err, fit_word_err=fw_err, fit_err=fit_err,
+                      fit_seconds=secs, decode_gap=dec_gap, accuracy=h_acc)
+
+    # (e) VQ, streams and the cross-process helpers
+    vq = VqRecognizer(cfg, device=dev)
+    vq.fit({lab: train[lab][:4] for lab in DIGITS})
+    v_u, vd_u = vq.classify_batch(hq, return_distances=True)
+    vq.mesh = mesh
+    v_m, vd_m = vq.classify_batch(hq, return_distances=True)
+    vq_gap = float(np.max(np.abs(vd_m - vd_u) / np.abs(vd_u)))
+    if v_m != v_u or vq_gap > MESH_DIST_RTOL:
+        fail(f"mesh vq: labels equal {v_m == v_u}, distortions {vq_gap:.3e} apart")
+    fcfg = cfg.frontend
+    mats = fe.make_matrices(fcfg, dev)
+    sig = np.stack([synth_word(DIGITS[i % 10], 5000 + i)[: STREAM_CHUNK * MESH_STREAM_CHUNKS]
+                    for i in range(MESH_STREAMS)])
+    chunks = torch.from_numpy(sig.reshape(MESH_STREAMS, MESH_STREAM_CHUNKS, STREAM_CHUNK))
+    state_u = st.init_state_batch(MESH_STREAMS, fcfg, STREAM_CHUNK, dev)
+    state_m, chunks_m = st.shard_streams(mesh, state_u, chunks)
+    chunks_u = chunks.to(dev)
+    ends = 0
+    for c in range(MESH_STREAM_CHUNKS):
+        state_u, o_u = st.process_chunk_batch(state_u, chunks_u[:, c].contiguous(), mats,
+                                              fcfg, chunk_len=STREAM_CHUNK)
+        state_m, o_m = st.process_chunk_batch(state_m, chunks_m[:, c].contiguous(), mats,
+                                              fcfg, chunk_len=STREAM_CHUNK)
+        for name, a, b in zip(o_u._fields, o_u, o_m):
+            if not torch.equal(a, b):
+                fail(f"mesh streams: chunk {c} {name} differs from the unsharded run")
+        ends += int(o_m.utt_end.sum())
+    if not multihost.is_primary() or not multihost.all_hosts_agree(acc):
+        fail("mesh: is_primary() or all_hosts_agree(accuracy) is false on one rank")
+    print(f"mesh vq: labels equal, distortions {vq_gap:.3e} apart; streams: "
+          f"{MESH_STREAMS} x {MESH_STREAM_CHUNKS} chunks equal ({ends} utterance ends); "
+          f"is_primary and all_hosts_agree hold; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    out["vq_gap"], out["stream_utterance_ends"] = vq_gap, ends
+    out["launches"] = counted
+    out["seconds"] = time.perf_counter() - t_phase
+    dist.destroy_process_group()
+    return counted
+
+
 def fused_phase(rng, long_rng, dev, report):
     """Kernel 4 (unbanded DTW from features) against its plain version and
     the banded kernel's unbanded mode at the main-path shape, and against
@@ -3328,7 +3615,7 @@ def main() -> int:
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
               "streaming": {}, "hmm": {}, "cascade": {}, "connected": {},
-              "remainder": {}, "nvidia_smi": smi}
+              "remainder": {}, "mesh": {}, "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
     mfcc_phase(dev, report)
@@ -3350,6 +3637,8 @@ def main() -> int:
     launches["dtw_banded"] += report["connected"]["launches"]["dtw_banded"]
     report["remainder"]["launches"] = {"dtw_banded": remainder_phase(args.seed, dev, report)}
     launches["dtw_banded"] += report["remainder"]["launches"]["dtw_banded"]
+    for name, n in mesh_phase(args.seed, dev, report).items():
+        launches[name] += n
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")
 

@@ -16,7 +16,10 @@ and the connected Viterbi with word-pair grammars; online through
 ``models.streaming.StreamingConnectedRecognizer``), the VQ-codebook
 recognizer (``VqRecognizer``), template condensing
 (``KnnDtwRecognizer.condense``: medoid or DTW barycenter averaging) and
-LPCC features (``FrontendConfig(feature_type="lpcc")``), with five
+LPCC features (``FrontendConfig(feature_type="lpcc")``), multi-GPU
+execution (``dsp_tpu_torch.parallel``: a ('data', 'bank') mesh on
+``torch.distributed``, one process a GPU, that every ``mesh=`` argument
+takes), with five
 hand-written CUDA kernels for NVIDIA Hopper: banded DTW
 (``csrc/dtw_banded.cu``), the fused MFCC front-end (``csrc/mfcc_fused.cu``),
 subsequence DTW (``csrc/spot_subseq.cu``), unbanded closed-form DTW
@@ -49,6 +52,11 @@ Quick start::
     vq = VqRecognizer()                      # on the card
     vq.fit({"yes": [signal1, signal2], "no": [signal3, signal4]})
     label = vq.recognize(test_signal)
+
+    # every process of ``torchrun --nproc-per-node=N``, the same calls:
+    from dsp_tpu_torch.parallel import make_mesh, multihost
+    multihost.initialize()
+    rec = KnnDtwRecognizer(mesh=make_mesh())  # the bank split over the cards
 """
 
 import torch

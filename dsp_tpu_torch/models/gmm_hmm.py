@@ -48,7 +48,7 @@ import torch
 
 from dsp_tpu_torch import pipeline as pl
 from dsp_tpu_torch.config import HmmConfig, PipelineConfig
-from dsp_tpu_torch.models.knn_dtw import (REJECT, _not_ported,
+from dsp_tpu_torch.models.knn_dtw import (REJECT, _check_mesh,
                                           check_frontend_signature,
                                           frontend_signature, grammar_masks)
 from dsp_tpu_torch.ops import frontend as fe
@@ -399,15 +399,30 @@ def fit_word(feats: torch.Tensor, lengths: torch.Tensor,
              mesh=None) -> HmmParams:
     """Train one word model on its utterances feats [N, T, F] (on their
     device), starting from :func:`normal_draw` of ``seed`` (default
-    ``cfg.seed``)."""
-    if mesh is not None:
-        raise _not_ported("fit_word(mesh=) (sharded EM)", "queue 1, item 15")
+    ``cfg.seed``).
+
+    With ``mesh`` the E-step splits the utterances over the 'data' axis and
+    sums the statistics across it (``parallel/em.py:em_step_sharded``,
+    segmental whatever ``cfg.train_mode`` says, as in the JAX package);
+    the utterance count is padded to the axis with zero-length utterances,
+    whose statistics vanish.  Every rank starts from the same draw."""
+    mesh = _check_mesh(mesh)
     jitter = normal_draw((cfg.n_states, cfg.n_mix, feats.shape[-1]),
                          cfg.seed if seed is None else seed, feats.device)
     params = init_params(feats, lengths, cfg, jitter)
+    if mesh is None:
+        for _ in range(cfg.n_iter):
+            params, _ = _em_iteration(feats, lengths, params, cfg)
+        return params
+    from dsp_tpu_torch.parallel.em import em_step_sharded
+    from dsp_tpu_torch.parallel.mesh import mesh_shape, pad_rows_to_multiple
+
+    nd = mesh_shape(mesh)[0]
+    f_p, _ = pad_rows_to_multiple(feats, nd)
+    l_p, _ = pad_rows_to_multiple(lengths, nd)
     for _ in range(cfg.n_iter):
-        params, _ = _em_iteration(feats, lengths, params, cfg)
-    return params
+        params, _ = em_step_sharded(mesh, f_p, l_p, params, cfg)
+    return HmmParams(*(a.to(feats.device) for a in params))
 
 
 def stack_params(params_list) -> HmmParams:
@@ -508,19 +523,20 @@ class GmmHmmRecognizer:
     (``"cuda"``) unless the caller passes ``"cpu"``, with no probe and no
     fallback.  ``noise_adapt=True`` estimates each batch's noise floor from
     its VAD-rejected frames and PMC-adapts the word models and the UBM
-    together before scoring (``ops/noise_adapt.py``).  ``mesh`` belongs to
-    a later slice of the port.
+    together before scoring (``ops/noise_adapt.py``).  ``mesh`` (a
+    ('data', 'bank') ``DeviceMesh``) decodes data-parallel over every rank
+    of it; ``fit(mesh=)`` trains over a mesh.  ``noise_adapt`` does not
+    compose with a mesh.
     """
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(),
                  hmm: HmmConfig = HmmConfig(),
                  device: str | torch.device = "cuda", mesh=None,
                  noise_adapt: bool = False):
-        if mesh is not None:
-            raise _not_ported("mesh (sharded EM and decode)", "queue 1, item 15")
         self.cfg = cfg
         self.hmm = hmm
         self.device = torch.device(device)
+        self.mesh = _check_mesh(mesh)           # data-parallel decode mesh
         self.labels: list[str] = []
         self.params: HmmParams | None = None   # stacked [W, ...]
         self.ubm = None   # (means [M, F], log_var [M, F], log_mix [M]) over all
@@ -538,9 +554,12 @@ class GmmHmmRecognizer:
         ``batched`` (default) trains every word model at once
         (:func:`fit_words_batched`) after the UBM; ``batched=False`` is the
         per-word loop (:func:`fit_word`), which fits no UBM, as in the JAX
-        package."""
-        if mesh is not None:
-            raise _not_ported("fit(mesh=) (sharded EM)", "queue 1, item 15")
+        package.  ``mesh``: a ('data', 'bank') mesh; batched mode splits
+        the words over 'bank' and the utterances over 'data' where they
+        divide (``parallel/em.py:fit_words_sharded``; otherwise every rank
+        fits them all), the loop splits utterances only.  The UBM is fitted
+        whole on every rank."""
+        mesh = _check_mesh(mesh)
         hmm = self.hmm
         self.labels = sorted(corpus.keys())
         if not batched:
@@ -548,7 +567,7 @@ class GmmHmmRecognizer:
             for w, lab in enumerate(self.labels):
                 feats = self.extract(corpus[lab])
                 trained.append(fit_word(feats.feats, feats.length, hmm,
-                                        seed=hmm.seed + w))
+                                        seed=hmm.seed + w, mesh=mesh))
             self.params = stack_params(trained)
             return
 
@@ -559,9 +578,18 @@ class GmmHmmRecognizer:
                            lens_w.reshape(w * n_max), hmm,
                            normal_draw((hmm.n_mix, f_dim), hmm.seed, self.device))
         prior = ubm_prior(self.ubm, hmm) if hmm.map_tau > 0 else None
-        self.params = fit_words_batched(feats_w, lens_w,
-                                        word_jitter(hmm, w, f_dim, self.device),
-                                        hmm, prior)
+        jitter = word_jitter(hmm, w, f_dim, self.device)
+        if mesh is not None:
+            from dsp_tpu_torch.parallel.em import fit_words_sharded
+            from dsp_tpu_torch.parallel.mesh import mesh_shape
+
+            nd, nb = mesh_shape(mesh)
+            if w % nb == 0 and n_max % nd == 0:
+                params = fit_words_sharded(mesh, feats_w, lens_w, jitter, hmm,
+                                           prior)
+                self.params = HmmParams(*(a.to(self.device) for a in params))
+                return
+        self.params = fit_words_batched(feats_w, lens_w, jitter, hmm, prior)
 
     def _scoring_models(self, signals):
         """(word params, ubm) for scoring ``signals``: PMC-adapted together
@@ -576,6 +604,9 @@ class GmmHmmRecognizer:
         reason = pmc_supported(f)
         if reason:
             raise ValueError(f"noise_adapt unavailable: {reason}")
+        if _check_mesh(self.mesh) is not None:
+            raise ValueError("noise_adapt with a mesh is not supported "
+                             "yet — clear the mesh or adapt offline")
         mats = fe.make_matrices(f, self.device)
         quantum = self.cfg.max_samples
         n_len = max(1, max(len(np.asarray(s)) for s in signals))
@@ -594,21 +625,46 @@ class GmmHmmRecognizer:
         Viterbi - UBM) log-likelihood ratio; ``True`` takes the calibrated
         threshold (:meth:`calibrate_rejection`), a number is explicit, and
         utterances below it return ``REJECT``.  Composes with
-        ``noise_adapt``."""
+        ``noise_adapt``; with a mesh the decode is data-parallel
+        (:meth:`_score_sharded`)."""
         if self.params is None:
             raise ValueError("model not fitted")
         thr = self._resolve_reject(reject)
         params, ubm = self._scoring_models(signals)
-        feats = self.extract(signals)
-        scores = score_words(feats.feats, feats.length, params).cpu().numpy()
+        feats = None
+        if _check_mesh(self.mesh) is not None:
+            scores = self._score_sharded(signals, params)
+        else:
+            feats = self.extract(signals)
+            scores = score_words(feats.feats, feats.length, params).cpu().numpy()
         labels = [self.labels[int(i)] for i in scores.argmax(axis=-1)]
         if thr is not None:
+            if feats is None:                    # mesh path: extract here
+                feats = self.extract(signals)
             llr = self._utterance_llr(feats, scores, ubm)
             labels = [REJECT if not (s >= thr) else lab
                       for lab, s in zip(labels, llr)]
         if return_scores:
             return labels, scores
         return labels
+
+    def _score_sharded(self, signals, params: HmmParams) -> np.ndarray:
+        """Data-parallel Viterbi decode: the utterances split over every
+        rank of the mesh (padded with silent rows, every length clamped to
+        at least 1 after padding, as in the JAX package), the word models
+        whole on each; the [B, W] log-likelihoods are gathered back."""
+        from dsp_tpu_torch import parallel as par
+        from dsp_tpu_torch.parallel.mesh import gather_flat, mesh_shape, shard_flat
+
+        x, n = pl.pad_signals(signals, self.cfg.max_samples, "cpu")
+        nd, nb = mesh_shape(self.mesh)
+        x, b_orig = par.pad_axis_to_multiple(x.numpy(), nd * nb)
+        n, _ = par.pad_axis_to_multiple(n.numpy(), nd * nb)
+        x, n = shard_flat(self.mesh, x, np.maximum(n, 1))
+        feats = pl.extract_features(x, n, self.cfg)
+        scores = score_words(feats.feats, feats.length,
+                             HmmParams(*par.replicate(self.mesh, *params)))
+        return gather_flat(scores, self.mesh)[:b_orig].cpu().numpy()
 
     def _utterance_llr(self, feats: pl.Features, scores: np.ndarray,
                        ubm) -> np.ndarray:

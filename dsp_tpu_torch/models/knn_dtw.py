@@ -12,6 +12,11 @@ calibrated from the bank itself (:meth:`KnnDtwRecognizer.calibrate_rejection`).
 Checkpoints are the JAX package's ``.npz`` format, key for key: a bank
 enrolled by either package loads in the other (:meth:`KnnDtwRecognizer.load`,
 :meth:`KnnDtwRecognizer.from_arrays`).
+
+With a ``mesh`` (``dsp_tpu_torch.parallel.make_mesh``) classification runs
+bank-sharded across the mesh's ranks (``parallel/sharding.py``), kNN
+voting and the connected-word decoders included; every rank calls the
+same method with the same inputs and gets the same result.
 """
 
 from __future__ import annotations
@@ -31,8 +36,13 @@ NO_MATCH = "<no-match>"     # vote row with no live candidate (sentinel -1)
 REJECT = "<reject>"         # best bank distance fails the rejection threshold
 
 
-def _not_ported(what: str, where: str):
-    return NotImplementedError(f"{what} is not ported yet ({where} in ROADMAP.md)")
+def _check_mesh(mesh):
+    """``parallel.mesh.as_mesh``: None or a ('data', 'bank') DeviceMesh,
+    else ``TypeError`` (imported late: ``parallel`` imports the models)."""
+    if mesh is None:
+        return None
+    from dsp_tpu_torch.parallel.mesh import as_mesh
+    return as_mesh(mesh)
 
 
 class KnnDtwRecognizer:
@@ -44,21 +54,23 @@ class KnnDtwRecognizer:
     raises.  ``matcher`` is ``"dtw"``, ``"ltw"`` (resample to ``ltw_len``
     frames, one GEMM) or ``"cascade"`` (LTW shortlist of ``shortlist``
     templates, DTW rerank); ``bucketed=True`` runs DTW in query-length
-    buckets.  ``mesh`` belongs to a later slice of the port.
+    buckets.  ``mesh`` (a ('data', 'bank') ``DeviceMesh`` from
+    ``dsp_tpu_torch.parallel.make_mesh``) runs classification bank-sharded
+    across its ranks, kNN voting included; the query batch and the bank
+    are padded to the mesh axes transparently.  The mesh implements the
+    full DTW matcher only.
     """
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(), k: int = 1,
                  device: str | torch.device = "cuda", mesh=None,
                  matcher: str = "dtw", ltw_len: int = 64, shortlist: int = 8,
                  bucketed: bool = False):
-        if mesh is not None:
-            raise _not_ported("mesh (bank-sharded classify)",
-                              "queue 1, item 15")
         if matcher not in ("dtw", "ltw", "cascade"):
             raise ValueError(f"unknown matcher: {matcher}")
         self.cfg = cfg
         self.k = k
         self.device = torch.device(device)
+        self.mesh = _check_mesh(mesh)
         self.matcher = matcher
         self.ltw_len = ltw_len
         self.shortlist = shortlist
@@ -68,6 +80,7 @@ class KnnDtwRecognizer:
         self._bank_lens: list[int] = []
         self._bank_label_ids: list[int] = []
         self._device_bank = None                  # cached (Features, label_ids)
+        self._sharded_bank = None                 # cached mesh-padded bank
         self.spot_threshold: float | None = None  # models/spotter.py
         self.reject_threshold: float | None = None   # calibrate_rejection
         self.reject_scale: str | None = None      # its score scale: "dtw" | "ltw"
@@ -90,6 +103,7 @@ class KnnDtwRecognizer:
             self._bank_lens.append(int(lens[i]))
             self._bank_label_ids.append(label_id)
         self._device_bank = None
+        self._sharded_bank = None
 
     @property
     def n_templates(self) -> int:
@@ -109,6 +123,30 @@ class KnnDtwRecognizer:
                                   device=self.device)
             self._device_bank = (bank, ids)
         return self._device_bank
+
+    def sharded_bank(self):
+        """The bank padded to a multiple of the mesh's bank axis: (feats
+        [Kp, U, F], lens [Kp], label_ids [Kp], valid [Kp]) on the mesh's
+        device, pad rows of length 1 marked invalid.  The arrays are global
+        (every rank holds them): the sharded functions take each rank's
+        shard."""
+        from dsp_tpu_torch import parallel as par
+        from dsp_tpu_torch.parallel.mesh import mesh_shape
+
+        if self._sharded_bank is None:
+            if not self._bank_feats:
+                raise ValueError("empty template bank — enroll first")
+            nb = mesh_shape(self.mesh)[1]
+            feats, k_orig = par.pad_axis_to_multiple(
+                np.stack(self._bank_feats).astype(np.float32), nb)
+            lens, _ = par.pad_axis_to_multiple(
+                np.asarray(self._bank_lens, dtype=np.int32), nb)
+            ids, _ = par.pad_axis_to_multiple(
+                np.asarray(self._bank_label_ids, dtype=np.int32), nb)
+            lens = np.maximum(lens, 1)
+            valid = np.arange(len(lens)) < k_orig
+            self._sharded_bank = par.replicate(self.mesh, feats, lens, ids, valid)
+        return self._sharded_bank
 
     # ----------------------------------------------------------- rejection
     def _bank_self_distances(self) -> np.ndarray:
@@ -201,6 +239,7 @@ class KnnDtwRecognizer:
             labels = [REJECT if (lab != NO_MATCH and not (b < thr)) else lab
                       for lab, b in zip(labels, best)]
             return (labels, dists) if return_distances else labels
+        self._check_mesh_matcher()
         if len(signals) > chunk:
             labels, dists = [], []
             for lo in range(0, len(signals), chunk):
@@ -213,10 +252,42 @@ class KnnDtwRecognizer:
             if return_distances:
                 return labels, np.concatenate(dists)
             return labels
+        if self.mesh is not None:
+            return self._classify_sharded(signals, return_distances)
         label_ids, dists, _ = self._match(signals)
         labels = self._ids_to_labels(label_ids)
         if return_distances:
             return labels, dists.cpu().numpy()
+        return labels
+
+    def _check_mesh_matcher(self) -> None:
+        if self.mesh is not None and self.matcher != "dtw":
+            raise ValueError(
+                f"matcher={self.matcher!r} is not supported with a "
+                "mesh — bank-sharded classification implements the "
+                "full banded DTW only (clear the mesh or use "
+                "matcher='dtw')")
+
+    def _classify_sharded(self, signals, return_distances: bool):
+        """One chunk over the mesh: the batch padded to the data axis with
+        silent rows, and EVERY row's length clamped to at least a frame,
+        as the JAX package does; returns labels (and the full [B, K]
+        distances, bank padding trimmed)."""
+        from dsp_tpu_torch import parallel as par
+        from dsp_tpu_torch.parallel.mesh import mesh_device, mesh_shape, pad_rows_to_multiple
+
+        x, n = pl.pad_signals(signals, self.cfg.max_samples, mesh_device(self.mesh))
+        nd = mesh_shape(self.mesh)[0]
+        x, b_orig = pad_rows_to_multiple(x, nd)
+        n, _ = pad_rows_to_multiple(n, nd)
+        bf, bl, ids, valid = self.sharded_bank()
+        label_ids, dist = par.recognize_sharded(
+            self.mesh, x, torch.clamp(n, min=self.cfg.frontend.frame_len), bf, bl,
+            ids, valid, cfg=self.cfg, k=self.k, n_labels=len(self.labels),
+            return_full=return_distances)
+        labels = self._ids_to_labels(label_ids[:b_orig])
+        if return_distances:
+            return labels, dist[:b_orig, :self.n_templates].cpu().numpy()
         return labels
 
     def _match(self, signals):
@@ -249,10 +320,15 @@ class KnnDtwRecognizer:
         relative confidence; labels whose every template is dead are
         dropped."""
         ids = np.asarray(self._bank_label_ids)
+        self._check_mesh_matcher()
         out = []
         for lo in range(0, len(signals), 256):    # classify_batch's chunk
-            _, d, cand = self._match(list(signals[lo:lo + 256]))
-            d = d.cpu().numpy()
+            part = list(signals[lo:lo + 256])
+            if self.mesh is not None:             # the full [B, K] over the mesh
+                d, cand = self._classify_sharded(part, True)[1], None
+            else:
+                _, d, cand = self._match(part)
+                d = d.cpu().numpy()
             cols = ids if cand is None else ids[cand.cpu().numpy()]
             label_d = np.full((d.shape[0], len(self.labels)), 1e30)
             np.minimum.at(label_d, (np.arange(d.shape[0])[:, None],
@@ -319,6 +395,11 @@ class KnnDtwRecognizer:
         constrains the DP to the grammar's sentences; a recording the
         grammar cannot explain gives ``[]``.
 
+        With ``mesh`` set, ``"level"`` runs the bank-sharded DP
+        (``parallel/sharding.py:level_build_sharded`` /
+        ``level_build_grammar_sharded``) and ``"vad"`` classifies the
+        segments bank-sharded, as :meth:`classify_batch` does.
+
         With ``return_segments`` also returns (starts, ends, n_segs) in
         frames for ``"vad"`` and the DP costs for ``"level"``.
         """
@@ -328,19 +409,29 @@ class KnnDtwRecognizer:
                 "splitter classifies segments independently — there is "
                 "no joint sequence to constrain)")
         if method == "level":
-            bank, ids = self.device_bank()
             masks = None if grammar is None else self.resolve_grammar(grammar)
+            if self.mesh is not None:
+                # the bank-sharded DP; the pipeline pads the grammar masks
+                # to the mesh's padded bank
+                bf, bl, ids, valid = self.sharded_bank()
+                bank, extra = pl.Features(bf, bl), {"mesh": self.mesh,
+                                                    "bank_valid": valid}
+            else:
+                (bank, ids), extra = self.device_bank(), {}
             id_lists, costs = pl.decode_connected_level(
                 signals, self.cfg, bank, ids, max_levels=max_segments,
                 word_penalty=word_penalty, grammar_masks=masks,
-                device=self.device)
+                device=self.device, **extra)
             out = [[self.labels[i] for i in ids_i] for ids_i in id_lists]
             return (out, costs) if return_segments else out
         if method != "vad":
             raise ValueError(f"unknown connected method {method!r} (vad | level)")
+        self._check_mesh_matcher()
         bank, ids = self.device_bank()
 
         def score(flat):
+            if self.mesh is not None:
+                return self._score_flat_sharded(flat)
             # the matcher routing of classify_batch
             if self.matcher == "ltw":
                 return pl.classify_features_ltw(flat, bank, ids, self.ltw_len)[0]
@@ -356,6 +447,21 @@ class KnnDtwRecognizer:
             signals, self.cfg, max_segments, score, self._ids_to_labels,
             self.device)
         return (out, starts, ends, n_segs) if return_segments else out
+
+    def _score_flat_sharded(self, flat: pl.Features) -> torch.Tensor:
+        """Flat per-segment Features -> label ids over the mesh (the batch
+        padded to the data axis, every length clamped to at least 1)."""
+        from dsp_tpu_torch import parallel as par
+        from dsp_tpu_torch.parallel.mesh import mesh_shape, pad_rows_to_multiple
+
+        bf, bl, ids, valid = self.sharded_bank()
+        nd = mesh_shape(self.mesh)[0]
+        q, b_orig = pad_rows_to_multiple(flat.feats, nd)
+        ql, _ = pad_rows_to_multiple(flat.length, nd)
+        label_ids, _ = par.classify_sharded(
+            self.mesh, q, torch.clamp(ql, min=1), bf, bl, ids, valid,
+            cfg=self.cfg.dtw, k=self.k, n_labels=len(self.labels))
+        return label_ids[:b_orig]
 
     def condense(self, method: str = "dba", n_iter: int = 3) -> None:
         """Collapse each label's templates into one: the medoid, or with
@@ -390,6 +496,7 @@ class KnnDtwRecognizer:
         self._bank_feats, self._bank_lens = new_feats, new_lens
         self._bank_label_ids = new_ids
         self._device_bank = None
+        self._sharded_bank = None
 
     # ---------------------------------------------------------- checkpoint
     def save(self, path: str) -> None:

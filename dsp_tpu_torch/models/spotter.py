@@ -34,7 +34,7 @@ import torch
 
 from dsp_tpu_torch import pipeline as pl
 from dsp_tpu_torch.config import PipelineConfig
-from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer, _not_ported
+from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer, _check_mesh
 from dsp_tpu_torch.models.streaming import _np_deltas
 from dsp_tpu_torch.ops import frontend as fe
 from dsp_tpu_torch.ops import spot as sp
@@ -74,12 +74,12 @@ class KeywordSpotter:
 
     ``impl`` is the spotting route of ``ops/spot.py:subseq_dtw_batch``:
     ``"auto"`` (the kernel for a recognizer on the card, the plain route
-    on the CPU), ``"fused"`` or ``"scan"``."""
+    on the CPU), ``"fused"`` or ``"scan"``.  A recognizer with a ``mesh``
+    spots bank-sharded over it (``parallel/sharding.py:spot_sharded``)."""
 
     def __init__(self, recognizer: KnnDtwRecognizer,
                  threshold: float | None = None, impl: str = "auto"):
-        if getattr(recognizer, "mesh", None) is not None:
-            raise _not_ported("mesh (bank-sharded spotting)", "queue 1, item 15")
+        _check_mesh(getattr(recognizer, "mesh", None))
         self.rec = recognizer
         self.impl = impl
         self.threshold, self.threshold_source = resolve_spot_threshold(
@@ -131,20 +131,38 @@ class KeywordSpotter:
         k, u_t = bank.feats.shape[0], bank.feats.shape[1]
         f = self.cfg.frontend
         dev = self.rec.device
+        mesh = _check_mesh(self.rec.mesh)
         kernel = self.impl != "scan" and sp.production_impl(dev) == "fused"
         results: dict = {}
         for pad_len, idxs in pl.group_by_padded_len(signals,
                                                     self.cfg.max_samples).items():
             t_max = max(1, 1 + (pad_len - f.frame_len) // f.hop_len)
-            if kernel:
+            if mesh is None and kernel:
                 sub = max(1, _OUT_BUDGET_ELEMS // (k * t_max))
             else:
                 sub = max(1, _COST_BUDGET_ELEMS // (k * u_t * t_max))
             for lo in range(0, len(idxs), sub):
                 part = idxs[lo:lo + sub]
-                x, n = pl.pad_signals([signals[i] for i in part], pad_len, dev)
+                group = [signals[i] for i in part]
+                if mesh is not None:
+                    # pad to the data axis with silent rows
+                    group += [np.zeros(0, np.float32)] * (-len(group) % mesh.size(0))
+                x, n = pl.pad_signals(group, pad_len, dev)
+                if mesh is not None:
+                    # clamp only the appended rows (a zero length would make
+                    # no frame); real recordings keep their true lengths, so
+                    # the mesh's scores equal the single-device path's
+                    n[len(part):] = f.frame_len
                 feats = pl.extract_recording_features(x, n, self.cfg, t_max)
-                norm, start = self._spot(feats.feats, feats.length)
+                if mesh is not None:
+                    from dsp_tpu_torch.parallel import spot_sharded
+                    bf, bl, _, bv = self.rec.sharded_bank()
+                    norm, start = spot_sharded(
+                        mesh, feats.feats, feats.length, bf, bl, bv,
+                        squared=self.cfg.dtw.squared, impl=self.impl)
+                    norm, start = norm[:len(part), :k], start[:len(part), :k]
+                else:
+                    norm, start = self._spot(feats.feats, feats.length)
                 norm, start = norm.cpu().numpy(), start.cpu().numpy()
                 lens = feats.length.cpu().numpy()
                 for row, i in enumerate(part):

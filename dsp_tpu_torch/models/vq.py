@@ -27,7 +27,8 @@ import torch
 
 from dsp_tpu_torch import pipeline as pl
 from dsp_tpu_torch.config import PipelineConfig, VqConfig
-from dsp_tpu_torch.models.knn_dtw import check_frontend_signature, frontend_signature
+from dsp_tpu_torch.models.knn_dtw import (_check_mesh, check_frontend_signature,
+                                          frontend_signature)
 
 
 def _sq_dists(x: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
@@ -91,18 +92,16 @@ class VqRecognizer:
 
     ``device`` is where features, fitting and scoring run: the card
     (``"cuda"``) unless the caller passes ``"cpu"``, with no probe and no
-    fallback.  ``mesh`` belongs to a later slice of the port."""
+    fallback.  With a ``mesh`` (``dsp_tpu_torch.parallel.make_mesh``)
+    :meth:`classify_batch` scores data-parallel over every rank of it."""
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(),
                  vq: VqConfig = VqConfig(), mesh=None,
                  device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "VqRecognizer(mesh=) (data-parallel scoring) is not ported "
-                "yet (queue 1, item 15 in ROADMAP.md)")
         self.cfg = cfg
         self.vq = vq
         self.device = torch.device(device)
+        self.mesh = _check_mesh(mesh)           # data-parallel scoring mesh
         self.labels: list[str] = []
         self._train_feats: dict[int, list[np.ndarray]] = {}  # id -> [Ti, F]
         self.codebooks: np.ndarray | None = None             # [W, C, F]
@@ -175,9 +174,29 @@ class VqRecognizer:
             if return_distances:
                 return labels, np.concatenate(dists)
             return labels
-        d = self._distortions(self.extract(signals)).cpu().numpy()
+        if _check_mesh(self.mesh) is not None:
+            d = self._distortion_sharded(signals)
+        else:
+            d = self._distortions(self.extract(signals)).cpu().numpy()
         got = [self.labels[int(i)] for i in d.argmin(axis=1)]
         return (got, d) if return_distances else got
+
+    def _distortion_sharded(self, signals) -> np.ndarray:
+        """Data-parallel scoring: the utterances split over every rank of
+        the mesh (padded with silent rows, every length clamped to at least
+        1 after padding, as in the JAX package), the codebooks whole on
+        each; the [B, W] distortions are gathered back."""
+        from dsp_tpu_torch import parallel as par
+        from dsp_tpu_torch.parallel.mesh import gather_flat, mesh_shape, shard_flat
+
+        x, n = pl.pad_signals(signals, self.cfg.max_samples, "cpu")
+        nd, nb = mesh_shape(self.mesh)
+        x, b_orig = par.pad_axis_to_multiple(x.numpy(), nd * nb)
+        n, _ = par.pad_axis_to_multiple(n.numpy(), nd * nb)
+        x, n = shard_flat(self.mesh, x, np.maximum(n, 1))
+        cb = par.replicate(self.mesh, self.codebooks)
+        d = vq_distortion(*pl.extract_features(x, n, self.cfg), cb, self.vq.squared)
+        return gather_flat(d, self.mesh)[:b_orig].cpu().numpy()
 
     def classify_nbest(self, signals, n: int = 3):
         """Top-n label hypotheses per utterance: ``[[(label, distortion,

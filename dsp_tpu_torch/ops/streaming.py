@@ -247,6 +247,17 @@ def process_chunk(state: StreamState, chunk: torch.Tensor,
 
 
 def shard_streams(mesh, state: StreamState, chunks):
-    """Streams placed on a device mesh: not ported yet."""
-    raise NotImplementedError(
-        "shard_streams is not ported yet (queue 1, item 15 in ROADMAP.md)")
+    """This rank's share of S concurrent streams on a ('data', 'bank') mesh
+    (S divisible by the data axis): its S/data streams of every
+    :class:`StreamState` field and of the chunks [S, chunk_len], on the
+    mesh's device.  Streams are independent, so
+    :func:`process_chunk_batch` then runs on the share with no collective
+    (the JAX package places the same arrays with their leading axis
+    sharded)."""
+    from dsp_tpu_torch.parallel.mesh import as_mesh, shard_queries
+
+    mesh = as_mesh(mesh)
+    if mesh is None:
+        raise TypeError("shard_streams needs a mesh")
+    placed = shard_queries(mesh, *state, chunks)
+    return StreamState(*placed[:-1]), placed[-1]

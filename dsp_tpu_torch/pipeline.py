@@ -510,7 +510,8 @@ def decode_connected(signals, cfg: PipelineConfig, max_segments: int,
 def decode_connected_level(signals, cfg: PipelineConfig, bank: Features,
                            bank_label_ids, max_levels: int = 8,
                            word_penalty: float = 0.0, grammar_masks=None,
-                           mesh=None, device: str | torch.device = "cuda"):
+                           mesh=None, device: str | torch.device = "cuda",
+                           bank_valid=None):
     """Level-building connected decode over host recordings (gapless ok).
 
     Word boundaries come out of the joint DP of ``ops/level_building.py``
@@ -522,24 +523,48 @@ def decode_connected_level(signals, cfg: PipelineConfig, bank: Features,
     a word.  Returns ``(label_id_lists, costs)``: per recording the
     decoded templates' label ids (empty when nothing is reachable) and
     the DP cost.
+
+    With ``mesh`` the DP runs bank-sharded over a ('data', 'bank') mesh
+    (``parallel/sharding.py:level_build_sharded``, or
+    ``level_build_grammar_sharded`` under a grammar); ``bank`` must then be
+    padded to the bank axis with ``bank_valid`` marking its real rows, the
+    grammar masks (sized to the real bank) are padded False to it, and the
+    recordings are padded to the data axis.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "decode_connected_level(mesh=) (bank-sharded level building) is "
-            "not ported yet (queue 1, item 15 in ROADMAP.md)")
     squared = cfg.dtw.squared
+    if mesh is not None:
+        from dsp_tpu_torch.parallel import sharding as shd
+        mesh = shd.as_mesh(mesh)
     if grammar_masks is None:
         def dp_fn(feats):
+            if mesh is not None:
+                return shd.level_build_sharded(
+                    mesh, feats.feats, feats.length, bank.feats, bank.length,
+                    bank_valid, max_levels, word_penalty, squared)
             return lb.level_build(feats.feats, feats.length, bank.feats,
                                   bank.length, max_levels, word_penalty, squared)
         return decode_level_generic(signals, cfg, dp_fn, bank_label_ids,
-                                    device=device)
+                                    device=device, mesh=mesh)
 
     start_m, pair_m, end_m = (np.asarray(m, bool) for m in grammar_masks)
+    if mesh is not None and bank_valid is not None:
+        valid = np.asarray(torch.as_tensor(bank_valid).cpu(), bool)
+        grow = valid.shape[0] - start_m.shape[0]
+        if grow > 0:                  # pad the masks to the padded bank
+            start_m = np.pad(start_m, (0, grow))
+            end_m = np.pad(end_m, (0, grow))
+            pair_m = np.pad(pair_m, ((0, grow), (0, grow)))
+        start_m = start_m & valid
+        end_m = end_m & valid
+        pair_m = pair_m & np.outer(valid, valid)
     start_t = torch.as_tensor(start_m, device=bank.feats.device)
     pair_t = torch.as_tensor(pair_m, device=bank.feats.device)
 
     def dp_fn(feats):
+        if mesh is not None:
+            return shd.level_build_grammar_sharded(
+                mesh, feats.feats, feats.length, bank.feats, bank.length,
+                bank_valid, start_t, pair_t, max_levels, word_penalty, squared)
         return lb.level_build_grammar(
             feats.feats, feats.length, bank.feats, bank.length, start_t,
             pair_t, max_levels, word_penalty, squared)
@@ -548,11 +573,12 @@ def decode_connected_level(signals, cfg: PipelineConfig, bank: Features,
         return lb.backtrack_grammar(costs, starts, pair_m, end_m, t_valid)
 
     return decode_level_generic(signals, cfg, dp_fn, bank_label_ids,
-                                backtrack_fn, device)
+                                backtrack_fn, device, mesh)
 
 
 def decode_level_generic(signals, cfg: PipelineConfig, dp_fn, word_ids,
-                         backtrack_fn=None, device: str | torch.device = "cuda"):
+                         backtrack_fn=None, device: str | torch.device = "cuda",
+                         mesh=None):
     """The shared loop of the level-style connected decoders.
 
     Groups recordings by padded length (whole multiples of
@@ -563,7 +589,9 @@ def decode_level_generic(signals, cfg: PipelineConfig, dp_fn, word_ids,
     host with ``backtrack_fn(*planes_row, t_valid) -> (unit ids, cost)``
     (default ``level_building.backtrack`` over ``(costs, words, starts)``
     [L, T]).  ``word_ids`` [W] (a tensor) maps DP word indices to label
-    ids.  Returns
+    ids.  With ``mesh`` each group is padded to a multiple of the mesh's
+    data axis with silent recordings, and every length is clamped to at
+    least one sample, as in the JAX package.  Returns
     ``(label_id_lists, costs)``.
     """
     if backtrack_fn is None:
@@ -575,7 +603,13 @@ def decode_level_generic(signals, cfg: PipelineConfig, dp_fn, word_ids,
     results: dict = {}
     for pad_len, idxs in group_by_padded_len(signals, cfg.max_samples).items():
         t_max = max(1, 1 + (pad_len - f.frame_len) // f.hop_len)
-        x, n = pad_signals([signals[i] for i in idxs], pad_len, device)
+        group = [signals[i] for i in idxs]
+        if mesh is not None:
+            nd = mesh.size(0)
+            group += [np.zeros(0, np.float32)] * (-len(group) % nd)
+        x, n = pad_signals(group, pad_len, device)
+        if mesh is not None:
+            n = torch.clamp(n, min=1)
         feats = extract_recording_features(x, n, cfg, t_max)
         planes = [p.cpu().numpy() for p in dp_fn(feats)]
         lens = feats.length.cpu().numpy()

@@ -37,6 +37,8 @@ from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer
 from dsp_tpu_torch.models.streaming import StreamingConnectedRecognizer
 from dsp_tpu_torch.ops.grammar import Grammar
 
+import torch_mesh_rank as mesh_rank
+
 LABELS = ["zero", "one", "two"]
 GAPLESS = dict(gap_ms=(0.0, 1.0), lead_ms=(50.0, 60.0))
 # gapped recordings of 1-4 words; five of them take decode_connected's
@@ -250,9 +252,18 @@ def test_connected_errors_and_empty_input(recs, hmms):
     assert out == [] and starts.shape == (0, 4) and n_segs.shape == (0,)
     with pytest.raises(ValueError, match="not fitted"):
         GmmHmmRecognizer(device="cpu").classify_connected(GAPPED[:1])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpl.decode_connected_level(GAPPED[:1], rec.cfg, *rec.device_bank(),
                                    mesh=object(), device="cpu")
+    # a one-rank mesh runs the bank-sharded DP with the unsharded result
+    # (tests/test_torch_mesh_models.py holds the multi-rank meshes)
+    want = tpl.decode_connected_level(GAPPED[:1], rec.cfg, *rec.device_bank(),
+                                      max_levels=3, device="cpu")
+    with mesh_rank.one_rank_mesh() as mesh:
+        got = tpl.decode_connected_level(GAPPED[:1], rec.cfg, *rec.device_bank(),
+                                         max_levels=3, mesh=mesh, device="cpu")
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 def _stream(sc, sig):

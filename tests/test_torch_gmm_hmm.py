@@ -44,6 +44,8 @@ from dsp_tpu_torch.io import synth_word
 from dsp_tpu_torch.models import gmm_hmm as pg
 from dsp_tpu_torch.models.knn_dtw import REJECT
 
+import torch_mesh_rank as mesh_rank
+
 HCFG = dict(n_states=4, n_mix=2, n_iter=5)          # tests/test_gmm_hmm.py:13
 LABELS = ["zero", "one", "two"]
 OOV = ["papa", "quebec"]
@@ -364,7 +366,7 @@ def test_baum_welch_and_map_recognizers_fit_and_recognize():
         assert rec.classify_batch(QUERIES[:9]) == WANT
 
 
-def test_errors_and_not_ported_paths(port_rec):
+def test_errors_and_mesh_paths(port_rec):
     with pytest.raises(ValueError, match="not fitted"):
         GmmHmmRecognizer(device="cpu").classify_batch(QUERIES[:1])
     fresh = _port_of(port_rec)
@@ -379,12 +381,31 @@ def test_errors_and_not_ported_paths(port_rec):
         one.calibrate_rejection({"zero": TRAIN["zero"]})
     with pytest.raises(ValueError, match="not in the model vocabulary"):
         port_rec.calibrate_rejection({"papa": QUERIES[-1:]})
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         GmmHmmRecognizer(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         GmmHmmRecognizer(device="cpu").fit(TRAIN, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pg.fit_word(torch.zeros(1, 4, 3), torch.ones(1, dtype=torch.int32), mesh=object())
+    # on a one-rank mesh the sharded EM and decode give the unsharded bits
+    # (tests/test_torch_mesh_em.py holds the multi-rank meshes)
+    feats = torch.from_numpy(np.random.default_rng(1).standard_normal((3, 12, 4))
+                             .astype(np.float32))
+    lens = torch.tensor([12, 9, 5], dtype=torch.int32)
+    cfg = HmmConfig(n_states=2, n_mix=1, n_iter=2)
+    want = pg.fit_word(feats, lens, cfg)
+    want_s = port_rec.classify_batch(QUERIES[:3], return_scores=True)[1]
+    with mesh_rank.one_rank_mesh() as mesh:
+        got = pg.fit_word(feats, lens, cfg, mesh=mesh)
+        meshed = _port_of(port_rec)
+        meshed.mesh = mesh
+        got_s = meshed.classify_batch(QUERIES[:3], return_scores=True)[1]
+        meshed.noise_adapt = True
+        with pytest.raises(ValueError, match="noise_adapt with a mesh"):
+            meshed.classify_batch(QUERIES[:1])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(got_s, want_s)
     # connected words run (tests/test_torch_connected.py holds them to JAX)
     assert port_rec.classify_connected(QUERIES[:1]) == [port_rec.classify_batch(QUERIES[:1])]
     assert port_rec.classify_connected([]) == []

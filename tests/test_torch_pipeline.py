@@ -214,7 +214,8 @@ def test_default_device_is_the_card():
 
 
 def test_unported_recognizer_options_raise(port_rec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh= is ported (tests/test_torch_mesh_models.py): a non-mesh is a TypeError
+    with pytest.raises(TypeError, match="DeviceMesh"):
         KnnDtwRecognizer(PipelineConfig(), device="cpu", mesh=object())
     assert port_rec.classify_connected([]) == []
     # condense is ported (tests/test_torch_align.py holds it to JAX's)

@@ -29,6 +29,8 @@ from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import spot_fused as ksp
 from dsp_tpu_torch.models import spotter as tspotter
 
+import torch_mesh_rank as mesh_rank
+
 KEYWORDS = ["zero", "one"]
 VOCAB = ["zero", "one", "three", "four", "five"]
 STREAMS = [synth_spotting_stream(KEYWORDS, VOCAB, seed=s, n_words=5)
@@ -165,13 +167,22 @@ def test_threshold_resolution_order(jax_rec, tmp_path):
     assert KeywordSpotter(loaded).threshold_source == "bank-calibrated"
 
 
-def test_mesh_raises(jax_rec):
-    with pytest.raises(NotImplementedError, match="item 15"):
+def test_mesh_spotting_and_its_type_check(jax_rec, port_rec):
+    """A recognizer on a one-rank mesh spots through ``spot_sharded`` with
+    the single-device scores (tests/test_torch_mesh_models.py holds the
+    multi-rank meshes); a non-mesh object is a TypeError."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         KnnDtwRecognizer(PipelineConfig(), device="cpu", mesh=object())
     meshed = _port_rec(jax_rec)
     meshed.mesh = object()
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         KeywordSpotter(meshed)
+    want = KeywordSpotter(port_rec).scores(SIGNALS[:2])
+    with mesh_rank.one_rank_mesh() as mesh:
+        got = KeywordSpotter(_port_rec(jax_rec, mesh=mesh)).scores(SIGNALS[:2])
+    for (gn, gs), (wn, ws) in zip(got, want):
+        np.testing.assert_array_equal(gn, wn)
+        np.testing.assert_array_equal(gs, ws)
 
 
 @pytest.mark.parametrize("impl", ["auto", "scan", "fused"])

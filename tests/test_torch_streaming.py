@@ -34,6 +34,8 @@ from dsp_tpu_torch.ops import frontend as tfe
 from dsp_tpu_torch.ops import streaming as tst
 from dsp_tpu_torch.utils import logging as tlog
 
+import torch_mesh_rank as mesh_rank
+
 CHUNK = 1600
 LABELS = ["zero", "one", "two"]
 
@@ -238,9 +240,25 @@ def test_run_metrics_dump(tmp_path):
     assert '"hop_len": 160' in text and "elapsed_s" in text
 
 
-def test_shard_streams_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tst.shard_streams(None, None, None)
+def test_shard_streams_keeps_the_data_shard():
+    """On a one-rank mesh every stream stays, on the mesh's device, and the
+    batch runs as without a mesh (tests/test_torch_mesh_em.py holds the
+    multi-rank meshes); no mesh, or a non-mesh, is a TypeError."""
+    fcfg = FrontendConfig()
+    state = tst.init_state_batch(4, fcfg, 1600, "cpu")
+    chunks = torch.from_numpy(np.stack([_chunks(TWO_WORDS, 1600)[c] for c in range(4)]))
+    want = tst.process_chunk_batch(state, chunks, tfe.make_matrices(fcfg, "cpu"),
+                                   fcfg, chunk_len=1600)
+    with mesh_rank.one_rank_mesh() as mesh:
+        st, ck = tst.shard_streams(mesh, state, chunks.numpy())
+        got = tst.process_chunk_batch(st, ck, tfe.make_matrices(fcfg, "cpu"), fcfg,
+                                      chunk_len=1600)
+    assert torch.equal(ck, chunks)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+    for bad in (None, object()):
+        with pytest.raises(TypeError):
+            tst.shard_streams(bad, state, chunks)
 
 
 # --------------------------------------------------------------- recognizer

@@ -144,7 +144,7 @@ def test_checkpoints_cross_load(fitted, tmp_path):
 def test_recognizer_surface():
     assert TopLevelVq is ModelsVq is tvq.VqRecognizer
     assert tvq.VqRecognizer().device.type == "cuda"
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tvq.VqRecognizer(mesh=object())
     with pytest.raises(ValueError, match="no enrollment data"):
         tvq.VqRecognizer(device="cpu").fit()
