@@ -340,6 +340,33 @@ each of which raises on failure (non-zero exit):
              ``multihost.is_primary()`` and ``all_hosts_agree(accuracy)``.
              Kernels 1, 2 and 3's counted launches here join the kernel
              table's.
+18. cli    — the command line (ROADMAP items 16a and 20): every subcommand
+             through ``dsp_tpu_torch.cli.main`` in this process, in a
+             temporary directory, at the default device (the card), with
+             launch counts reset just before each card run and read just
+             after, and each held against the same arguments under
+             ``--device cpu``.  ``make-corpus`` at its defaults (10 digits
+             x 5 a split) with ``--spotting 4 --connected 8``; ``enroll``;
+             ``evaluate`` (accuracy equal to the CPU's, or apart only by
+             near-ties); ``recognize`` on every test file (labels equal
+             to the CPU's under phase main's tie-aware rule) and on three;
+             ``--dtw-impl fused --band 0`` (kernel 4) against ``--band 0``
+             and ``--dtw-impl pallas`` (kernel 5) against the default, by
+             the same rule, each launching its kernel under ``evaluate``;
+             ``evaluate-connected`` equal to the CPU's; ``spot`` and
+             ``evaluate-spot`` with events as the CPU's (labels and spans
+             equal, scores 2e-4 relative plus the printed decimals) except
+             in streams whose witnesses differ between the devices
+             (near-ties); ``serve`` fed a plain, a ``connected``, a
+             ``level``, an ``nbest`` and a ``spot`` line, each answer as
+             the CPU's (labels equal, numbers within the printed
+             decimals); the native batch reader equal to ``read_wav`` on
+             every file of the corpus (or, without g++, the Python reader
+             alone); and ``utils.profiling.trace`` around one ``evaluate``,
+             whose Chrome trace must name the ``dtw_banded`` kernel.
+             Prints each subcommand's wall seconds (``StageTimer``: card
+             runs, synchronized) with the card's name and power limit;
+             kernels 1, 3, 4 and 5's launches here join the kernel table's.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -516,6 +543,8 @@ MESH_CONN_RECORDINGS = 8    # of phase connected's 64
 MESH_HMM_QUERIES = 256
 MESH_STREAMS = 64
 MESH_STREAM_CHUNKS = 10
+CLI_SPOTTING = 4            # phase cli: make-corpus --spotting / --connected
+CLI_CONNECTED = 8
 
 
 def fail(msg: str):
@@ -3070,6 +3099,247 @@ def mesh_phase(seed: int, dev, report) -> dict:
     return counted
 
 
+def cli_phase(dev, report) -> dict:
+    """Phase cli: ``python -m dsp_tpu_torch``'s subcommands (ROADMAP items
+    16a and 20) run in-process at the default device (the card), each held
+    against ``--device cpu``; returns the counted launches of its kernels."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import cli
+    from dsp_tpu_torch.io import native
+    from dsp_tpu_torch.io.dataset import load_corpus_dir
+    from dsp_tpu_torch.io.wav import read_wav
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.models import KeywordSpotter, KnnDtwRecognizer
+    from dsp_tpu_torch.utils.profiling import StageTimer, trace
+
+    out = report["cli"]
+    smi = "; ".join(report["nvidia_smi"])
+    t_phase = time.perf_counter()
+    counted = dict.fromkeys(("dtw_banded", "spot_subseq", "dtw_fused", "dtw_wavefront"), 0)
+    timer = StageTimer()
+    launches = {}
+
+    def run(name, argv, stdin=None, cpu=False):
+        """stdout of ``cli.main(argv)`` on the card (counted, timed as
+        ``name``) or, with ``cpu``, under ``--device cpu``."""
+        buf = io.StringIO()
+        old_stdin = sys.stdin
+        if stdin is not None:
+            sys.stdin = io.StringIO(stdin)
+        try:
+            if cpu:
+                with contextlib.redirect_stdout(buf):
+                    cli.main(["--device", "cpu", *argv])
+                return buf.getvalue()
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            with timer.time(name), contextlib.redirect_stdout(buf):
+                cli.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            sys.stdin = old_stdin
+        got = {k: _build.LAUNCHES[k] for k in counted if _build.LAUNCHES[k]}
+        for k, n in got.items():
+            counted[k] += n
+        launches[name] = got
+        return buf.getvalue()
+
+    def cells(text):
+        return [ln.split("\t") for ln in text.strip().splitlines()]
+
+    def near_tie_rows(bank, cfg_args, sigs):
+        """Rows whose two best CPU distances lie within 1e-4 relative
+        (phase main's rule)."""
+        args = cli.build_parser().parse_args(["evaluate", "--corpus", "-", "--bank", bank,
+                                              *cfg_args])
+        rec = KnnDtwRecognizer.load(bank, cli._pipeline_cfg(args), device="cpu")
+        _, d = rec.classify_batch(sigs, return_distances=True)
+        top2 = np.sort(d, axis=1)[:, :2]
+        return np.abs(top2[:, 1] - top2[:, 0]) <= 1e-4 * np.abs(top2[:, 0])
+
+    def same_labels(got, want, ties, what):
+        diff = np.array([a != b for a, b in zip(got, want)])
+        if len(got) != len(want) or (diff & ~ties).any():
+            fail(f"cli {what}: {int((diff & ~ties).sum())} labels differ outside near-ties")
+        return int(diff.sum())
+
+    def accuracy(text):
+        return float(text.rsplit("accuracy:", 1)[1].split("(")[0])
+
+    def same_spot_lines(got, want, sigs, bank, what, atol=2e-3):
+        """spot's lines per stream: labels and spans equal, scores within
+        2e-4 relative (+ ``atol`` for the printed decimals), except in
+        streams whose witnesses differ between the card and the CPU
+        (near-ties)."""
+        by = [{}, {}]
+        for side, text in enumerate((got, want)):
+            for c in cells(text):
+                by[side].setdefault(c[0], []).append(c[1:])
+        recs = [KnnDtwRecognizer.load(bank, device=d) for d in (dev, "cpu")]
+        differ = 0
+        for path, sig in sigs.items():
+            a, b = by[0].get(path, []), by[1].get(path, [])
+            same = len(a) == len(b) and all(
+                x[:3] == y[:3] and (x[3] == y[3] == "" or
+                                    abs(float(x[3]) - float(y[3]))
+                                    <= 2e-4 * abs(float(y[3])) + atol)
+                for x, y in zip((r + [""] * (4 - len(r)) for r in a),
+                                (r + [""] * (4 - len(r)) for r in b)))
+            if same:
+                continue
+            differ += 1
+            w = [KeywordSpotter(r).scores([sig])[0][1] for r in recs]
+            if np.array_equal(w[0], w[1]):
+                fail(f"cli {what}: {path} events differ from the CPU's with no witness "
+                     f"near-tie: {a} vs {b}")
+        return differ
+
+    with tempfile.TemporaryDirectory(prefix="cli_phase_") as tmp:
+        d = os.path.join(tmp, "corpus")
+        bank = os.path.join(tmp, "bank.npz")
+        test = os.path.join(d, "test")
+        run("make-corpus", ["make-corpus", "--out", d, "--spotting", str(CLI_SPOTTING),
+                            "--connected", str(CLI_CONNECTED)])
+        test_wavs = sorted(os.path.join(test, lab, f) for lab in os.listdir(test)
+                           for f in os.listdir(os.path.join(test, lab)))
+        truth = [os.path.basename(os.path.dirname(w)) for w in test_wavs]
+        sigs = [read_wav(w)[1] for w in test_wavs]
+        if len(test_wavs) != 10 * 5:
+            fail(f"cli make-corpus: {len(test_wavs)} test files, expected 10 words x 5")
+        run("enroll", ["enroll", "--corpus", os.path.join(d, "train"), "--bank", bank])
+
+        # evaluate on the card and on the CPU; per-utterance labels through
+        # recognize on every test file, under phase main's tie-aware rule
+        ev_card = run("evaluate", ["evaluate", "--corpus", test, "--bank", bank])
+        ev_cpu = run("evaluate", ["evaluate", "--corpus", test, "--bank", bank], cpu=True)
+        rec_card = [c[1] for c in cells(run("recognize_all", ["recognize", "--bank", bank,
+                                                              *test_wavs]))]
+        rec_cpu = [c[1] for c in cells(run("recognize", ["recognize", "--bank", bank,
+                                                         *test_wavs], cpu=True))]
+        ties = near_tie_rows(bank, [], sigs)
+        flips = same_labels(rec_card, rec_cpu, ties, "recognize (card vs cpu)")
+        acc_card, acc_cpu = accuracy(ev_card), accuracy(ev_cpu)
+        if abs(acc_card - acc_cpu) * len(sigs) > int(ties.sum()) + 1e-9 or \
+                (not ties.any() and ev_card != ev_cpu):
+            fail(f"cli evaluate: accuracy {acc_card} on the card, {acc_cpu} on the CPU")
+        acc_rec = float(np.mean([a == b for a, b in zip(rec_card, truth)]))
+        if abs(acc_rec - acc_card) > 1e-9 or acc_card < 0.9:
+            fail(f"cli evaluate: accuracy {acc_card}; recognize's labels give {acc_rec}")
+        three = run("recognize", ["recognize", "--bank", bank, *test_wavs[::20][:3]])
+        if [c[1] for c in cells(three)] != rec_card[::20][:3]:
+            fail(f"cli recognize on three files: {three!r}")
+
+        # the unbanded and wavefront routes: labels as the default route's
+        routes = {}
+        for name, flags, ref in (("fused", ["--dtw-impl", "fused", "--band", "0"],
+                                  ["--band", "0"]),
+                                 ("pallas", ["--dtw-impl", "pallas"], [])):
+            want = rec_card if not ref else [c[1] for c in cells(run(
+                f"recognize_{name}_ref", ["recognize", "--bank", bank, *test_wavs, *ref]))]
+            got = [c[1] for c in cells(run(f"recognize_{name}", ["recognize", "--bank", bank,
+                                                                 *test_wavs, *flags]))]
+            ties_r = near_tie_rows(bank, ref, sigs)
+            routes[name] = dict(flips=same_labels(got, want, ties_r, f"--dtw-impl {name}"),
+                                accuracy=accuracy(run(f"evaluate_{name}", [
+                                    "evaluate", "--corpus", test, "--bank", bank, *flags])))
+            kernel = {"fused": "dtw_fused", "pallas": "dtw_wavefront"}[name]
+            if not launches[f"evaluate_{name}"].get(kernel):
+                fail(f"cli evaluate --dtw-impl {name} launched {launches[f'evaluate_{name}']}")
+
+        # connected words, spotting, the serve loop
+        conn = os.path.join(d, "connected")
+        ec = [run("evaluate-connected", ["evaluate-connected", "--corpus", conn, "--bank", bank],
+                  cpu=cpu) for cpu in (False, True)]
+        if ec[0] != ec[1]:
+            fail(f"cli evaluate-connected: {ec[0]!r} on the card, {ec[1]!r} on the CPU")
+        spotting = os.path.join(d, "spotting")
+        spot_wavs = sorted(os.path.join(spotting, f) for f in os.listdir(spotting)
+                           if f.endswith(".wav"))
+        spot_sigs = {w: read_wav(w)[1] for w in spot_wavs}
+        sp = [run("spot", ["spot", "--bank", bank, *spot_wavs], cpu=cpu) for cpu in (False, True)]
+        spot_differ = same_spot_lines(sp[0], sp[1], spot_sigs, bank, "spot")
+        es = [run("evaluate-spot", ["evaluate-spot", "--corpus", spotting, "--bank", bank],
+                  cpu=cpu) for cpu in (False, True)]
+        if es[0] != es[1] and not spot_differ:
+            fail(f"cli evaluate-spot: {es[0]!r} on the card, {es[1]!r} on the CPU")
+        f1 = float(es[0].rsplit("f1:", 1)[1].split()[0])
+        lines = (f"{test_wavs[0]}\nconnected {os.path.join(conn, 'clip_000.wav')}\n"
+                 f"level {os.path.join(conn, 'clip_001.wav')}\nnbest {test_wavs[1]}\n"
+                 f"spot {spot_wavs[0]}\n")
+        sv = [cells(run("serve", ["serve", "--bank", bank], stdin=lines, cpu=cpu))
+              for cpu in (False, True)]
+        if sv[0][0] != ["ready"] or len(sv[0]) != 6 or len(sv[1]) != 6:
+            fail(f"cli serve: {sv[0]!r}")
+        for a, b in zip(sv[0][1:4], sv[1][1:4]):
+            if a[:2] != b[:2]:
+                fail(f"cli serve: {a[:2]} on the card, {b[:2]} on the CPU")
+        nb = [[x.split(":") for x in r[4][1].split(" ")] for r in sv]
+        if [[x[0] for x in h] for h in nb] != [[x[0] for x in nb[0]]] * 2 or any(
+                abs(float(x) - float(y)) > 1e-4 * abs(float(y)) + 2e-3
+                for u, v in zip(*nb) for x, y in zip(u[1:], v[1:])):
+            fail(f"cli serve nbest: {sv[0][4]} on the card, {sv[1][4]} on the CPU")
+        spot_serve = ["\n".join("\t".join([spot_wavs[0], *ev.split(":")])
+                                for ev in r[5][1].split(" ") if ev != "-") for r in sv]
+        serve_differ = same_spot_lines(spot_serve[0], spot_serve[1],
+                                       {spot_wavs[0]: spot_sigs[spot_wavs[0]]}, bank,
+                                       "serve spot", atol=1.1e-2)
+
+        # the native batch reader against the Python reader on the corpus
+        all_wavs = sorted(os.path.join(r, f) for r, _, fs in os.walk(d) for f in fs
+                          if f.endswith(".wav"))
+        if native.available():
+            xs = [read_wav(w, 16000)[1] for w in all_wavs]
+            batch, lens, failures = native.read_wav_batch(all_wavs, 16000,
+                                                          max(len(x) for x in xs))
+            for i, (w, x) in enumerate(zip(all_wavs, xs)):
+                if failures or lens[i] != len(x) or not np.array_equal(batch[i, : lens[i]], x):
+                    fail(f"cli native reader: {w} differs from read_wav")
+            reader = f"native ({native.library_path().name}) equal to read_wav on " \
+                     f"{len(all_wavs)} files"
+        else:
+            corpus = load_corpus_dir(test)
+            if sum(len(v) for v in corpus.values()) != len(test_wavs):
+                fail("cli: the Python reader lost files")
+            reader = "g++ missing on this host: the Python reader alone"
+        print(f"cli reader: {reader}", flush=True)
+
+        # a profiler trace of one evaluate must name kernel 1
+        logdir = os.path.join(tmp, "trace")
+        with trace(logdir):
+            run("evaluate_traced", ["evaluate", "--corpus", test, "--bank", bank])
+        with open(os.path.join(logdir, os.listdir(logdir)[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+        if not any("dtw_banded" in k for k in kernels):
+            fail(f"cli trace: no dtw_banded kernel among {kernels[:20]}")
+
+    times = timer.report()
+    for k, n in counted.items():
+        if n == 0:
+            fail(f"cli: kernel {k} never launched in the phase's card runs")
+    print(f"cli: accuracy {acc_card:.4f} (card) {acc_cpu:.4f} (cpu), label flips at near-ties "
+          f"{flips}; fused {routes['fused']}, pallas {routes['pallas']}; "
+          f"{ec[0].splitlines()[0]}; spot streams apart at near-ties {spot_differ} "
+          f"(serve {serve_differ}); f1 {f1:.4f}; trace names "
+          f"{[k for k in kernels if 'dtw_banded' in k][:1]}", flush=True)
+    print(f"cli subcommand wall s on {smi} (StageTimer; card runs, synchronized): "
+          + "  ".join(f"{k} {v:.3f}" for k, v in times.items()), flush=True)
+    print(f"cli launches: {launches}; total {counted}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out.update(stage_seconds=times, launches_by_subcommand=launches, launches=counted,
+               accuracy=acc_card, accuracy_cpu=acc_cpu, label_flips_at_near_ties=flips,
+               routes=routes, spot_streams_apart=spot_differ, f1=f1, reader=reader,
+               seconds=time.perf_counter() - t_phase)
+    return counted
+
+
 def fused_phase(rng, long_rng, dev, report):
     """Kernel 4 (unbanded DTW from features) against its plain version and
     the banded kernel's unbanded mode at the main-path shape, and against
@@ -3465,6 +3735,24 @@ def mb_wavefront_phase(seed: int, dev, report) -> dict:
           cycles_per_step=cyc)
     print(f"mb_wavefront anatomy  : {cyc:.1f} SM cycles a step at [{pt},{width}], 2 rolls "
           f"(clock64, the entry point's run)", flush=True)
+    # 8's chain-latency bound: at [64, 32] a lane holds one cell, so a step
+    # of 1 roll is one dependent shuffle, min and add and nothing else (the
+    # one-instruction chain); at 2 rolls and more cells a lane the two
+    # shuffles read other cells, so a step's dependent chain is the same
+    # shuffle, min and add.  4,000 steps of it at the card's top SM clock.
+    rows = runs["anatomy"]["rows"]
+    chain = rows["64x32_rolls1"]["cycles_per_step"]
+    shuffle = rows["64x32_rolls2"]["cycles_per_step"] - chain
+    max_mhz = runs["anatomy"]["max_sm_mhz"]
+    chain_ms = steps * chain / (max_mhz * 1e3)
+    an = report["mb_wavefront"]["anatomy"]
+    an.update(chain_cycles_per_step=chain, shuffle_cycles=shuffle, max_sm_mhz=max_mhz,
+              chain_bound_ms=chain_ms)
+    print(f"mb_wavefront anatomy  : chain-latency bound {chain_ms:.4f} ms ({steps} steps x "
+          f"{chain:.2f} cycles of one dependent shuffle + min + add at [64,32], 1 roll; "
+          f"one shuffle alone {shuffle:.2f} cycles; {max_mhz:.0f} MHz) against "
+          f"{an['ms']:.4f} ms ({chain_ms / an['ms']:.1%} of it) and {cyc:.2f} cycles a step "
+          f"({chain / cyc:.1%}); operations bound {an['bound_ms']:.4f} ms", flush=True)
     x0 = torch.randn((8, 128), generator=g, device=dev)
     check("trivial", kmb.trivial(x0), kmb.trivial_plain(x0), fn=lambda: kmb.trivial(x0),
           plain=lambda: kmb.trivial_plain(x0), library=lambda: x0 * 2.0,
@@ -3615,7 +3903,7 @@ def main() -> int:
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
               "streaming": {}, "hmm": {}, "cascade": {}, "connected": {},
-              "remainder": {}, "mesh": {}, "nvidia_smi": smi}
+              "remainder": {}, "mesh": {}, "cli": {}, "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
     mfcc_phase(dev, report)
@@ -3638,6 +3926,8 @@ def main() -> int:
     report["remainder"]["launches"] = {"dtw_banded": remainder_phase(args.seed, dev, report)}
     launches["dtw_banded"] += report["remainder"]["launches"]["dtw_banded"]
     for name, n in mesh_phase(args.seed, dev, report).items():
+        launches[name] += n
+    for name, n in cli_phase(dev, report).items():
         launches[name] += n
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")

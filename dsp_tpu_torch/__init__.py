@@ -93,6 +93,8 @@ from dsp_tpu_torch.pipeline import (  # noqa: E402
     recognize_connected_batch,
 )
 
+__version__ = "0.1.0"     # the JAX package's (dsp_tpu/__init__.py)
+
 
 def extract_mfcc(x, cfg: PipelineConfig = PipelineConfig(),
                  device: str | torch.device = "cuda"):
@@ -108,5 +110,5 @@ __all__ = [
     "PipelineConfig", "KnnDtwRecognizer", "GmmHmmRecognizer", "KeywordSpotter",
     "StreamingRecognizer", "VqRecognizer", "Features",
     "extract_features", "classify_features", "recognize_batch",
-    "recognize_connected_batch", "extract_mfcc",
+    "recognize_connected_batch", "extract_mfcc", "__version__",
 ]

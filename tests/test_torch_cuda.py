@@ -47,6 +47,7 @@ centroids within 1e-5; labels equal to the CPU's.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1510,3 +1511,24 @@ def test_condense_and_vq_default_to_the_card(dev):
     vq.fit({lab: [synth_word(lab, i) for i in range(2)] for lab in ("zero", "one")})
     assert vq.extract([synth_word("one", 9)]).feats.device.type == "cuda"
     assert vq.recognize(synth_word("one", 9)) in ("zero", "one")
+
+
+def test_cli_evaluate_on_the_card_equals_the_cpu(dev, tmp_path, capsys):
+    """``python -m dsp_tpu_torch evaluate`` at its default device (the
+    card) prints what ``--device cpu`` prints, through kernel 1."""
+    from dsp_tpu_torch import cli
+
+    d = str(tmp_path / "corpus")
+    cli.main(["make-corpus", "--out", d, "--n", "2", "--words", "3"])
+    bank = str(tmp_path / "bank.npz")
+    cli.main(["enroll", "--corpus", os.path.join(d, "train"), "--bank", bank])
+    outs = []
+    for pre in ([], ["--device", "cpu"]):
+        capsys.readouterr()
+        before = _build.LAUNCHES["dtw_banded"]
+        cli.main([*pre, "evaluate", "--corpus", os.path.join(d, "test"), "--bank", bank])
+        torch.cuda.synchronize()
+        outs.append((capsys.readouterr().out, _build.LAUNCHES["dtw_banded"] - before))
+    (card, n_card), (cpu, n_cpu) = outs
+    assert card == cpu and "accuracy: 1.0000 (6 utterances)" in card
+    assert n_card >= 1 and n_cpu == 0
