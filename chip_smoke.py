@@ -367,6 +367,41 @@ each of which raises on failure (non-zero exit):
              Prints each subcommand's wall seconds (``StageTimer``: card
              runs, synchronized) with the card's name and power limit;
              kernels 1, 3, 4 and 5's launches here join the kernel table's.
+19. tools  — the rest of the command line (ROADMAP item 16b) and the
+             evaluation scripts (item 21a), in this process at the default
+             device (the card), launch counts reset just before each card
+             run and read just after, each held against ``--device cpu``.
+             On a ``make-corpus`` corpus (10 digits x 5 a split) and its
+             bank: ``train-hmm`` at the default ``HmmConfig`` on both
+             devices (keys and labels equal, the fits within
+             ``HMM_FIT_SPREAD``), ``evaluate-hmm`` and ``evaluate-hmm
+             --noise-adapt --reject`` of the card's model (the lines equal,
+             or the accuracies one utterance apart); ``train-vq`` on both
+             (the codebooks' gap printed) and ``evaluate-vq`` of the card's
+             codebooks (lines equal); ``evaluate-sc2`` with k = 1 and k = 3
+             over a local Speech Commands layout of the 10 digits
+             (``TOOLS_SC2_FILES`` clips a word; one card: the single-device
+             path), accuracy lines equal and kernel 1 launched; ``plot
+             --bank`` (a PNG and kernel 1; where matplotlib is missing, the
+             CLI's refusal and ``viz.pipeline_view``, the panels' data, in
+             its place) and ``pipeline_view``'s distances on the card
+             against the CPU's at rtol 1e-4; ``demo`` over the
+             synthetic stream and over a connected clip, lines equal and
+             kernel 1 launched.  Then each evaluation script of
+             ``TOOLS_SCRIPTS`` at ``tests/test_torch_scripts.py``'s cut
+             (``TOOLS_WORDS`` where the script allows it, corpora capped at
+             ``TOOLS_PER_WORD`` utterances a word, the flags listed): its
+             lines equal to the CPU's but the device lines and
+             utterances/s, the rows that hang on a GMM-HMM fit (which parts
+             between the devices in float32) within one unit of their count
+             or, for the HMM and cascade spotting cells, counted.
+             Kernel 1 must launch in ``results_matrix`` and ``demo``,
+             kernels 4 and 5 in ``results_matrix`` (its unbanded ``fused``
+             row and the cascade's rerank), kernel 3 in ``spot_eval``'s
+             ``dtw`` and ``cascade`` families.  Prints each run's wall
+             seconds (``StageTimer``: card runs, synchronized) with the
+             card's name and power limit; kernels 1, 3, 4 and 5's launches
+             here join the kernel table's.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -545,6 +580,34 @@ MESH_STREAMS = 64
 MESH_STREAM_CHUNKS = 10
 CLI_SPOTTING = 4            # phase cli: make-corpus --spotting / --connected
 CLI_CONNECTED = 8
+# phase tools: the evaluation scripts at tests/test_torch_scripts.py's cut
+# (a 3-word vocabulary where a script allows it, corpora capped at 2
+# utterances a word, the scripts' own flags below); evaluate-sc2 over a
+# local Speech Commands layout of the 10 digits
+TOOLS_WORDS = ["zero", "one", "two"]
+TOOLS_PER_WORD = 2
+TOOLS_SPOT = ["--streams", "2", "--words-per-stream", "3", "--noises", "0.003,0.05"]
+TOOLS_SCRIPTS = [
+    # (name, flags, keep the 10 digits, rows whose numbers hang on a GMM-HMM
+    # fit, and how far such a number may part from the CPU's: one unit of
+    # its count, or None where the cells are only counted)
+    ("results_matrix", [], False, ("GMM-HMM (viterbi)", "GMM-HMM (baum_welch)"), 1 / 6),
+    ("robustness", [], False, (), None),
+    ("hostile_vad", [], False, (), None),
+    ("hostile_matrix", ["--quick", "--conditions", "snr0,tilt+snr10", "--configs",
+                        "default,denoise,itakura,k=3,2pass,causal-cmn"], False, (), None),
+    ("oov_eval", ["--quick", "--enrolled", "2", "--oov", "1"], False, ("gmm-hmm",), 1 / 4),
+    ("spot_eval", ["--family", "dtw", *TOOLS_SPOT, "--thresholds", "30,50"], True, (), None),
+    ("spot_eval", ["--family", "hmm", *TOOLS_SPOT, "--thresholds=-45,-15"], True, ("*",),
+     None),
+    ("spot_eval", ["--family", "cascade", *TOOLS_SPOT, "--thresholds", "30,60"], True,
+     ("*",), None),
+    ("connected_eval", ["--clips", "3"], True,
+     ("GMM-HMM", "GMM-HMM (connected Viterbi)", "GMM-HMM +noise-adapt"), 1 / 3),
+    ("grammar_eval", ["--clips", "2", "--noise", "0.02"], True,
+     ("GMM-HMM connected Viterbi", "GMM-HMM +noise-adapt"), 1 / 2),
+]
+TOOLS_SC2_FILES = (10, 3, 3)      # a word: train, validation, test clips
 
 
 def fail(msg: str):
@@ -3340,6 +3403,287 @@ def cli_phase(dev, report) -> dict:
     return counted
 
 
+def sc2_layout(root: str, words, counts, seed0: int = 8000) -> None:
+    """A local Speech Commands layout (``io/speech_commands.py``) of
+    synthetic 1 s clips: ``counts`` = (train, validation, test) clips a
+    word, and the two list files.  ``python3 -c 'import chip_smoke;
+    chip_smoke.sc2_layout(root, [f"w{i:02d}" for i in range(35)], (10, 2,
+    10))'`` writes config 4's 35 words."""
+    import os
+
+    from dsp_tpu_torch.io.dataset import synth_word
+    from dsp_tpu_torch.io.wav import write_wav
+
+    n_tr, n_val, n_te = counts
+    lists = {"validation": [], "testing": []}
+    for w in words:
+        os.makedirs(os.path.join(root, w), exist_ok=True)
+        for i in range(n_tr + n_val + n_te):
+            rel = f"{w}/spk{i:02d}_nohash_0.wav"
+            write_wav(os.path.join(root, rel), 16000,
+                      synth_word(w, seed0 + i, max_samples=16000))
+            if i >= n_tr:
+                lists["validation" if i < n_tr + n_val else "testing"].append(rel)
+    for name, rels in lists.items():
+        with open(os.path.join(root, f"{name}_list.txt"), "w") as f:
+            f.write("\n".join(rels) + "\n")
+
+
+def tools_phase(dev, report) -> dict:
+    """Phase tools: the CLI's GMM-HMM, VQ, Speech Commands, plot and demo
+    subcommands (ROADMAP item 16b) and the evaluation scripts (item 21a)
+    in-process at the default device (the card), each held against
+    ``--device cpu``; returns the counted launches of its kernels."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import cli
+    from dsp_tpu_torch.io import dataset as ds
+    from dsp_tpu_torch.io import hostile as host
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.models import KnnDtwRecognizer
+    from dsp_tpu_torch.utils.profiling import StageTimer
+    from dsp_tpu_torch.viz import pipeline_view
+
+    out = report["tools"]
+    smi = "; ".join(report["nvidia_smi"])
+    t_phase = time.perf_counter()
+    counted = dict.fromkeys(("dtw_banded", "spot_subseq", "dtw_fused", "dtw_wavefront"), 0)
+    timer = StageTimer()
+    launches, checks = {}, {}
+
+    def card(name, fn):
+        """stdout of ``fn()`` on the card, its launches counted and its wall
+        time kept as ``name``."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with timer.time(name), contextlib.redirect_stdout(buf):
+            fn()
+        torch.cuda.synchronize()
+        got = {k: _build.LAUNCHES[k] for k in counted if _build.LAUNCHES[k]}
+        for k, n in got.items():
+            counted[k] += n
+        launches[name] = got
+        return buf.getvalue()
+
+    def cpu(fn):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn()
+        return buf.getvalue()
+
+    def both(name, argv):
+        """``cli.main(argv)``'s stdout on the card and under --device cpu."""
+        return (card(name, lambda: cli.main(argv)),
+                cpu(lambda: cli.main(["--device", "cpu", *argv])))
+
+    def accuracy(text):
+        return float(text.rsplit("accuracy:", 1)[1].split("(")[0])
+
+    def within_one(name, got, want, n):
+        """GMM-HMM evaluations: the same lines, or accuracies apart by at
+        most one of ``n`` utterances (card and CPU decodes of one model)."""
+        if got != want and abs(accuracy(got) - accuracy(want)) * n > 1 + 1e-9:
+            fail(f"tools {name}: {got!r} on the card, {want!r} on the CPU")
+        return int(got != want)
+
+    def lines(text):
+        return [ln for ln in text.splitlines() if not ln.startswith(("device:", "# device:"))]
+
+    def same_text(tag, got, want, fit_rows, unit):
+        """A script's output on the card against the CPU's: lines equal but
+        the device lines and results_matrix's utterances/s; numbers of the
+        rows in ``fit_rows`` (``"*"``: every row) within ``unit``, or only
+        counted where ``unit`` is None.  Returns the cells apart."""
+        g, w = lines(got), lines(want)
+        if len(g) != len(w) or not g:
+            fail(f"tools {tag}: {len(g)} lines on the card, {len(w)} on the CPU")
+        apart, family = 0, None
+        for a, b in zip(g, w):
+            if a.startswith(("knn-dtw", "gmm-hmm")):
+                family = a.split()[0]
+            if a.startswith("|"):
+                ca = [c.strip() for c in a.strip().strip("|").split("|")]
+                cb = [c.strip() for c in b.strip().strip("|").split("|")]
+                if len(ca) != len(cb):
+                    fail(f"tools {tag}: {a!r} on the card, {b!r} on the CPU")
+                for i, (x, y) in enumerate(zip(ca, cb)):
+                    if x == y or (tag == "results_matrix" and i == 2):
+                        continue
+                    if "*" in fit_rows or ca[0] in fit_rows:
+                        apart += 1
+                        if unit is None or abs(float(x.strip("*")) - float(y.strip("*"))) \
+                                <= unit + 1e-9:
+                            continue
+                    fail(f"tools {tag}: {a!r} on the card, {b!r} on the CPU")
+            elif a.startswith("  "):              # oov_eval's rows
+                ca, cb = a.split(), b.split()
+                fit = family in fit_rows
+                tol = 0.5 if fit else 1e-3 * abs(float(cb[1])) + 1e-2
+                if ca[0] != cb[0] or ca[5:] != cb[5:] or abs(float(ca[1]) - float(cb[1])) > tol:
+                    fail(f"tools {tag}: {a!r} on the card, {b!r} on the CPU")
+                for x, y in zip(ca[2:5], cb[2:5]):
+                    if x != y:
+                        if not fit or abs(float(x) - float(y)) > unit + 1e-9:
+                            fail(f"tools {tag}: {a!r} on the card, {b!r} on the CPU")
+                        apart += 1
+            elif a != b:
+                fail(f"tools {tag}: {a!r} on the card, {b!r} on the CPU")
+        return apart
+
+    with tempfile.TemporaryDirectory(prefix="tools_phase_") as tmp:
+        p = lambda *parts: os.path.join(tmp, *parts)  # noqa: E731
+        train, test, bank = p("corpus", "train"), p("corpus", "test"), p("bank.npz")
+        # the corpus and the bank: host work and phase cli's subcommands
+        cli.main(["--device", "cpu", "make-corpus", "--out", p("corpus"), "--connected", "2"])
+        cli.main(["--device", "cpu", "enroll", "--corpus", train, "--bank", bank,
+                  "--no-spot-calibration"])
+        n_test = sum(len(fs) for _, _, fs in os.walk(test))
+
+        # the GMM-HMM: each device's fit, and one model decoded on both
+        card("train-hmm", lambda: cli.main(["train-hmm", "--corpus", train, "--model",
+                                            p("hmm.npz")]))
+        cli.main(["--device", "cpu", "train-hmm", "--corpus", train, "--model",
+                  p("hmm_cpu.npz")])
+        a, b = np.load(p("hmm.npz")), np.load(p("hmm_cpu.npz"))
+        if sorted(a.files) != sorted(b.files) or str(a["labels"]) != str(b["labels"]):
+            fail(f"tools train-hmm: keys {sorted(a.files)} / labels {a['labels']} on the card, "
+                 f"{sorted(b.files)} / {b['labels']} on the CPU")
+        fit_gap = max(float(np.max(np.abs(a[k] - b[k]) / (1.0 + np.abs(b[k]))))
+                      for k in a.files if a[k].dtype.kind == "f")
+        if fit_gap > HMM_FIT_SPREAD:
+            fail(f"tools train-hmm: the card's fit parts from the CPU's by {fit_gap:.3e}")
+        flips = 0
+        for name, extra in (("evaluate-hmm", []),
+                            ("evaluate-hmm_noise_reject", ["--noise-adapt", "--reject"])):
+            got, want = both(name, ["evaluate-hmm", "--corpus", test, "--model", p("hmm.npz"),
+                                    *extra])
+            flips += within_one(name, got, want, n_test)
+        checks["hmm"] = dict(fit_gap=fit_gap, accuracy=accuracy(got), runs_apart=flips)
+
+        # VQ: each device's fit (the codebooks' gap printed), one model on both
+        card("train-vq", lambda: cli.main(["train-vq", "--corpus", train, "--model",
+                                           p("vq.npz")]))
+        cli.main(["--device", "cpu", "train-vq", "--corpus", train, "--model", p("vq_cpu.npz")])
+        vq_gap = float(np.max(np.abs(np.load(p("vq.npz"))["codebooks"]
+                                     - np.load(p("vq_cpu.npz"))["codebooks"])))
+        got, want = both("evaluate-vq", ["evaluate-vq", "--corpus", test, "--model",
+                                         p("vq.npz")])
+        if got != want:
+            fail(f"tools evaluate-vq: {got!r} on the card, {want!r} on the CPU")
+        checks["vq"] = dict(codebook_gap=vq_gap, accuracy=accuracy(got))
+
+        # Speech Commands over a local layout of the ten digits (one card:
+        # the single-device path), k = 1 and k = 3
+        sc2 = p("sc2")
+        sc2_layout(sc2, ds.DIGITS, TOOLS_SC2_FILES)
+        for name, extra in (("evaluate-sc2", []), ("evaluate-sc2_k3", ["--k", "3"])):
+            got, want = both(name, ["evaluate-sc2", "--root", sc2, *extra])
+            if got.splitlines()[0] != want.splitlines()[0] or not launches[name].get(
+                    "dtw_banded"):
+                fail(f"tools {name}: {got!r} on the card ({launches[name]}), {want!r} on "
+                     "the CPU")
+            checks[name] = got.splitlines()[0]
+
+        # plot: the PNG where matplotlib is installed, else the CLI's
+        # refusal and the panels' data alone (pipeline_view, the distances
+        # row through kernel 1); the distances on the card against the CPU's
+        try:
+            import matplotlib  # noqa: F401
+            png = True
+        except ImportError:
+            png = False
+        x = ds.synth_word("three", 77)
+        recs = [KnnDtwRecognizer.load(bank, device=d) for d in (dev, "cpu")]
+        plot_argv = ["plot", "--word", "three", "--bank", bank, "--out", p("plot.png")]
+        if png:
+            card("plot", lambda: cli.main(plot_argv))
+            with open(p("plot.png"), "rb") as f:
+                if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                    fail("tools plot: no PNG")
+            shown = [pipeline_view(x, recognizer=r) for r in recs]
+        else:
+            try:
+                cli.main(plot_argv)
+                refusal = ""
+            except SystemExit as e:
+                refusal = str(e)
+            if "matplotlib" not in refusal:
+                fail(f"tools plot: without matplotlib it gave {refusal!r}")
+            shown = [None, pipeline_view(x, recognizer=recs[1])]
+
+            def card_view():
+                shown[0] = pipeline_view(x, recognizer=recs[0])
+
+            card("plot", card_view)
+        if not launches["plot"].get("dtw_banded"):
+            fail(f"tools plot: no kernel 1 launch ({launches['plot']})")
+        err, _, _ = compare_dtw(*(torch.from_numpy(d["distances"][None]) for d in shown),
+                                rtol=1e-4)
+        if shown[0]["label"] != shown[1]["label"]:
+            fail(f"tools plot: {shown[0]['label']} on the card, {shown[1]['label']} on the CPU")
+        checks["plot"] = dict(png=png, label=shown[0]["label"], distance_rel_err=err)
+
+        # demo: the synthetic stream and a connected clip, each line as the CPU's
+        clip = p("corpus", "connected", "clip_000.wav")
+        for name, extra in (("demo", []), ("demo_wav", ["--wav", clip])):
+            got, want = both(name, ["demo", "--bank", bank, *extra])
+            if got != want or not got.strip() or not launches[name].get("dtw_banded"):
+                fail(f"tools {name}: {got!r} on the card ({launches[name]}), {want!r} on "
+                     "the CPU")
+            checks[name] = len(got.splitlines())
+
+    # the evaluation scripts at the tests' cut, the corpora patched as
+    # tests/test_torch_scripts.py patches them
+    real = (ds.DIGITS, ds.make_corpus, host.hostile_vocab, host.make_hostile_corpus)
+
+    def capped(make, key):
+        def wrapped(*args, **kw):
+            kw[key] = min(kw.get(key, TOOLS_PER_WORD), TOOLS_PER_WORD)
+            return make(*args, **kw)
+        return wrapped
+
+    tables = {}
+    try:
+        ds.make_corpus = capped(real[1], "n_per_word")
+        host.make_hostile_corpus = capped(real[3], "n_per")
+        vocab = real[2]()[:len(TOOLS_WORDS)]
+        host.hostile_vocab = lambda: list(vocab)
+        for name, flags, digits, fit_rows, unit in TOOLS_SCRIPTS:
+            ds.DIGITS = list(real[0]) if digits else list(TOOLS_WORDS)
+            mod = importlib.import_module(f"dsp_tpu_torch.scripts.{name}")
+            tag = name if name != "spot_eval" else f"spot_eval_{flags[1]}"
+            got = card(tag, lambda: mod.main(list(flags)))
+            want = cpu(lambda: mod.main([*flags, "--device", "cpu"]))
+            checks[tag] = dict(cells_apart=same_text(tag, got, want, fit_rows, unit))
+            tables[tag] = got
+    finally:
+        ds.DIGITS, ds.make_corpus, host.hostile_vocab, host.make_hostile_corpus = real
+
+    # every kernel of the slice launched where its path runs
+    for where, kernel in (("results_matrix", "dtw_banded"), ("results_matrix", "dtw_fused"),
+                          ("results_matrix", "dtw_wavefront"), ("spot_eval_dtw", "spot_subseq"),
+                          ("spot_eval_cascade", "spot_subseq"), ("demo", "dtw_banded")):
+        if not launches[where].get(kernel):
+            fail(f"tools {where}: kernel {kernel} never launched ({launches[where]})")
+    times = timer.report()
+    print(f"tools: {checks}", flush=True)
+    print(f"tools wall s on {smi} (StageTimer; card runs, synchronized): "
+          + "  ".join(f"{k} {v:.3f}" for k, v in times.items()), flush=True)
+    print(f"tools launches: {launches}; total {counted}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out.update(stage_seconds=times, launches_by_run=launches, launches=counted, checks=checks,
+               tables=tables, seconds=time.perf_counter() - t_phase)
+    return counted
+
+
 def fused_phase(rng, long_rng, dev, report):
     """Kernel 4 (unbanded DTW from features) against its plain version and
     the banded kernel's unbanded mode at the main-path shape, and against
@@ -3903,7 +4247,7 @@ def main() -> int:
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
               "streaming": {}, "hmm": {}, "cascade": {}, "connected": {},
-              "remainder": {}, "mesh": {}, "cli": {}, "nvidia_smi": smi}
+              "remainder": {}, "mesh": {}, "cli": {}, "tools": {}, "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
     mfcc_phase(dev, report)
@@ -3928,6 +4272,8 @@ def main() -> int:
     for name, n in mesh_phase(args.seed, dev, report).items():
         launches[name] += n
     for name, n in cli_phase(dev, report).items():
+        launches[name] += n
+    for name, n in tools_phase(dev, report).items():
         launches[name] += n
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")

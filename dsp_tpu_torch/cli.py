@@ -1,8 +1,9 @@
 """Command-line interface of the port: ``python -m dsp_tpu_torch``.
 
-The template and spotting subcommands of the JAX package's CLI
-(``dsp_tpu/cli.py``), with its flags, defaults, stdout lines and metrics
-JSON keys, over the port's recognizers:
+The subcommands of the JAX package's CLI (``dsp_tpu/cli.py``), with its
+flags, defaults, stdout lines and metrics JSON keys, over the port's
+recognizers: the template bank, spotting, GMM-HMM and VQ families, the
+Speech Commands evaluation, the pipeline picture and the streaming demo:
 
     python -m dsp_tpu_torch make-corpus --out data/ --n 5
     python -m dsp_tpu_torch enroll      --corpus data/train --bank bank.npz
@@ -12,13 +13,22 @@ JSON keys, over the port's recognizers:
     python -m dsp_tpu_torch spot        --bank bank.npz stream.wav
     python -m dsp_tpu_torch evaluate-spot --corpus data/spotting --bank bank.npz
     python -m dsp_tpu_torch serve       --bank bank.npz < paths.txt
+    python -m dsp_tpu_torch train-hmm   --corpus data/train --model hmm.npz
+    python -m dsp_tpu_torch evaluate-hmm --corpus data/test --model hmm.npz
+    python -m dsp_tpu_torch train-vq    --corpus data/train --model vq.npz
+    python -m dsp_tpu_torch evaluate-vq --corpus data/test --model vq.npz
+    python -m dsp_tpu_torch evaluate-sc2 --root speech_commands_v2/
+    python -m dsp_tpu_torch plot        --word three --bank bank.npz --out p.png
+    python -m dsp_tpu_torch demo        --bank bank.npz [--wav stream.wav]
 
 Every command runs on the card; ``--device cpu`` (before the subcommand)
 runs it on the CPU instead.  Without a card the default raises, as every
 entry point of the port does.  Banks and models are the JAX package's
 ``.npz`` files, so either CLI reads what the other wrote.  Every flag maps
 1:1 onto a config dataclass field; defaults are the classical values
-(16 kHz, 25 ms/10 ms, 13 MFCC, lifter 22).
+(16 kHz, 25 ms/10 ms, 13 MFCC, lifter 22).  Two subcommands of the JAX
+CLI stay out: ``bench`` waits for the port's own benchmark, and ``warm``
+fills the TPU's compilation cache, which the port does not have.
 """
 
 from __future__ import annotations
@@ -28,7 +38,8 @@ import json
 import os
 import sys
 
-from dsp_tpu_torch.config import DtwConfig, FrontendConfig, PipelineConfig, VadConfig
+from dsp_tpu_torch.config import (DtwConfig, FrontendConfig, HmmConfig, PipelineConfig,
+                                  VadConfig, VqConfig)
 from dsp_tpu_torch.utils.logging import RunMetrics, get_logger
 
 log = get_logger("dsp_tpu_torch.cli")
@@ -129,20 +140,24 @@ def _add_common(p: argparse.ArgumentParser):
                         "process runs unsharded")
 
 
-def _maybe_mesh(args):
-    """--mesh -> a ('data', 'bank') mesh when this process is one rank of
-    a world of more than one (torchrun's environment), else None."""
-    if not getattr(args, "mesh", False):
-        return None
+def _world_mesh(device):
+    """A ('data', 'bank') mesh with every rank on 'bank' when this process
+    is one rank of a world of more than one (torchrun's environment), else
+    None."""
     import torch.distributed as dist
 
     from dsp_tpu_torch.parallel import make_mesh, multihost
-    multihost.initialize(device=args.device)
+    multihost.initialize(device=device)
     if not dist.is_initialized() or dist.get_world_size() <= 1:
         return None
-    mesh = make_mesh(device=args.device)
+    mesh = make_mesh(device=device)
     log.info("using a %s mesh", dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)))
     return mesh
+
+
+def _maybe_mesh(args):
+    """--mesh -> :func:`_world_mesh`, else None."""
+    return _world_mesh(args.device) if getattr(args, "mesh", False) else None
 
 
 def _load_corpus(path: str, sr: int):
@@ -662,6 +677,254 @@ def cmd_serve(args):
             print(f"{path}\tERROR {type(e).__name__}: {e}", flush=True)
 
 
+def cmd_train_hmm(args):
+    from dsp_tpu_torch.models.gmm_hmm import GmmHmmRecognizer
+    cfg = _pipeline_cfg(args)
+    hmm = HmmConfig(n_states=args.states, n_mix=args.mix, n_iter=args.iters,
+                    train_mode=args.train_mode, map_tau=args.map_tau)
+    rec = GmmHmmRecognizer(cfg, hmm, device=args.device)
+    corpus = _load_corpus(args.corpus, args.sr)
+    rec.fit(corpus)
+    if not getattr(args, "no_reject_calibration", False):
+        # OOV-verification LLR threshold from the training corpus,
+        # stored in the checkpoint (evaluate-hmm --reject uses it)
+        try:
+            rec.calibrate_rejection(corpus)
+            log.info("rejection LLR threshold calibrated: %.3f "
+                     "(stored in model)", rec.reject_threshold)
+        except ValueError as e:
+            log.info("rejection threshold not calibrated (%s)", e)
+    rec.save(args.model)
+    log.info("trained %d word HMMs -> %s", len(rec.labels), args.model)
+
+
+def cmd_evaluate_hmm(args):
+    from dsp_tpu_torch.models.gmm_hmm import GmmHmmRecognizer
+    cfg = _pipeline_cfg(args)
+    hmm = HmmConfig(n_states=args.states, n_mix=args.mix, n_iter=args.iters)
+    rec = GmmHmmRecognizer.load(args.model, cfg, hmm, device=args.device)
+    rec.mesh = _maybe_mesh(args)
+    rec.noise_adapt = getattr(args, "noise_adapt", False)
+    result = rec.evaluate(_load_corpus(args.corpus, args.sr),
+                          reject=_reject_arg(args))
+    print(json.dumps(result["confusion"], indent=2, sort_keys=True))
+    print(f"accuracy: {result['accuracy']:.4f} ({result['n']} utterances)")
+    if args.metrics_out:
+        m = RunMetrics("evaluate-hmm")
+        m.record(**result)
+        m.dump(args.metrics_out)
+
+
+def cmd_train_vq(args):
+    from dsp_tpu_torch.models.vq import VqRecognizer
+    cfg = _pipeline_cfg(args)
+    rec = VqRecognizer(cfg, VqConfig(n_codes=args.codes, n_iter=args.iters),
+                       device=args.device)
+    rec.fit(_load_corpus(args.corpus, args.sr))
+    rec.save(args.model)
+    log.info("trained %d word codebooks -> %s", len(rec.labels), args.model)
+
+
+def cmd_evaluate_vq(args):
+    from dsp_tpu_torch.models.vq import VqRecognizer
+    cfg = _pipeline_cfg(args)
+    rec = VqRecognizer.load(args.model, cfg, device=args.device)
+    rec.mesh = _maybe_mesh(args)
+    result = rec.evaluate(_load_corpus(args.corpus, args.sr))
+    print(json.dumps(result["confusion"], indent=2, sort_keys=True))
+    print(f"accuracy: {result['accuracy']:.4f} ({result['n']} utterances)")
+    if args.metrics_out:
+        m = RunMetrics("evaluate-vq")
+        m.record(**result)
+        m.dump(args.metrics_out)
+
+
+def cmd_evaluate_sc2(args):
+    """Speech Commands v2 35-class kNN-DTW over a local checkout (config
+    4): the bank sharded over the ranks of a torchrun world (one process a
+    card), else the single-device recognize on this process's device."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import parallel as par
+    from dsp_tpu_torch import pipeline as pl
+    from dsp_tpu_torch.io.speech_commands import load_split
+
+    args.max_samples = min(args.max_samples, 16000)   # SC2 clips are <= 1 s
+    cfg = _pipeline_cfg(args)
+    k = args.k or 1
+    if args.matcher not in (None, "dtw"):
+        raise SystemExit("evaluate-sc2 implements the full banded DTW "
+                         "only; --matcher ltw/cascade is not supported "
+                         "here (use `evaluate` on a corpus directory)")
+    metrics = RunMetrics("evaluate-sc2")
+    dev = torch.device(args.device)
+
+    log.info("loading templates (train split, %d per word)", args.templates)
+    tr_sigs, tr_lens, tr_ids, labels = load_split(
+        args.root, "train", per_word=args.templates,
+        max_samples=cfg.max_samples, seed=0)
+    bank = pl.extract_features(torch.from_numpy(tr_sigs).to(dev),
+                               torch.from_numpy(tr_lens).to(dev), cfg)
+    ids = torch.from_numpy(tr_ids).to(dev)
+
+    log.info("loading test split%s", f" (cap {args.limit})" if args.limit else "")
+    te_sigs, te_lens, te_ids, te_labels = load_split(
+        args.root, args.split, per_word=args.limit,
+        max_samples=cfg.max_samples, seed=1)
+    if te_labels != labels:
+        raise SystemExit(f"evaluate-sc2: the {args.split} split's words "
+                         f"{te_labels} differ from the train split's {labels}")
+
+    mesh = None if args.no_mesh else _world_mesh(args.device)   # (1, world)
+    n_dev = mesh.size() if mesh is not None else 1
+    if mesh is not None:
+        bank_f, k_orig = par.pad_axis_to_multiple(bank.feats.cpu().numpy(), n_dev)
+        bank_l, _ = par.pad_axis_to_multiple(bank.length.cpu().numpy(), n_dev)
+        bank_ids, _ = par.pad_axis_to_multiple(tr_ids, n_dev)
+        bank_l = np.maximum(bank_l, 1)
+        valid = np.arange(len(bank_l)) < k_orig
+        # global arrays on every rank: recognize_sharded takes each rank's
+        # bank shard and query shard itself
+        bf, bl, idsd, bv = par.replicate(mesh, bank_f, bank_l, bank_ids, valid)
+        log.info("bank sharded over %d ranks (%d templates)", n_dev, k_orig)
+
+    correct = total = 0
+    t0 = time.perf_counter()
+    bs = args.batch
+    for lo in range(0, len(te_sigs), bs):
+        sl = slice(lo, min(lo + bs, len(te_sigs)))
+        sigs = np.zeros((bs, cfg.max_samples), np.float32)
+        lens = np.ones(bs, np.int32)
+        n_real = sl.stop - sl.start
+        sigs[:n_real] = te_sigs[sl]
+        lens[:n_real] = te_lens[sl]
+        if mesh is not None:
+            got, _ = par.recognize_sharded(mesh, sigs, lens, bf, bl, idsd, bv,
+                                           cfg=cfg, k=k, n_labels=len(labels))
+        else:
+            x, n = torch.from_numpy(sigs).to(dev), torch.from_numpy(lens).to(dev)
+            if k > 1:
+                got, _ = pl.classify_features(pl.extract_features(x, n, cfg), bank, ids,
+                                              n_labels=len(labels), k=k, cfg=cfg)
+            else:
+                got, _ = pl.recognize_batch(x, n, bank, ids, cfg)
+        got = got.cpu().numpy()[:n_real]
+        correct += int((got == te_ids[sl]).sum())
+        total += n_real
+        log.info("  %d/%d acc=%.4f", total, len(te_sigs), correct / total)
+    dt = time.perf_counter() - t0
+    acc = correct / max(total, 1)
+    aligns = total * bank.feats.shape[0]
+    print(f"accuracy: {acc:.4f} ({total} clips, {len(labels)} classes)")
+    print(f"throughput: {aligns / dt:,.0f} alignments/s")
+    metrics.record(accuracy=acc, n=total, classes=len(labels),
+                   templates=int(bank.feats.shape[0]),
+                   alignments_per_sec=aligns / dt, devices=n_dev)
+    if args.metrics_out:
+        metrics.dump(args.metrics_out)
+
+
+def cmd_plot(args):
+    """Render the pipeline view of one WAV (or synthetic word) to PNG."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        raise SystemExit("plot needs matplotlib, which is not installed in this "
+                         "environment")
+    from dsp_tpu_torch.viz import plot_pipeline
+    cfg = _pipeline_cfg(args)
+    if args.wav:
+        from dsp_tpu_torch.io.wav import read_wav
+        _, x = read_wav(args.wav, cfg.frontend.sample_rate)
+        title = args.wav
+    else:
+        from dsp_tpu_torch.io.dataset import synth_word
+        x = synth_word(args.word, 0, max_samples=cfg.max_samples)
+        title = f"synthetic '{args.word}'"
+    rec = _load_bank(args, cfg) if args.bank else None
+    plot_pipeline(x, args.out, cfg, rec, title)
+    log.info("wrote %s", args.out)
+
+
+def cmd_demo(args):
+    """Streaming demo: a WAV (or synthetic stream) fed chunk by chunk."""
+    from dsp_tpu_torch.models.streaming import StreamingRecognizer
+    cfg = _pipeline_cfg(args)
+    period = cfg.frontend.hop_len / cfg.frontend.sample_rate
+    rec = _load_bank(args, cfg)
+    stream = StreamingRecognizer(rec, chunk_len=args.chunk)
+
+    if args.wav:
+        from dsp_tpu_torch.io.wav import read_wav
+        _, sig = read_wav(args.wav, cfg.frontend.sample_rate)
+    elif args.mic:
+        _demo_mic(stream, args)
+        return
+    else:
+        sig = _synth_stream(rec.labels)
+    n = len(sig) // args.chunk
+    for c in range(n):
+        for lab, s, e in stream.feed(sig[c * args.chunk:(c + 1) * args.chunk]):
+            t0, t1 = s * period, e * period
+            print(f"[{t0:7.2f}s - {t1:7.2f}s] {lab}")
+    for lab, s, e in stream.flush():
+        print(f"[{s * period:7.2f}s - {e * period:7.2f}s] {lab} (flush)")
+
+
+def _synth_stream(labels, n_words: int = 5, seed: int = 7):
+    """The JAX CLI's synthetic demo stream, sample for sample: ``n_words``
+    random words of ``labels`` over low noise, 0.75-1.25 s apart."""
+    import numpy as np
+
+    from dsp_tpu_torch.io.dataset import synth_word
+    rng = np.random.default_rng(seed)
+    sig = 0.002 * rng.standard_normal(16000 * (3 * n_words + 1))
+    pos = 8000
+    spoken = []
+    for i in range(n_words):
+        lab = labels[rng.integers(len(labels))]
+        w = synth_word(lab, 500 + i, max_samples=24000)
+        end = min(pos + len(w), len(sig))
+        sig[pos:end] += w[: end - pos]
+        spoken.append(lab)
+        pos = end + int(rng.integers(12000, 20000))
+        if pos + 8000 >= len(sig):
+            break
+    log.info("synthetic stream says: %s", " ".join(spoken))
+    return sig.astype(np.float32)
+
+
+def _demo_mic(stream, args):
+    import numpy as np
+    period = (stream.cfg.frontend.hop_len
+              / stream.cfg.frontend.sample_rate)
+    try:
+        import pyaudio
+    except ImportError:
+        raise SystemExit(
+            "PyAudio is not installed in this environment; microphone "
+            "capture is gated. Use --wav FILE or the synthetic stream.")
+    pa = pyaudio.PyAudio()
+    sr = stream.cfg.frontend.sample_rate
+    h = pa.open(format=pyaudio.paInt16, channels=1, rate=sr, input=True,
+                frames_per_buffer=args.chunk)
+    print("listening (ctrl-c to stop)...")
+    try:
+        while True:
+            raw = h.read(args.chunk)
+            x = np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0
+            for lab, s, e in stream.feed(x):
+                print(f"[{s * period:7.2f}s - {e * period:7.2f}s] {lab}")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        h.close()
+        pa.terminate()
+
+
 def _add_noise_adapt(p):
     p.add_argument("--noise-adapt", action="store_true", dest="noise_adapt",
                    help="GMM-HMM only: estimate the test noise floor from "
@@ -869,6 +1132,80 @@ def build_parser() -> argparse.ArgumentParser:
                         "40 (see `spot --threshold`)")
     _add_common(p)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("train-hmm", help="train per-word GMM-HMMs")
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--model", required=True)
+    p.add_argument("--states", type=int, default=5)
+    p.add_argument("--mix", type=int, default=3)
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--map-tau", type=float, default=0.0,
+                   help="> 0: MAP-adapt word HMMs from a universal "
+                        "background GMM (few-shot regulariser)")
+    p.add_argument("--train-mode", choices=["viterbi", "baum_welch"],
+                   default="viterbi")
+    p.add_argument("--no-reject-calibration", action="store_true",
+                   help="skip the OOV-rejection LLR calibration on the "
+                        "training corpus normally stored in the model")
+    _add_common(p)
+    p.set_defaults(fn=cmd_train_hmm)
+
+    p = sub.add_parser("evaluate-hmm", help="accuracy of a GMM-HMM model")
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--model", required=True)
+    p.add_argument("--states", type=int, default=5)
+    p.add_argument("--mix", type=int, default=3)
+    p.add_argument("--iters", type=int, default=10)
+    _add_noise_adapt(p)
+    _add_reject(p)
+    _add_common(p)
+    p.set_defaults(fn=cmd_evaluate_hmm)
+
+    p = sub.add_parser("train-vq", help="train per-word VQ codebooks")
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--model", required=True)
+    p.add_argument("--codes", type=int, default=64, help="codebook size")
+    p.add_argument("--iters", type=int, default=10, help="k-means iters")
+    _add_common(p)
+    p.set_defaults(fn=cmd_train_vq)
+
+    p = sub.add_parser("evaluate-vq", help="accuracy of a VQ model")
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--model", required=True)
+    _add_common(p)
+    p.set_defaults(fn=cmd_evaluate_vq)
+
+    p = sub.add_parser("evaluate-sc2",
+                       help="Speech Commands v2 kNN-DTW eval (local dataset)")
+    p.add_argument("--root", required=True,
+                   help="extracted speech_commands_v2 directory")
+    p.add_argument("--split", choices=["test", "validation"], default="test")
+    p.add_argument("--templates", type=int, default=10,
+                   help="templates enrolled per word")
+    p.add_argument("--limit", type=int, default=None,
+                   help="cap test clips per word")
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--no-mesh", action="store_true",
+                   help="under torchrun, run the whole bank on each rank "
+                        "instead of sharding it over the ranks")
+    _add_common(p)
+    p.set_defaults(fn=cmd_evaluate_sc2)
+
+    p = sub.add_parser("plot", help="render pipeline internals to PNG")
+    p.add_argument("--wav", default=None)
+    p.add_argument("--word", default="three", help="synthetic word if no --wav")
+    p.add_argument("--bank", default=None, help="optional bank for distances")
+    p.add_argument("--out", default="pipeline.png")
+    _add_common(p)
+    p.set_defaults(fn=cmd_plot)
+
+    p = sub.add_parser("demo", help="streaming recognition demo")
+    p.add_argument("--bank", required=True)
+    p.add_argument("--wav", default=None)
+    p.add_argument("--mic", action="store_true")
+    p.add_argument("--chunk", type=int, default=1600)
+    _add_common(p)
+    p.set_defaults(fn=cmd_demo)
     return ap
 
 

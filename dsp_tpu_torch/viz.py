@@ -6,8 +6,9 @@ the MFCC(+deltas) heatmap after the VAD trim, and, given a recognizer, its
 DTW distance to every template — written to a PNG with matplotlib's
 headless Agg backend.  Energy, ZCR, endpoints and features come from the
 port's own ``ops/vad.py``, ``ops/frontend.py`` and ``pipeline.py``, run on
-the CPU; a recognizer classifies on its own device.  matplotlib is
-imported by the function, so this module imports without it.
+the CPU; a recognizer classifies on its own device.  ``pipeline_view``
+computes what the panels show and needs no matplotlib; ``plot_pipeline``
+imports matplotlib when it draws, so this module imports without it.
 """
 
 from __future__ import annotations
@@ -21,14 +22,33 @@ from dsp_tpu_torch.ops import frontend as fe
 from dsp_tpu_torch.ops import vad
 
 
+def pipeline_view(x: np.ndarray, cfg: PipelineConfig = PipelineConfig(),
+                  recognizer=None) -> dict:
+    """What :func:`plot_pipeline`'s panels show for signal ``x``: ``energy``
+    and ``zcr`` a frame, the VAD's ``start`` and exclusive ``end`` frames
+    and ``found``, ``features`` [T, n_feats] and, given a recognizer, its
+    ``label`` and ``distances`` [K] to each template in bank order."""
+    f = cfg.frontend
+    x = np.asarray(x, dtype=np.float32)
+    xt = torch.from_numpy(x)[None]
+    frames = fe.frame(xt, f.frame_len, f.hop_len)
+    s_t, e_t, found_t = vad.detect_endpoints(xt, f, cfg.vad)
+    got = pl.extract_signals([x], cfg, "cpu")
+    view = dict(energy=vad.short_time_energy(frames)[0].numpy(),
+                zcr=vad.zero_crossing_rate(frames)[0].numpy(),
+                start=int(s_t[0]), end=int(e_t[0]), found=bool(found_t[0]),
+                features=got.feats[0, : int(got.length[0])].numpy())
+    if recognizer is not None:
+        labels, dists = recognizer.classify_batch([x], return_distances=True)
+        view.update(label=labels[0], distances=np.asarray(dists[0]))
+    return view
+
+
 def plot_pipeline(x: np.ndarray, out_path: str,
                   cfg: PipelineConfig = PipelineConfig(),
                   recognizer=None, title: str = "") -> dict:
-    """Render the pipeline view of signal ``x`` to ``out_path`` (PNG).
-
-    Returns what the panels show: ``energy`` and ``zcr`` a frame, the VAD's
-    ``start`` and exclusive ``end`` frames and ``found``, and ``features``
-    [T, n_feats]."""
+    """Render the pipeline view of signal ``x`` to ``out_path`` (PNG);
+    returns :func:`pipeline_view`'s dict."""
     import matplotlib
 
     matplotlib.use("Agg")
@@ -36,19 +56,16 @@ def plot_pipeline(x: np.ndarray, out_path: str,
 
     f = cfg.frontend
     x = np.asarray(x, dtype=np.float32)
-    xt = torch.from_numpy(x)[None]
-    frames = fe.frame(xt, f.frame_len, f.hop_len)
-    e = vad.short_time_energy(frames)[0].numpy()
-    z = vad.zero_crossing_rate(frames)[0].numpy()
-    s_t, e_t, found_t = vad.detect_endpoints(xt, f, cfg.vad)
-    start, end, found = int(s_t[0]), int(e_t[0]), bool(found_t[0])
+    view = pipeline_view(x, cfg, recognizer)
+    e, z, feats = view["energy"], view["zcr"], view["features"]
+    start, end = view["start"], view["end"]
 
     n_rows = 4 if recognizer is not None else 3
     fig, axes = plt.subplots(n_rows, 1, figsize=(10, 2.2 * n_rows))
 
     t_sig = np.arange(len(x)) / f.sample_rate
     axes[0].plot(t_sig, x, lw=0.4)
-    if found:
+    if view["found"]:
         axes[0].axvspan(start * f.hop_len / f.sample_rate,
                         end * f.hop_len / f.sample_rate,
                         color="tab:green", alpha=0.2, label="VAD region")
@@ -63,8 +80,6 @@ def plot_pipeline(x: np.ndarray, out_path: str,
     axes[1].set_title("short-time energy (log) / ZCR")
     axes[1].set_xlabel("s")
 
-    got = pl.extract_signals([x], cfg, "cpu")
-    feats = got.feats[0, : int(got.length[0])].numpy()
     im = axes[2].imshow(feats.T, aspect="auto", origin="lower",
                         interpolation="nearest", cmap="magma")
     axes[2].set_title(f"features after VAD trim [{feats.shape[0]} x {feats.shape[1]}]")
@@ -72,18 +87,17 @@ def plot_pipeline(x: np.ndarray, out_path: str,
     fig.colorbar(im, ax=axes[2], fraction=0.025)
 
     if recognizer is not None:
-        labels, dists = recognizer.classify_batch([x], return_distances=True)
-        order = np.argsort(dists[0])
+        dists, label = view["distances"], view["label"]
+        order = np.argsort(dists)
         names = [recognizer.labels[recognizer._bank_label_ids[i]] for i in order]
-        axes[3].bar(range(len(order)), dists[0][order],
-                    color=["tab:green" if n == labels[0] else "tab:blue"
+        axes[3].bar(range(len(order)), dists[order],
+                    color=["tab:green" if n == label else "tab:blue"
                            for n in names])
         axes[3].set_xticks(range(len(order)))
         axes[3].set_xticklabels(names, rotation=45, fontsize=7)
-        axes[3].set_title(f"DTW distance per template -> '{labels[0]}'")
+        axes[3].set_title(f"DTW distance per template -> '{label}'")
 
     fig.tight_layout()
     fig.savefig(out_path, dpi=110)
     plt.close(fig)
-    return dict(energy=e, zcr=z, start=start, end=end, found=found,
-                features=feats)
+    return view

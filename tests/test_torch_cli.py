@@ -3,18 +3,24 @@ package's (``dsp_tpu.cli``), on the CPU.
 
 Every subcommand of the port runs with ``--device cpu`` on one corpus that
 ``make-corpus --n 2 --words 3`` writes once for the module (with its
-connected and spotting splits, and a gapless connected split).  The same
-arguments go through ``dsp_tpu.cli.main`` on the same files and models:
-stdout lines and ``--metrics-out`` JSON must be equal, timings excluded
-(labels, accuracy, WER, precision, recall and F1 exactly; printed scores
-and distances, which the two packages' float32 arithmetic rounds apart,
-within 2e-3 of the printed digits).  Banks are enrolled by each CLI and
-read by the other; the GMM-HMM and VQ models are trained by the JAX CLI
-(``train-hmm``, ``train-vq`` are not ported yet) and loaded by the port's
-own ``load``.  Then the semantics that ``tests/test_cli.py`` holds for
-these subcommands (rejection, connected and level decoding, grammars, the
-flag sentinels, the serve loop, ``--mesh`` in one process) on the port,
-the device default, and a clean subprocess that imports no jax.
+connected and spotting splits, a gapless connected split, and a tiny
+Speech Commands layout).  The same arguments go through ``dsp_tpu.cli.main``
+on the same files and models: stdout lines and ``--metrics-out`` JSON must
+be equal, timings excluded (labels, accuracy, confusion, WER, precision,
+recall and F1 exactly; printed scores and distances, which the two
+packages' float32 arithmetic rounds apart, within 2e-3 of the printed
+digits).  Banks are enrolled by each CLI and read by the other; the
+GMM-HMM and VQ models the cases read are trained by the port's
+``train-hmm`` / ``train-vq`` and loaded by the JAX CLI, and one model of
+each family trained by the JAX CLI is loaded by the port's.  ``train-hmm``
+starts the port's fit from JAX's own ``jax.random`` draws to hold it to
+the JAX CLI's model (parameters within 1e-2, as
+``tests/test_torch_gmm_hmm.py`` holds the recognizer's fit).  Then the
+semantics that ``tests/test_cli.py`` holds for these subcommands
+(rejection, connected and level decoding, grammars, the flag sentinels,
+the serve loop, ``--mesh`` in one process, ``evaluate-sc2``'s bank sharded
+over a gloo world of two processes) on the port, the device default, and a
+clean subprocess that imports no jax.
 """
 
 import argparse
@@ -24,6 +30,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -31,12 +38,19 @@ import torch
 from dsp_tpu import cli as jcli
 from dsp_tpu.io.dataset import synth_connected, synth_word
 from dsp_tpu.io.wav import write_wav
+from dsp_tpu.models.knn_dtw import KnnDtwRecognizer as JKnnDtwRecognizer
 from dsp_tpu_torch import cli as tcli
+from dsp_tpu_torch.models import gmm_hmm as pg
 from dsp_tpu_torch.models.knn_dtw import REJECT, KnnDtwRecognizer
+
+import torch_mesh_rank as mesh_rank
+from test_torch_io import sc2_root  # noqa: F401  (the tiny Speech Commands layout)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBCOMMANDS = ["make-corpus", "enroll", "recognize", "evaluate", "evaluate-connected",
-               "spot", "evaluate-spot", "serve"]
+               "spot", "evaluate-spot", "serve", "train-hmm", "evaluate-hmm", "train-vq",
+               "evaluate-vq", "evaluate-sc2", "plot", "demo"]
+HMM_ARGS = ["--states", "3", "--mix", "2", "--iters", "3"]
 CORPUS_ARGS = ["--n", "2", "--words", "3", "--connected", "3", "--spotting", "2"]
 # printed scores and distances: the packages' float32 sums round apart
 NUM_TOL = dict(rtol=1e-4, atol=2e-3)
@@ -44,6 +58,12 @@ NUM_TOL = dict(rtol=1e-4, atol=2e-3)
 
 def port(*args):
     return tcli.main(["--device", "cpu", *args])
+
+
+def _jax_draw(shape, seed, device="cpu"):
+    """The port's normal_draw with JAX's bits (the JAX fit's keys)."""
+    return torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(int(seed)),
+                                                       tuple(shape)))).to(device)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -57,7 +77,7 @@ def _one_thread():
 
 
 @pytest.fixture(scope="module")
-def c(tmp_path_factory):
+def c(tmp_path_factory, sc2_root):  # noqa: F811
     """The corpus, written by both CLIs, and the models every case reads."""
     root = tmp_path_factory.mktemp("cli")
     p = lambda *parts: str(root.joinpath(*parts))  # noqa: E731
@@ -84,9 +104,10 @@ def c(tmp_path_factory):
     port("enroll", "--corpus", train, "--bank", p("bank_port.npz"))
     jcli.main(["enroll", "--corpus", train, "--bank", p("bank_k3.npz"), "--k", "3",
                "--matcher", "cascade"])
-    jcli.main(["train-hmm", "--corpus", train, "--model", p("hmm.npz"), "--states", "3",
-               "--mix", "2", "--iters", "3"])
-    jcli.main(["train-vq", "--corpus", train, "--model", p("vq.npz")])
+    port("train-hmm", "--corpus", train, "--model", p("hmm.npz"), *HMM_ARGS)
+    port("train-vq", "--corpus", train, "--model", p("vq.npz"))
+    jcli.main(["train-hmm", "--corpus", train, "--model", p("hmm_jax.npz"), *HMM_ARGS])
+    jcli.main(["train-vq", "--corpus", train, "--model", p("vq_jax.npz")])
 
     def wavs(*parts):
         d = p(*parts)
@@ -99,7 +120,8 @@ def c(tmp_path_factory):
         gapless=p("gapless", "connected"), gapless_wavs=wavs("gapless", "connected"),
         spotting=p("corpus", "spotting"), spot_wavs=wavs("corpus", "spotting"),
         bank=p("bank_jax.npz"), bank_port=p("bank_port.npz"), bank_k3=p("bank_k3.npz"),
-        hmm=p("hmm.npz"), vq=p("vq.npz"), test_oov=p("test_oov"), oov=p("oov.wav"),
+        hmm=p("hmm.npz"), vq=p("vq.npz"), hmm_jax=p("hmm_jax.npz"), vq_jax=p("vq_jax.npz"),
+        sc2=sc2_root, test_oov=p("test_oov"), oov=p("oov.wav"),
         conn_wav=p("conn.wav"), gapless_wav=p("gapless.wav"),
         grammar_all=p("grammar_all.json"), grammar_start=p("grammar_start.json"))
 
@@ -110,8 +132,9 @@ def run_both(capsys, monkeypatch, args, stdin=None, jax_impl=None):
     ``jax_impl`` replaces the value of ``--dtw-impl`` on the JAX side."""
     outs = []
     for name, main in (("jax", jcli.main), ("port", port)):
-        metrics = os.path.join(os.path.dirname(args[args.index("--corpus") + 1])
-                               if "--corpus" in args else ".", f"m_{name}.json")
+        where = next((args[args.index(f) + 1] for f in ("--corpus", "--root") if f in args),
+                     None)
+        metrics = os.path.join(os.path.dirname(where) if where else ".", f"m_{name}.json")
         argv = [metrics if a == "{M}" else a for a in args]
         if name == "jax" and jax_impl is not None:
             argv[argv.index("--dtw-impl") + 1] = jax_impl
@@ -130,6 +153,10 @@ def run_both(capsys, monkeypatch, args, stdin=None, jax_impl=None):
             os.unlink(metrics)
             for k in ("elapsed_s", "started_unix"):      # timings
                 got.pop(k)
+            # evaluate-sc2: a rate, and the JAX package's count of its XLA
+            # devices (8 virtual ones here) against the port's ranks
+            for k in ("alignments_per_sec", "devices"):
+                got.pop(k, None)
         outs.append((out, got))
     return outs
 
@@ -167,6 +194,13 @@ def _same_evaluate_spot(a, b):
     (ha, ta), (hb, tb) = (s.strip().rsplit("threshold: ", 1) for s in (a, b))
     assert ha == hb
     np.testing.assert_allclose(float(ta), float(tb), rtol=1e-4)
+
+
+def _same_sc2(a, b):
+    """evaluate-sc2's lines equal but the throughput."""
+    cut = [[ln for ln in t.strip().splitlines() if not ln.startswith("throughput: ")]
+           for t in (a, b)]
+    assert cut[0] == cut[1] and len(cut[0]) == len(a.strip().splitlines()) - 1, (a, b)
 
 
 CASES = {
@@ -250,6 +284,32 @@ CASES = {
                           None),
     "evaluate-spot-cascade": (lambda c: ["evaluate-spot", "--corpus", c.spotting, "--bank",
                                          c.bank, "--hmm", c.hmm], None),
+    # the GMM-HMM and VQ families: models the port trained, and the JAX CLI's
+    "evaluate-hmm": (lambda c: ["evaluate-hmm", "--corpus", c.test, "--model", c.hmm,
+                                "--metrics-out", "{M}"], None),
+    "evaluate-hmm-jax-model": (lambda c: ["evaluate-hmm", "--corpus", c.test_oov, "--model",
+                                          c.hmm_jax, "--reject-threshold", "0",
+                                          "--metrics-out", "{M}"], None),
+    "evaluate-hmm-noise-adapt": (lambda c: ["evaluate-hmm", "--corpus", c.test, "--model",
+                                            c.hmm, "--noise-adapt", "--metrics-out", "{M}"],
+                                 None),
+    "evaluate-hmm-reject": (lambda c: ["evaluate-hmm", "--corpus", c.test_oov, "--model",
+                                       c.hmm, "--reject", "--metrics-out", "{M}"], None),
+    "evaluate-vq": (lambda c: ["evaluate-vq", "--corpus", c.test, "--model", c.vq,
+                               "--metrics-out", "{M}"], None),
+    "evaluate-vq-jax-model": (lambda c: ["evaluate-vq", "--corpus", c.test_oov, "--model",
+                                         c.vq_jax, "--metrics-out", "{M}"], None),
+    # Speech Commands: the JAX CLI shards the bank over its 8 virtual
+    # devices where the port (one process) takes the single-device path
+    "evaluate-sc2": (lambda c: ["evaluate-sc2", "--root", c.sc2, "--metrics-out", "{M}"],
+                     _same_sc2),
+    "evaluate-sc2-k3-validation": (lambda c: ["evaluate-sc2", "--root", c.sc2, "--split",
+                                              "validation", "--templates", "1", "--batch",
+                                              "2", "--k", "3", "--no-mesh",
+                                              "--metrics-out", "{M}"], _same_sc2),
+    "demo": (lambda c: ["demo", "--bank", c.bank], None),
+    "demo-wav": (lambda c: ["demo", "--bank", c.bank, "--wav", c.conn_wav, "--chunk", "800"],
+                 None),
 }
 
 
@@ -367,6 +427,127 @@ def test_make_corpus_enroll_evaluate_end_to_end(c, capsys):
     assert "accuracy: 1.0000 (6 utterances)" in outs[0][0]
 
 
+@pytest.mark.parametrize("flags", [[], ["--train-mode", "baum_welch", "--map-tau", "5",
+                                         "--no-reject-calibration"]],
+                         ids=["viterbi", "baum-welch-map"])
+def test_train_hmm_matches_the_jax_cli(c, tmp_path, capsys, flags):
+    """train-hmm from JAX's draws: the same checkpoint keys, labels and
+    reject calibration, parameters within 1e-2; each CLI's evaluate-hmm on
+    its own model prints the same confusion and accuracy."""
+    mine, theirs = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pg, "normal_draw", _jax_draw)
+        port("train-hmm", "--corpus", c.train, "--model", mine, *HMM_ARGS, *flags)
+    jcli.main(["train-hmm", "--corpus", c.train, "--model", theirs, *HMM_ARGS, *flags])
+    a, b = np.load(mine), np.load(theirs)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        if a[k].dtype.kind == "f" and a[k].ndim:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-2, atol=1e-2, err_msg=k)
+        elif k == "reject_threshold":
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-2, atol=1e-2)
+            assert np.isfinite(a[k]) != ("--no-reject-calibration" in flags)
+        else:
+            assert np.array_equal(a[k], b[k]), k
+    outs = []
+    for main, model in ((port, mine), (lambda *x: jcli.main(list(x)), theirs)):
+        capsys.readouterr()
+        main("evaluate-hmm", "--corpus", c.test_oov, "--model", model, *HMM_ARGS,
+             *([] if flags else ["--reject"]))
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and "accuracy: " in outs[0]
+
+
+def test_train_vq_matches_the_jax_cli(c, tmp_path, capsys):
+    """train-vq: the same checkpoint keys and labels, codebooks within 1e-3
+    (tests/test_torch_vq.py's tolerance for fits on each package's own
+    features), the same evaluate-vq output."""
+    mine, theirs = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    port("train-vq", "--corpus", c.train, "--model", mine, "--codes", "16", "--iters", "4")
+    jcli.main(["train-vq", "--corpus", c.train, "--model", theirs, "--codes", "16",
+               "--iters", "4"])
+    a, b = np.load(mine), np.load(theirs)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        if a[k].dtype.kind == "f":
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-3, err_msg=k)
+        else:
+            assert np.array_equal(a[k], b[k]), k
+    assert int(a["n_codes"]) == 16 and int(a["n_iter"]) == 4
+    outs = []
+    for main, model in ((port, mine), (lambda *x: jcli.main(list(x)), theirs)):
+        capsys.readouterr()
+        main("evaluate-vq", "--corpus", c.test, "--model", model)
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and "accuracy: " in outs[0]
+
+
+def test_plot_writes_png_and_the_jax_distances(c, tmp_path):
+    """plot of a synthetic word with --bank and of a WAV writes a PNG; the
+    distances row is the JAX recognizer's within NUM_TOL."""
+    from dsp_tpu.config import PipelineConfig as JPipelineConfig
+    from dsp_tpu_torch.viz import pipeline_view, plot_pipeline
+
+    for name, extra in (("bank", ["--bank", c.bank]), ("wav", ["--wav", c.test_wavs[0]])):
+        out = str(tmp_path / f"{name}.png")
+        port("plot", "--word", "two", *extra, "--out", out)
+        with open(out, "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    rec = KnnDtwRecognizer.load(c.bank, device="cpu")
+    x = synth_word("two", 77)        # not a template: seed 0 is one, at distance ~0
+    got = plot_pipeline(x, str(tmp_path / "direct.png"), recognizer=rec)
+    jlabels, want = JKnnDtwRecognizer.load(c.bank, JPipelineConfig()).classify_batch(
+        [x], return_distances=True)
+    assert got["label"] == jlabels[0] == "two"
+    assert got["distances"].shape == (rec.n_templates,)
+    np.testing.assert_allclose(got["distances"], np.asarray(want)[0], **NUM_TOL)
+    # where matplotlib is missing (the card's host) plot refuses before any
+    # work, and pipeline_view still gives the panels' data
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "matplotlib", None)
+        with pytest.raises(SystemExit, match="plot needs matplotlib"):
+            port("plot", "--word", "two", "--bank", c.bank, "--out", str(tmp_path / "x.png"))
+        view = pipeline_view(x, recognizer=rec)
+    assert not os.path.exists(tmp_path / "x.png")
+    for k, v in got.items():
+        np.testing.assert_array_equal(view[k], v, err_msg=k)
+
+
+def test_demo_mic_without_pyaudio_exits_as_the_jax_cli(c):
+    with pytest.raises(SystemExit) as mine:
+        port("demo", "--bank", c.bank, "--mic")
+    with pytest.raises(SystemExit) as theirs:
+        jcli.main(["demo", "--bank", c.bank, "--mic"])
+    assert str(mine.value) == str(theirs.value) and "PyAudio" in str(mine.value)
+
+
+def test_evaluate_sc2_shards_the_bank_over_a_gloo_world(c, tmp_path, capsys):
+    """evaluate-sc2 in a gloo world of two processes takes the sharded
+    branch (a (1, 2) mesh) and gives the labels and accuracy of one process."""
+    spied = []
+
+    def spy(*args, **kw):
+        got, d = real(*args, **kw)
+        spied.append(got.numpy().copy())
+        return got, d
+
+    from dsp_tpu_torch import pipeline as tpl
+    real = tpl.recognize_batch
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tpl, "recognize_batch", spy)
+        capsys.readouterr()
+        port("evaluate-sc2", "--root", c.sc2, "--batch", "2")
+    single = capsys.readouterr().out
+    outs = mesh_rank.run_world(tmp_path, 2, "sc2", {
+        "root": np.asarray(c.sc2), "argv": np.asarray(["--batch", "2"])})
+    want = np.concatenate(spied)
+    for r in outs:
+        assert int(r["mesh_ranks"]) == 2
+        np.testing.assert_array_equal(r["labels"], want)
+        assert str(r["stdout"]).splitlines()[0] == single.splitlines()[0]
+        assert str(r["stdout"]).splitlines()[0].startswith("accuracy: ")
+
+
 def test_enroll_flags_and_sentinels(c, tmp_path, capsys):
     """--no-*-calibration leave the thresholds unset; --k/--matcher are
     stored; the None sentinels keep a bank's enrolled values unless a flag
@@ -482,6 +663,11 @@ ERRORS = {
                          "not wired into"),
     "empty-corpus": (lambda c: ["evaluate", "--corpus", str(c.root / "test_oov" / "papa"),
                                 "--bank", c.bank], "no <label>/"),
+    "sc2-matcher": (lambda c: ["evaluate-sc2", "--root", c.sc2, "--matcher", "ltw"],
+                    "full banded DTW only"),
+    "train-hmm-empty-corpus": (lambda c: ["train-hmm", "--corpus",
+                                          str(c.root / "test_oov" / "papa"), "--model",
+                                          str(c.root / "x.npz")], "no <label>/"),
 }
 
 

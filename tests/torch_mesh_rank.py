@@ -326,8 +326,35 @@ def scenario_em(inp: dict) -> dict:
     return out
 
 
+def scenario_sc2(inp: dict) -> dict:
+    """``python -m dsp_tpu_torch evaluate-sc2`` on this world: the labels
+    its sharded branch gives (read from ``recognize_sharded``), the size of
+    the mesh it ran on and its stdout."""
+    import contextlib
+    import io
+
+    from dsp_tpu_torch import cli, parallel
+
+    real, labels, ranks = parallel.recognize_sharded, [], []
+
+    def spy(mesh, *args, **kw):
+        got, d = real(mesh, *args, **kw)
+        labels.append(_np(got))
+        ranks.append(mesh.size())
+        return got, d
+
+    parallel.recognize_sharded = spy
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--device", "cpu", "evaluate-sc2", "--root", str(inp["root"]),
+                  *[str(a) for a in inp["argv"]]])
+    assert labels and len(set(ranks)) == 1, "the sharded branch did not run"
+    return {"labels": np.concatenate(labels), "mesh_ranks": np.asarray(ranks[0]),
+            "stdout": np.asarray(buf.getvalue())}
+
+
 SCENARIOS = {"functions": scenario_functions, "models": scenario_models,
-             "em": scenario_em}
+             "em": scenario_em, "sc2": scenario_sc2}
 
 
 def main() -> None:
