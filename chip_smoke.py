@@ -402,6 +402,38 @@ each of which raises on failure (non-zero exit):
              seconds (``StageTimer``: card runs, synchronized) with the
              card's name and power limit; kernels 1, 3, 4 and 5's launches
              here join the kernel table's.
+20. measure — the measurement scripts (ROADMAP item 21b), in this
+             process on the card, each once at the JAX script's defaults
+             with launch counts reset just before and read just after:
+             ``cascade_timing`` (35 keywords x 3 templates, 8 streams x 12
+             words, 3 passes; kernel 3), ``serve_latency`` (bank 100,
+             batches 1, 8, 64, 50 calls a row, the four request modes;
+             kernel 1; each batch's labels equal to one more
+             ``classify_batch`` of the same signals), ``fe_profile`` (256
+             queries x 100 templates, 6 stages; kernel 1 in ``dtw`` and
+             ``full``, whose labels must be the argmin of ``dtw``'s
+             distances; ``fe``, ``dtw`` and ``full`` then in a fresh
+             process, timed again and once each under the profiler:
+             device time against event time a call, the busy share),
+             ``mb_long_t`` (T = 198, 512, 1024; kernels 1 and 4; a row's
+             kernels each checked), ``mb_fused_banded`` (128 x 100, three
+             variants, B swept over kernel 1's warps a block) and
+             ``mb_spot_fused`` (64 x 100, U = 595; kernel 3); the ``mb_*``
+             scripts hold each kernel row to its plain version themselves
+             (DTW rtol 1e-4, kernel 4 rtol 1e-4 / atol 1e-5, kernel 3 by
+             phase spot's tie-aware rule) and raise on a mismatch.  ``cascade_timing`` at
+             ``MEASURE_CASCADE_CUT`` on the card against ``--device cpu``
+             (thresholds within 1e-3 relative + 1e-2, DTW F1 equal, the
+             cascade's F1 and candidates equal or the candidates one apart:
+             the float32 GMM-HMM fits part), and ``serve_latency.build`` at
+             a bank of 10 on both devices (8 requests' labels and the four
+             modes' outputs equal, n-best distances at rtol 1e-4).
+             ``roofline``'s lines for kernel 1 at a main-path chunk's
+             occupancy (timed here: 256 x 100 full-length pairs, T = U =
+             198, band 0.17, held to plain at rtol 1e-4) and kernel 3 at
+             ``mb_spot_fused``'s rate.  Prints each script's
+             lines, its wall seconds and launches; kernels 1, 3 and 4's
+             launches here join the kernel table's.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -498,9 +530,6 @@ LAUNCH_PIECE_CALLS = 10_000   # host breakdown of a launch, per piece
 LAUNCH_CALLS = 1_000          # back-to-back wrapper calls, then one synchronize
 LAUNCH_REPS = 1_001           # timed single calls of the trivial kernel and x * 2.0:
                               # a ~20 µs call is host-bound, so its median needs many
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 # phase streaming: 100 ms chunks at 16 kHz, 256 concurrent streams
 STREAM_CHUNK = 1600
 STREAM_BATCH = 256
@@ -608,6 +637,16 @@ TOOLS_SCRIPTS = [
      ("GMM-HMM connected Viterbi", "GMM-HMM +noise-adapt"), 1 / 2),
 ]
 TOOLS_SC2_FILES = (10, 3, 3)      # a word: train, validation, test clips
+# phase measure (ROADMAP item 21b): each measurement script once at the JAX
+# script's defaults, and the wall-clock ones at tests/test_torch_measure.py's
+# cut on the card and under --device cpu
+MEASURE_CASCADE_CUT = ["--keywords", "3", "--templates", "2", "--streams", "2",
+                       "--words-per-stream", "3", "--passes", "1"]
+MEASURE_SERVE_BANK = 10       # serve_latency.build's bank at the cut
+MEASURE_SERVE_BATCH = 8       # its batch of requests held to the CPU's
+MEASURE_THR_TOL = dict(rtol=1e-3, atol=1e-2)   # kNN thresholds (tests' THR_TOL["knn"])
+MEASURE_TRACED_STAGES = ("fe", "dtw", "full")  # fe_profile's stages under the profiler
+MEASURE_CHILD_TIMEOUT_S = 300   # the process that profiles them
 
 
 def fail(msg: str):
@@ -620,38 +659,6 @@ def time_ms(fn, reps: int = REPS, warmup: bool = True) -> float:
     from dsp_tpu_torch.utils import timing
 
     return timing.time_ms(fn, reps, warmup)
-
-
-def bound(ops: float, n_bytes: float) -> tuple[float, str]:
-    """(least ms the card could take, which of the two binds)."""
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
-def compare_dtw(got, want, rtol: float, atol: float = 0.0):
-    """BIG/finite pattern must match; finite entries allclose at rtol (and
-    atol).  Returns (max relative error, max absolute error, finite share)."""
-    import numpy as np
-
-    got, want = got.cpu().numpy(), want.cpu().numpy()
-    if got.shape != want.shape:
-        fail(f"dtw shape {got.shape} != {want.shape}")
-    if np.isnan(got).any():
-        fail("dtw kernel produced NaN")
-    dead_g, dead_w = got >= 1e20, want >= 1e20
-    if (dead_g != dead_w).any():
-        fail(f"dtw BIG/finite pattern differs in {(dead_g != dead_w).sum()} pairs")
-    fin = ~dead_w
-    if not fin.any():
-        return 0.0, 0.0, 0.0
-    abs_err = np.abs(got[fin] - want[fin])
-    rel = abs_err / np.abs(want[fin])
-    if (abs_err > atol + rtol * np.abs(want[fin])).any():
-        fail(f"dtw distances differ: max rel err {rel.max():.3e} > {rtol} "
-             f"(max abs err {abs_err.max():.3e}, atol {atol})")
-    return float(rel.max()), float(abs_err.max()), float(fin.mean())
-
-
 def dtw_inputs(rng, dev, b: int, k: int, t: int, u: int, f: int = 39):
     """Standard-normal queries [B,T,F] and bank [K,U,F] with seeded lengths
     in [20, T] and [20, U], on the card."""
@@ -673,6 +680,8 @@ def dtw_phase(rng, long_rng, dev, report):
     from dsp_tpu_torch.kernels import _build
     from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
     from dsp_tpu_torch.ops import dtw as tdtw
+    from dsp_tpu_torch.scripts import compare_dtw
+    from dsp_tpu_torch.scripts.roofline import bound
 
     f = 39
     cases = [(rng, *case) for case in DTW_CASES] + [(long_rng, *c) for c in DTW_LONG_CASES]
@@ -752,6 +761,7 @@ def small_phase(rng, dev, report):
     from dsp_tpu_torch import pipeline as pl
     from dsp_tpu_torch.config import DtwConfig
     from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.scripts import compare_dtw
 
     auto, scan = DtwConfig(), DtwConfig(impl="scan")
     t, f = 198, 39
@@ -821,6 +831,7 @@ def mfcc_phase(dev, report):
     from dsp_tpu_torch.io import synth_word
     from dsp_tpu_torch.kernels import mfcc_fused as kmf
     from dsp_tpu_torch.ops import frontend as fe
+    from dsp_tpu_torch.scripts.roofline import bound
 
     sigs, _ = synth_batch(MFCC_UTTERANCES, 5000)
     x = torch.from_numpy(np.stack(sigs)).to(dev)
@@ -989,6 +1000,7 @@ def main_phase(dev, report):
     from dsp_tpu_torch.config import DtwConfig, FrontendConfig, PipelineConfig
     from dsp_tpu_torch.io import DIGITS, synth_word
     from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.scripts import compare_dtw
 
     base = PipelineConfig()
     configs = {
@@ -1067,43 +1079,6 @@ def main_phase(dev, report):
                                                     max_abs_err=abs_err)
     return out["fused"]["launches"]
 
-
-def compare_spot(got, want, s_lens, b_lens, what: str, rtol: float = 2e-4) -> dict:
-    """Tie-aware comparison of two (norm [B,K,U], start [B,K,U]) fields
-    (numpy): identical BIG pattern; norms at ``rtol`` where the witnesses
-    agree; raw costs at 1e-4 where they differ, at under 0.1% of the valid
-    (stream, template, end column) sites."""
-    import numpy as np
-
-    (gn, gs), (wn, ws) = got, want
-    if gn.shape != wn.shape or gs.shape != ws.shape:
-        fail(f"{what}: shapes {gn.shape} vs {wn.shape}")
-    if np.isnan(gn).any():
-        fail(f"{what}: NaN in the kernel's norms")
-    if ((gn >= 1e20) != (wn >= 1e20)).any():
-        fail(f"{what}: BIG/finite pattern differs at {((gn >= 1e20) != (wn >= 1e20)).sum()} sites")
-    j = np.arange(gn.shape[-1])[None, None, :]
-    valid = np.broadcast_to(j < np.asarray(s_lens)[:, None, None], gn.shape)
-    agree, flip = valid & (gs == ws), valid & (gs != ws)
-    abs_err = np.abs(gn - wn)[agree]
-    rel = abs_err / np.maximum(np.abs(wn[agree]), 1e-30)
-    if ((abs_err > rtol * np.abs(wn[agree]) + 1e-5)).any():
-        fail(f"{what}: norms differ where the witnesses agree: max rel err {rel.max():.3e}")
-    tl = np.maximum(np.asarray(b_lens), 1).astype(np.float64)[None, :, None]
-    raw_g, raw_w = gn * (tl + j - gs + 1), wn * (tl + j - ws + 1)
-    raw_rel = np.abs(raw_g - raw_w)[flip] / np.abs(raw_w[flip])
-    if (raw_rel > 1e-4).any():
-        fail(f"{what}: witnesses differ at {int(flip.sum())} sites, raw costs "
-             f"up to {raw_rel.max():.3e} apart (not near-ties)")
-    share = float(flip.sum() / max(1, valid.sum()))
-    if share >= 1e-3:
-        fail(f"{what}: witnesses differ at {share:.2e} of valid sites (>= 0.1%)")
-    return dict(n_sites=int(valid.sum()), max_abs_err=float(abs_err.max()) if abs_err.size else 0.0,
-                max_rel_err=float(rel.max()) if rel.size else 0.0,
-                witness_flips=int(flip.sum()), flip_share=share,
-                max_raw_rel_at_flips=float(raw_rel.max()) if raw_rel.size else 0.0)
-
-
 def spot_phase(rng, long_rng, dev, report):
     import numpy as np
     import torch
@@ -1113,6 +1088,8 @@ def spot_phase(rng, long_rng, dev, report):
     from dsp_tpu_torch.config import PipelineConfig
     from dsp_tpu_torch.io import DIGITS, synth_connected, synth_spotting_stream, synth_word
     from dsp_tpu_torch.kernels import spot_fused as ksp
+    from dsp_tpu_torch.scripts import compare_spot
+    from dsp_tpu_torch.scripts.roofline import bound
 
     cfg = PipelineConfig()
     rec = KnnDtwRecognizer(cfg, device=dev)
@@ -1256,6 +1233,7 @@ def spotter_phase(seed: int, dev, report) -> int:
     from dsp_tpu_torch import KeywordSpotter, KnnDtwRecognizer
     from dsp_tpu_torch.io import DIGITS, synth_spotting_stream, synth_word
     from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.scripts import compare_spot
 
     rec = KnnDtwRecognizer(device=dev)
     for lab in SPOT_KEYWORDS:
@@ -1989,6 +1967,7 @@ def rerank_batches_vs_plain(batches) -> dict:
 
     from dsp_tpu_torch.models.spotter import _COST_BUDGET_ELEMS
     from dsp_tpu_torch.ops.spot import subseq_dtw_batch
+    from dsp_tpu_torch.scripts import compare_spot
 
     got, want, lens = [], [], []
     for wins, win_lens, bank, bank_lens, squared in batches:
@@ -2587,6 +2566,7 @@ def remainder_phase(seed: int, dev, report) -> int:
     from dsp_tpu_torch.ops import dtw as tdtw
     from dsp_tpu_torch.ops import dtw_banded as tbanded
     from dsp_tpu_torch.ops import frontend as fe
+    from dsp_tpu_torch.scripts import compare_dtw
 
     out = report["remainder"]
     smi = "; ".join(report["nvidia_smi"])
@@ -2934,6 +2914,7 @@ def mesh_phase(seed: int, dev, report) -> dict:
     from dsp_tpu_torch.ops import streaming as st
     from dsp_tpu_torch.ops.grammar import Grammar
     from dsp_tpu_torch.parallel import em_step_sharded, make_mesh, multihost
+    from dsp_tpu_torch.scripts import compare_spot
 
     out = report["mesh"]
     smi = "; ".join(report["nvidia_smi"])
@@ -3448,6 +3429,7 @@ def tools_phase(dev, report) -> dict:
     from dsp_tpu_torch.io import hostile as host
     from dsp_tpu_torch.kernels import _build
     from dsp_tpu_torch.models import KnnDtwRecognizer
+    from dsp_tpu_torch.scripts import compare_dtw
     from dsp_tpu_torch.utils.profiling import StageTimer
     from dsp_tpu_torch.viz import pipeline_view
 
@@ -3684,6 +3666,219 @@ def tools_phase(dev, report) -> dict:
     return counted
 
 
+def stage_device_shares(chunk: int, n_templates: int, device: str) -> dict:
+    """``fe_profile``'s stages named in ``MEASURE_TRACED_STAGES``, built as
+    ``fe_profile.main`` builds them: each one's event ms a call over
+    back-to-back calls (its timer, passes and iterations) and one call's
+    device time and ops under ``torch.profiler``, and their ratio, the
+    card's busy share.  Phase measure runs this in a fresh process: late in
+    a process that has profiled many calls, the profiler was seen to record
+    only part of the device events, or none."""
+    from dsp_tpu_torch.scripts import fe_profile
+    from dsp_tpu_torch.utils.timing import chained_timeit_spread
+
+    out = {}
+    for name, fn, fargs in fe_profile.stages(chunk, n_templates, device):
+        if name not in MEASURE_TRACED_STAGES:
+            continue
+        event_ms = chained_timeit_spread(fn, fargs, n_iters=8, passes=5)[0] * 1e3
+        n_ops, dev_ms = device_ops(lambda _f=fn, _a=fargs: _f(*_a))
+        out[name] = dict(event_ms=event_ms, device_ms=dev_ms, device_ops=n_ops,
+                         busy_share=None if dev_ms is None else dev_ms / event_ms)
+    return out
+
+
+def measure_phase(dev, report) -> dict:
+    """Phase measure: the measurement scripts (ROADMAP item 21b) in-process
+    on the card at the JAX scripts' defaults, their kernel rows held to the
+    plain versions by the scripts themselves, and the wall-clock scripts at
+    the CPU tests' cut against ``--device cpu``; returns the counted
+    launches of kernels 1, 3 and 4."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.config import DtwConfig
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+    from dsp_tpu_torch.ops import dtw as tdtw
+    from dsp_tpu_torch.scripts import (cascade_timing, compare_dtw, fe_profile,
+                                       mb_fused_banded, mb_long_t, mb_spot_fused, roofline,
+                                       serve_latency)
+    from dsp_tpu_torch.scripts import dtw_inputs as full_length_inputs
+
+    out = report["measure"]
+    smi = "; ".join(report["nvidia_smi"])
+    t_phase = time.perf_counter()
+    counted = dict.fromkeys(("dtw_banded", "spot_subseq", "dtw_fused"), 0)
+    launches, seconds, text = {}, {}, {}
+
+    def card(name, fn):
+        """``fn()`` on the card, its stdout kept and echoed, its launches
+        counted from 0 and its wall time kept as ``name``."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: n for k, n in _build.LAUNCHES.items() if n}
+        for k in counted:
+            counted[k] += launches[name].get(k, 0)
+        text[name] = buf.getvalue()
+        print(text[name], end="", flush=True)
+        return res
+
+    def cpu(fn):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+
+    # cascade_timing: kernel 3 in the DTW spotter, its calibration and the
+    # cascade's rerank; at the cut, the card's lines against the CPU's
+    casc = card("cascade_timing", lambda: cascade_timing.main([]))
+    got = card("cascade_timing_cut", lambda: cascade_timing.main(MEASURE_CASCADE_CUT))
+    want = cpu(lambda: cascade_timing.main([*MEASURE_CASCADE_CUT, "--device", "cpu"]))
+    thr_gap = abs(got["threshold"] - want["threshold"])
+    if thr_gap > MEASURE_THR_TOL["atol"] + MEASURE_THR_TOL["rtol"] * abs(want["threshold"]):
+        fail(f"measure cascade_timing: threshold {got['threshold']} on the card, "
+             f"{want['threshold']} on the CPU")
+    f1 = {k: (f"{got[k]['f1']:.2f}", f"{want[k]['f1']:.2f}") for k in ("dtw", "cascade")}
+    cand_gap = abs(got["candidates"] - want["candidates"])
+    if f1["dtw"][0] != f1["dtw"][1] or not (
+            (cand_gap == 0 and f1["cascade"][0] == f1["cascade"][1]) or cand_gap == 1):
+        fail(f"measure cascade_timing: F1 {f1} and candidates {got['candidates']} on the "
+             f"card / {want['candidates']} on the CPU")
+    cascade_cut = dict(threshold_gap=thr_gap, f1=f1, candidates=[got["candidates"],
+                                                                 want["candidates"]])
+
+    # serve_latency: kernel 1; the timed calls' labels against one more
+    # classify_batch of the same signals, and at the cut build()'s
+    # recognizer and request modes against the CPU's
+    serve = card("serve_latency", lambda: serve_latency.main([]))
+    rec = serve["recognizer"]
+    for b, row in serve["batches"].items():
+        again = rec.classify_batch(serve_latency.batch_signals(b, rec.cfg.max_samples))
+        if row["labels"] != again:
+            fail(f"measure serve_latency: batch {b} labels {row['labels']} then {again}")
+    (rec_c, modes_c), (rec_h, modes_h) = (serve_latency.build(MEASURE_SERVE_BANK, d)
+                                          for d in (dev, "cpu"))
+    sigs = serve_latency.batch_signals(MEASURE_SERVE_BATCH, rec_c.cfg.max_samples)
+    serve_cut = {"labels": [rec_c.classify_batch(sigs), rec_h.classify_batch(sigs)]}
+    for (name, call), (_, call_h) in zip(modes_c, modes_h):
+        serve_cut[name] = [call(), call_h()]
+    for name, (g, w) in serve_cut.items():
+        if name.startswith("nbest"):
+            g_d, w_d = ([[h[1] for h in r] for r in x] for x in (g, w))
+            same = ([[h[0] for h in r] for r in g] == [[h[0] for h in r] for r in w]
+                    and np.allclose(g_d, w_d, rtol=1e-4, atol=0.0))
+        else:
+            same = g == w
+        if not same:
+            fail(f"measure serve_latency {name}: {g} on the card, {w} on the CPU")
+
+    # fe_profile: kernel 1 in stages dtw and full; full's labels are the
+    # argmin of dtw's distances on the same features
+    fe = card("fe_profile", lambda: fe_profile.main([]))
+    (d_ids, d_dists), (f_ids, f_dists) = fe["outputs"]["dtw"], fe["outputs"]["full"]
+    fe_err = compare_dtw(f_dists, d_dists, 1e-6)[0]
+    bank_ids = torch.from_numpy(fe_profile.bank_label_ids(d_dists.shape[1])).to(dev)
+    argmin_ids = bank_ids[d_dists.argmin(dim=1)].to(f_ids.dtype)
+    if not (torch.equal(f_ids, argmin_ids) and torch.equal(d_ids, argmin_ids)) \
+            or launches["fe_profile"].get("dtw_banded", 0) < 2:
+        fail(f"measure fe_profile: full's labels part from dtw's argmin "
+             f"({launches['fe_profile']})")
+    # the event times above span back-to-back calls, launch gaps included:
+    # one call of each stage under the profiler, in a fresh process, gives
+    # its device time, and that against the event time the busy share
+    child = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke as cs; print(json.dumps("
+         f"cs.stage_device_shares(256, 100, {str(dev)!r})))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=MEASURE_CHILD_TIMEOUT_S)
+    if child.returncode != 0:
+        fail(f"measure fe_profile: the profiling process exited {child.returncode}: "
+             f"{child.stderr[-2000:]}")
+    busy = json.loads(child.stdout.strip().splitlines()[-1])
+    print("measure fe_profile device time a call (profiler, a fresh process) against "
+          "event time a call: "
+          + "; ".join(f"{n} {ms_text(r['device_ms'])} of {r['event_ms']:.3f} ms, "
+                      f"{r['device_ops']} device ops, busy "
+                      + ("not measured" if r["busy_share"] is None
+                         else f"{100 * r['busy_share']:.1f} %")
+                      for n, r in busy.items()), flush=True)
+
+    # the microbenchmarks: each kernel row is held to its plain version in the
+    # script (a mismatch raises); none may run out of memory at the defaults
+    long_t = card("mb_long_t", lambda: mb_long_t.main([]))
+    for row in long_t:
+        if any(row[k] != row[k] for k in mb_long_t.IMPLS) or any(
+                f"{k}_max_rel_err" not in row for k in ("kernel", "unbanded")):
+            fail(f"measure mb_long_t: a row did not run or was not checked at "
+                 f"T={row['t']}: {row}")
+    banded = card("mb_fused_banded", lambda: mb_fused_banded.main([]))
+    spot = card("mb_spot_fused", lambda: mb_spot_fused.main([]))
+    for name, kernels in (("cascade_timing", ("spot_subseq",)),
+                          ("serve_latency", ("dtw_banded",)),
+                          ("mb_long_t", ("dtw_banded", "dtw_fused")),
+                          ("mb_fused_banded", ("dtw_banded",)),
+                          ("mb_spot_fused", ("spot_subseq",))):
+        for k in kernels:
+            if not launches[name].get(k):
+                fail(f"measure {name}: kernel {k} never launched ({launches[name]})")
+
+    # roofline on this phase's rates: kernel 1 timed here at one main-path
+    # chunk's occupancy (256 x 100 full-length pairs, T = U = 198, the
+    # default band 0.17: the classify model's pair and chunk) and held to
+    # its plain version; kernel 3 at mb_spot_fused's shape, its seeded
+    # lengths' cells as full-length pairs
+    b, k, t, _ = MAIN_SHAPE
+    k1_args = full_length_inputs(b, k, t, 39, dev)
+
+    def kernel1_at_chunk():
+        got = kdtw.dtw_batch_fused_banded(*k1_args, DtwConfig())
+        torch.cuda.synchronize()
+        rel = compare_dtw(got, tdtw.dtw_batch(*k1_args, DtwConfig()), 1e-4)[0]
+        return rel, time_ms(lambda: kdtw.dtw_batch_fused_banded(*k1_args, DtwConfig()))
+
+    k1_rel, k1_ms = card("roofline_kernel1", kernel1_at_chunk)
+    k1_rate = b * k / (k1_ms / 1e3)
+    print(f"measure roofline: kernel 1 at {b} x {k} full-length pairs, T = U = {t}: "
+          f"{k1_ms:.3f} ms ({k1_rate:.1f} pairs/s), max rel err to plain {k1_rel:.1e}",
+          flush=True)
+    _, _, s_u, s_t, _ = spot["shape"]
+    k3_rate = spot["cells"] / (s_t * s_u) / (spot["fused"]["ms"] / 1e3)
+    roof = {"classify": roofline.rows("classify", k1_rate, t),
+            "spot": roofline.rows("spot", k3_rate, s_t, s_u)}
+    for rows in roof.values():
+        for row in rows:
+            print(f"measure roofline: {json.dumps(row)}", flush=True)
+
+    summary = dict(
+        cascade_timing={k: {kk: v for kk, v in casc[k].items() if kk != "events"}
+                        for k in ("dtw", "cascade")},
+        cascade_candidates=casc["candidates"], cascade_threshold=casc["threshold"],
+        serve_latency={"batches": {b: {k: v for k, v in r.items() if k != "labels"}
+                                   for b, r in serve["batches"].items()},
+                       "modes": {n: {k: v for k, v in r.items() if k != "output"}
+                                 for n, r in serve["modes"].items()}},
+        fe_profile=dict(ms=fe["ms"], attribution=fe["attribution"], full_vs_dtw_rel=fe_err,
+                        device=busy),
+        roofline_kernel1=dict(shape=[b, k, t, t, 39], ms=k1_ms, max_rel_err=k1_rel),
+        mb_long_t=long_t, mb_fused_banded=banded, mb_spot_fused=spot, roofline=roof)
+    print(f"measure checks: cascade_timing cut {cascade_cut}; serve_latency cut equal on "
+          f"{len(serve_cut)} outputs; fe_profile full = dtw (rel {fe_err:.1e})", flush=True)
+    print(f"measure wall s on {smi}: "
+          + "  ".join(f"{k} {v:.3f}" for k, v in seconds.items()), flush=True)
+    print(f"measure launches: {launches}; total {counted}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out.update(summary, cascade_cut=cascade_cut, seconds=seconds, launches_by_run=launches,
+               launches=counted, text=text, phase_seconds=time.perf_counter() - t_phase)
+    return counted
+
+
 def fused_phase(rng, long_rng, dev, report):
     """Kernel 4 (unbanded DTW from features) against its plain version and
     the banded kernel's unbanded mode at the main-path shape, and against
@@ -3693,6 +3888,8 @@ def fused_phase(rng, long_rng, dev, report):
     from dsp_tpu_torch.config import DtwConfig
     from dsp_tpu_torch.kernels import dtw_fused as kfu
     from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
+    from dsp_tpu_torch.scripts import compare_dtw
+    from dsp_tpu_torch.scripts.roofline import bound
 
     b, k, t, u = MAIN_SHAPE
     f = 39
@@ -3762,6 +3959,8 @@ def wavefront_phase(rng, dev, report):
     from dsp_tpu_torch.config import DtwConfig
     from dsp_tpu_torch.kernels import dtw_pallas as kwf
     from dsp_tpu_torch.ops import dtw as tdtw
+    from dsp_tpu_torch.scripts import compare_dtw
+    from dsp_tpu_torch.scripts.roofline import bound
 
     b, k, t, u = MAIN_SHAPE
     q, ql, bk, bl = dtw_inputs(rng, dev, b, k, t, u)
@@ -3879,6 +4078,7 @@ def matchers_phase(dev, report) -> dict:
     from dsp_tpu_torch.kernels import _build
     from dsp_tpu_torch.models.knn_dtw import NO_MATCH, REJECT
     from dsp_tpu_torch.ops import dtw as tdtw
+    from dsp_tpu_torch.scripts import compare_dtw
 
     names = ("dtw_banded", "mfcc_fused", "spot_subseq", "dtw_fused", "dtw_wavefront")
     reset = _build.reset_launches
@@ -4006,6 +4206,7 @@ def mb_wavefront_phase(seed: int, dev, report) -> dict:
     from dsp_tpu_torch.kernels import _build
     from dsp_tpu_torch.kernels import mb_wavefront as kmb
     from dsp_tpu_torch.scripts import mb_wavefront as mbw
+    from dsp_tpu_torch.scripts.roofline import bound
 
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -4247,7 +4448,8 @@ def main() -> int:
     report = {"dtw": {}, "mfcc": {}, "small": {}, "main": {}, "spot": {},
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
               "streaming": {}, "hmm": {}, "cascade": {}, "connected": {},
-              "remainder": {}, "mesh": {}, "cli": {}, "tools": {}, "nvidia_smi": smi}
+              "remainder": {}, "mesh": {}, "cli": {}, "tools": {}, "measure": {},
+              "nvidia_smi": smi}
     rng = np.random.default_rng(args.seed)
     dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
     mfcc_phase(dev, report)
@@ -4274,6 +4476,8 @@ def main() -> int:
     for name, n in cli_phase(dev, report).items():
         launches[name] += n
     for name, n in tools_phase(dev, report).items():
+        launches[name] += n
+    for name, n in measure_phase(dev, report).items():
         launches[name] += n
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")

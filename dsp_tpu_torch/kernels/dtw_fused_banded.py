@@ -75,6 +75,12 @@ def _row_columns(la: int, lb: int, cfg: DtwConfig, t_pad: int, u_pad: int):
     return rows
 
 
+def valid_cells(la: int, lb: int, cfg: DtwConfig, t_pad: int, u_pad: int) -> int:
+    """Cells of pair (la, lb) inside its length, band and window: the DP's
+    work (``ops/dtw.py:masked_cost``'s valid cells in rows < la)."""
+    return sum(max(0, hi - lo + 1) for lo, hi in _row_columns(la, lb, cfg, t_pad, u_pad))
+
+
 def strip_columns(la: int, lb: int, cfg: DtwConfig, t_pad: int, u_pad: int):
     """The columns the kernel walks for pair (la, lb) at padded shape
     (t_pad, u_pad): a list of (r0, r1, jlo, jhi), one per strip of rows
@@ -124,6 +130,13 @@ def launch_plan(n_queries: int, t_pad: int, u_pad: int, f_dim: int, rb: int,
     while warps > 1 and smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window) > optin:
         warps //= 2
     return window, warps, smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window)
+
+
+def config_plan(n_queries: int, t_pad: int, u_pad: int, f_dim: int,
+                cfg: DtwConfig) -> tuple[bool, int, int]:
+    """:func:`launch_plan` of a launch under ``cfg`` (its row block and slope)."""
+    return launch_plan(n_queries, t_pad, u_pad, f_dim, _window(cfg, t_pad, u_pad)[2],
+                       cfg.slope == "itakura")
 
 
 def max_template_frames(t_pad: int, f_dim: int, cfg: DtwConfig,

@@ -36,6 +36,7 @@ import sys
 import torch
 
 from dsp_tpu_torch.kernels import mb_wavefront as mbk
+from dsp_tpu_torch.scripts import require_card
 from dsp_tpu_torch.utils.timing import chained_timeit, time_ms
 
 BIG = 1e30
@@ -54,15 +55,6 @@ COST_B, COST_K, COST_F = 128, 100, 40
 EXPERIMENTS = ("dma", "dp", "anatomy", "tr", "skew", "cost")
 
 
-def require_card(device="cuda") -> torch.device:
-    """The device, if it is a CUDA card that torch can reach; else raise."""
-    dev = torch.device(device)
-    if dev.type != "cuda" or not torch.cuda.is_available():
-        raise RuntimeError(f"mb_wavefront runs on a CUDA card only (device {dev}, "
-                           f"torch.cuda.is_available() {torch.cuda.is_available()})")
-    return dev
-
-
 def nvidia_smi(query: str) -> list[str]:
     """``nvidia-smi --query-gpu=<query> --format=csv,noheader,nounits`` lines."""
     return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
@@ -75,7 +67,7 @@ def skew_gb() -> float:
 
 
 def bench_dma(device="cuda") -> dict:
-    dev = require_card(device)
+    dev = require_card(device, "mb_wavefront")
     print("=== E0: pure fetch of the same 6.71 GB skew array (dp's loads, no DP) ===")
     skew = torch.ones((P, D_PAD, T_PAD), dtype=torch.float32, device=dev)
     ktarget = torch.zeros((P, 1), dtype=torch.int32, device=dev)
@@ -89,7 +81,7 @@ def bench_dma(device="cuda") -> dict:
 
 
 def bench_dp(device="cuda") -> dict:
-    dev = require_card(device)
+    dev = require_card(device, "mb_wavefront")
     print("=== E1: op-diet wavefront DP (pre-skewed dummy input) ===")
     skew = torch.ones((P, D_PAD, T_PAD), dtype=torch.float32, device=dev)
     ktarget = torch.full((P, 1), T + U - 2, dtype=torch.int32, device=dev)
@@ -104,7 +96,7 @@ def bench_dp(device="cuda") -> dict:
 
 
 def bench_anatomy(device="cuda") -> dict:
-    dev = require_card(device)
+    dev = require_card(device, "mb_wavefront")
     print("=== E1b: per-op anatomy (loop of shuffle rolls + min + add, no device memory) ===")
     x0 = torch.ones((8, 128), dtype=torch.float32, device=dev)
     # back to back, a call takes as long as Python needs to issue it: the
@@ -138,7 +130,7 @@ def bench_anatomy(device="cuda") -> dict:
 
 
 def bench_transpose(device="cuda") -> dict:
-    dev = require_card(device)
+    dev = require_card(device, "mb_wavefront")
     print("=== E2: batched transpose [12800, 256, 512] -> [12800, 512, 256] ===")
     x = torch.ones((P, T_PAD, D_PAD), dtype=torch.float32, device=dev)
     gb = x.numel() * 4 / 1e9
@@ -156,7 +148,7 @@ def bench_transpose(device="cuda") -> dict:
 
 
 def bench_skew(device="cuda") -> dict:
-    dev = require_card(device)
+    dev = require_card(device, "mb_wavefront")
     print("=== E3: skew-construct kernel cost[Q,T,U] -> skew[Q,D,T] ===")
     cost = torch.ones((P, T_PAD, U_PAD), dtype=torch.float32, device=dev)
     gb = (cost.numel() + P * D_PAD * T_PAD) * 4 / 1e9
@@ -171,7 +163,7 @@ def bench_skew(device="cuda") -> dict:
 
 
 def bench_cost(device="cuda") -> dict:
-    dev = require_card(device)
+    dev = require_card(device, "mb_wavefront")
     print("=== E4: batched cost, one fp32 einsum (128 q x 100 t) ===")
     q = torch.ones((COST_B, T_PAD, COST_F), dtype=torch.float32, device=dev)
     b = torch.ones((COST_K, U_PAD, COST_F), dtype=torch.float32, device=dev)
@@ -190,7 +182,7 @@ def run(which: str = "all", device="cuda") -> dict:
     if which != "all" and which not in BENCHES:
         raise ValueError(f"unknown experiment {which!r}; want all or one of "
                          f"{', '.join(EXPERIMENTS)}")
-    dev = require_card(device)
+    dev = require_card(device, "mb_wavefront")
     print("; ".join(nvidia_smi("name,power.limit")) + " W", flush=True)
     out = {}
     for name in EXPERIMENTS:

@@ -1532,3 +1532,42 @@ def test_cli_evaluate_on_the_card_equals_the_cpu(dev, tmp_path, capsys):
     (card, n_card), (cpu, n_cpu) = outs
     assert card == cpu and "accuracy: 1.0000 (6 utterances)" in card
     assert n_card >= 1 and n_cpu == 0
+
+
+# the measurement scripts at a cut: (script, arguments, kernels it must launch)
+MEASURE_RUNS = [
+    ("fe_profile", ["--chunk", "32", "--templates", "20", "--iters", "2", "--passes", "2"],
+     ("dtw_banded",)),
+    ("mb_long_t", ["--t", "198", "--iters", "2"], ("dtw_banded", "dtw_fused")),
+    ("mb_fused_banded", ["--b", "16", "--iters", "2"], ("dtw_banded",)),
+    ("mb_spot_fused", ["--b", "8", "--k", "20", "--iters", "2", "--passes", "2", "--scan"],
+     ("spot_subseq",)),
+]
+
+
+@pytest.mark.parametrize("name,argv,kernels", MEASURE_RUNS)
+def test_measurement_scripts_on_the_card(dev, capsys, name, argv, kernels):
+    """Each CUDA-event script runs on the card, launches its kernels and
+    holds each kernel row to its plain version (the ``mb_*`` scripts raise
+    on a mismatch); ``fe_profile``'s ``full`` labels are ``dtw``'s."""
+    import importlib
+
+    mod = importlib.import_module(f"dsp_tpu_torch.scripts.{name}")
+    _build.reset_launches()
+    out = mod.main(argv)
+    torch.cuda.synchronize()
+    assert all(_build.LAUNCHES[k] for k in kernels), dict(_build.LAUNCHES)
+    assert "NVIDIA" in capsys.readouterr().out.splitlines()[0]
+    if name == "fe_profile":
+        assert torch.equal(out["outputs"]["full"][0], out["outputs"]["dtw"][0])
+        assert all(v > 0 for v in out["ms"].values())
+    elif name == "mb_long_t":
+        row, = out
+        assert row["kernel"] > 0 and row["unbanded"] > 0 and row["scan"] > row["kernel"]
+        assert row["kernel_max_rel_err"] <= 1e-4 and row["unbanded_max_rel_err"] <= 1e-4
+    elif name == "mb_fused_banded":
+        assert [r["b"] for r in out] == [1, 2, 4, 16] * 3
+        assert [r["warps"] for r in out[:4]] == [1, 2, 4, 8]
+        assert all(r["max_rel_err"] <= 1e-4 for r in out)
+    else:
+        assert out["check"]["flip_share"] < 1e-3 and out["scan"]["ms"] > out["fused"]["ms"] > 0

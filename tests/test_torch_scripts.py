@@ -43,6 +43,9 @@ from dsp_tpu_torch.models import gmm_hmm as pg
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ["results_matrix", "robustness", "hostile_vad", "hostile_matrix", "oov_eval",
            "spot_eval", "connected_eval", "grammar_eval"]
+# tests/test_torch_measure.py; roofline needs no device
+MEASURE_SCRIPTS = ["cascade_timing", "serve_latency", "fe_profile", "mb_long_t",
+                   "mb_fused_banded", "mb_spot_fused", "roofline"]
 WORDS = ["zero", "one", "two"]
 N_PER = 2
 # printed thresholds: the kNN's from each package's own distances, the
@@ -271,11 +274,13 @@ def test_scripts_import_no_jax_and_default_to_the_card():
         "ds.make_corpus = lambda labels=None, **k: mc((labels or ds.DIGITS)[:2], 1, k['seed'] "
         "if 'seed' in k else 0)\n"
         "host.make_hostile_corpus = lambda labels=None, **k: mh((labels or ['a'])[:2], (0,), 1)\n"
-        f"names = {SCRIPTS!r}\n"
+        f"names = {SCRIPTS + MEASURE_SCRIPTS!r}\n"
         "mods = [importlib.import_module('dsp_tpu_torch.scripts.' + n) for n in names]\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'dsp_tpu'}))\n"
         "import torch\n"
         "for n, m in zip(names, mods):\n"
+        "    if n == 'roofline':\n"
+        "        continue\n"
         "    try:\n"
         "        m.main([])\n"
         "    except (AssertionError, RuntimeError) as e:\n"
