@@ -154,7 +154,7 @@ each of which raises on failure (non-zero exit):
              connected-digit recordings against a 10 x 10 bank, on the card
              and the CPU (events equal; kernel 1's launches, counted from 0,
              equal to the closed utterances; a chunk's time with and without
-             a classify); ``StreamingSpotter`` over 4 of the spotter phase's
+             a classify); ``StreamingSpotter`` over 2 of the spotter phase's
              streams (keywords zero-four x 20) against ``KeywordSpotter.spot``
              (kernel 3) by JAX's rule (tests/test_spotter.py:128-144: each
              stream at the midpoint of its best keyword score and its best
@@ -208,7 +208,7 @@ each of which raises on failure (non-zero exit):
              hmm_spotting_audio_seconds_per_sec (the clips' unpadded audio s,
              as bench_all.py's ``clens``, over the median of 3 synchronized
              ``scores`` passes) and one pass's device ops and device time
-             under ``torch.profiler``.  ``StreamingHmmSpotter`` over 4 of
+             under ``torch.profiler``.  ``StreamingHmmSpotter`` over 2 of
              phase spotter's streams against the card's offline spotter by
              JAX's rule (tests/test_spot_hmm.py:238-246: labels in order,
              spans within 2 frames, scores rtol 1e-3 / atol 2e-3), ms a
@@ -220,7 +220,7 @@ each of which raises on failure (non-zero exit):
              held against the plain scan (in slices under
              ``_COST_BUDGET_ELEMS``) by ``compare_spot`` at rtol 1e-4
              (identical BIG pattern, witnesses equal except at near-ties);
-             ``rescored`` on 8 streams against the CPU cascade (the plain
+             ``rescored`` on 4 streams against the CPU cascade (the plain
              scan on the CPU's own features): equal labels and spans,
              scores rtol 2e-4, except in streams whose stage-1 events differ
              between the devices or with a rerank near-tie (picks within
@@ -230,7 +230,7 @@ each of which raises on failure (non-zero exit):
              (``_candidates``: features, stage-1 scan, events, window cut;
              ``_rescore``: the rerank through kernel 3; suppression), with
              ``HmmSpotter.scores`` on the same streams timed alone beside
-             it.  ``StreamingCascadeSpotter`` over 4 streams, with that bank
+             it.  ``StreamingCascadeSpotter`` over 2 streams, with that bank
              and with one enrolled at ``add_deltas=False`` (where the JAX
              package's clamped readiness check reranks windows cut short):
              on every stream against the same spotter on the CPU (labels
@@ -258,17 +258,17 @@ each of which raises on failure (non-zero exit):
              whole ``classify_connected`` pass.  (b) ``method="level"``,
              ``max_levels=4``, ``word_penalty=0`` (no kernel may launch):
              ``level_build``'s planes on the card's features against the
-             CPU's DP on 8 of the recordings (costs rtol 1e-4 with the BIG
+             CPU's DP on 4 of the recordings (costs rtol 1e-4 with the BIG
              pattern equal; words and starts may differ only at sites whose
              costs agree, counted as near-ties; decoded sequences equal
              except where their costs lie within 1e-4), accuracy,
              level_building_words_per_sec_per_chip (``level_build`` on the
              recordings' features, median of 3), its device ops, device
              time and peak memory, and a whole pass.  (c) ``grammar=
-             Grammar.no_repeat(DIGITS)``: labels of 8 recordings equal to the
+             Grammar.no_repeat(DIGITS)``: labels of 4 recordings equal to the
              CPU's.  (d) a ``GmmHmmRecognizer`` fitted at the default
              ``HmmConfig`` (10 digits x 10): ``vad`` and ``level`` labels of
-             8 recordings equal to a CPU run on the same parameters, pass
+             4 recordings equal to a CPU run on the same parameters, pass
              seconds and accuracy.  (e) ``StreamingConnectedRecognizer`` over
              4 gapless 3-digit recordings in 100 ms chunks: events equal to
              the card's offline ``method="level"`` decode, no kernel
@@ -404,10 +404,11 @@ each of which raises on failure (non-zero exit):
              here join the kernel table's.
 20. measure — the measurement scripts (ROADMAP item 21b), in this
              process on the card, each once at the JAX script's defaults
-             with launch counts reset just before and read just after:
+             (but ``serve_latency``'s calls a row) with launch counts reset
+             just before and read just after:
              ``cascade_timing`` (35 keywords x 3 templates, 8 streams x 12
              words, 3 passes; kernel 3), ``serve_latency`` (bank 100,
-             batches 1, 8, 64, 50 calls a row, the four request modes;
+             batches 1, 8, 64, 20 calls a row, the four request modes;
              kernel 1; each batch's labels equal to one more
              ``classify_batch`` of the same signals), ``fe_profile`` (256
              queries x 100 templates, 6 stages; kernel 1 in ``dtw`` and
@@ -434,6 +435,33 @@ each of which raises on failure (non-zero exit):
              ``mb_spot_fused``'s rate.  Prints each script's
              lines, its wall seconds and launches; kernels 1, 3 and 4's
              launches here join the kernel table's.
+21. bench  — the port's benchmark entry points (ROADMAP item 8's
+             runners), in this process on the card, launch counts reset
+             just before each run and read just after.
+             ``bench.bench_body`` at its defaults (1024 queries x 100
+             templates, chunks of 256, 5 passes) and with
+             ``BENCH_SLOPE=itakura``: each prints its JSON line, launches
+             kernel 1 4 x (1 + 5) = 24 times and nothing else, and its
+             last chunk's labels equal the plain route's
+             (``DtwConfig(impl="scan")``) on the same features except at
+             near-ties (phase main's rule); ``python -m dsp_tpu_torch
+             bench`` through ``cli.main``: one line with the JAX keys, 24
+             launches.  Prints bench's rate beside phase main's 1024-query
+             pass (host signals through ``classify_batch``) and their ratio.
+             ``bench_all.main()`` at the JAX sizes: the eleven rows' lines
+             in the JAX order, each row's launches as counted from the
+             source (1 + passes x calls a pass of kernel 1 in configs 0, 1,
+             4 and ``connected``, of kernel 3 in ``spot``, none elsewhere).
+             Then each row at ``BENCH_ALL_CUT`` once on the card and once on
+             the CPU from the same host inputs: labels equal (configs 0, 1,
+             4, ``connected``, ``ltw``); config 2's MFCC at rtol/atol 1e-3;
+             config 3's log-liks at rtol 1e-4; level costs at
+             ``CONN_PLANE_RTOL`` with the BIG pattern equal; both spotting
+             rows by phase spot's tie-aware rule; ``spot-hmm`` by phase
+             cascade's, its LLR tolerance widened by four float32 spacings
+             of the stream's largest UBM prefix sum over the span (the
+             random UBM's sums reach 2.3e6 nats).  Kernels 1 and 3's
+             launches here join the kernel table's.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one); the main
@@ -442,7 +470,9 @@ after the checked one, and one 256-query chunk is broken into stages
 (pad + copy, features, DTW + argmin, copy back).  Each kernel's bound is
 the larger of its fp32 operations over 67 TFLOP/s and its bytes (inputs
 read once, outputs written once) over 3.35 TB/s, counted from this run's
-inputs and only the cells inside their lengths (and band).  The last two
+inputs and only the cells inside their lengths (and band).  Each phase
+prints its wall seconds as it ends, and all of them before the kernel
+table.  The last two
 lines of stdout are the kernel table and the run's result, each one JSON
 object; the lines before them are ``nvidia-smi``'s
 name and power limit.
@@ -538,7 +568,10 @@ STREAM_CHECK_CHUNKS = 10    # of them held against single streams and the CPU
 STREAM_REPS = 50            # synchronized single-chunk calls timed
 STREAM_RECOGNIZER_WORDS = [["one", "seven", "three"], ["four", "zero", "nine", "two"],
                            ["eight", "five", "six"], ["two", "one", "nine", "four"]]
-STREAM_SPOTTER_STREAMS = 4
+STREAM_SPOTTER_STREAMS = 2  # fed chunk by chunk in phases streaming and cascade (4 until
+                            # phase bench took the whole script past 750 s on an H100
+                            # 80GB HBM3 at 700 W, where these feeds took two thirds
+                            # of both phases under cProfile)
 # phase hmm (BASELINE config 3): default HmmConfig (S = 5, M = 3, 10 EM
 # iterations), 10 digits x 10 training utterances, bench_all.py:96's 256
 # queries (synth_word(DIGITS[i % 10], 1000 + i)) and OOV_WORDS x 32
@@ -564,12 +597,19 @@ HMM_SPOT_SAMPLES = 96_000
 # ~1e-4.  Measured by this phase on an H100 (700 W): max abs err 2.9e-3
 # (8.1e-4 relative at the worst site), no witness flip in 382,720 sites
 HMM_SPOT_LLR_TOL = dict(rtol=1e-3, atol=1e-2)
+# where a stream's UBM prefix sums are large (bench_all's random UBM: 2.3e6
+# nats over 598 frames, float32 spacing 0.25), an LLR's float32 rounding is
+# up to about one spacing over its span: measured on the CPU against
+# float64, 0.98 spacings; two float32 devices, four
+HMM_SPOT_PREFIX_ULPS = 4
 # the LLR floor of the event comparisons (tests/test_spot_hmm.py:223's): at
 # the default 0.0 this model's LLRs, which a 3-mixture UBM beats on most
 # frames, give one event in 16 streams
 HMM_SPOT_THRESHOLD = -30.0
-CASCADE_CPU_STREAMS = 8     # of phase spotter's 64 streams, against the CPU cascade:
+CASCADE_CPU_STREAMS = 4     # of phase spotter's 64 streams, against the CPU cascade:
                             # its plain scan of the rerank windows takes seconds a stream
+                            # (8 until phase bench took the whole script past
+                            # 750 s on an H100 80GB HBM3 at 700 W)
 CASCADE_PASSES = 3
 # phase connected (ROADMAP item 13) at bench_all.py:167-214's cells: 64
 # recordings of 3 connected digits (synth_connected([DIGITS[(i + j) % 10]
@@ -579,8 +619,10 @@ CONN_RECORDINGS = 64
 CONN_WORDS = 3
 CONN_SAMPLES = 96_000
 CONN_MAX_SEGMENTS = 4
-CONN_CPU_RECORDINGS = 8     # of them against CPU runs of the port: its DP
-                            # loops take seconds a level there
+CONN_CPU_RECORDINGS = 4     # of them against CPU runs of the port: its DP
+                            # loops take seconds a level there (8 until phase
+                            # bench took the whole script past 750 s on an H100
+                            # 80GB HBM3 at 700 W)
 CONN_PASSES = 3
 CONN_STREAMS = 4            # gapless recordings through StreamingConnectedRecognizer
 CONN_PROFILED_CHUNK = 5     # the chunk of stream 0 run under the profiler (speech)
@@ -642,11 +684,21 @@ TOOLS_SC2_FILES = (10, 3, 3)      # a word: train, validation, test clips
 # cut on the card and under --device cpu
 MEASURE_CASCADE_CUT = ["--keywords", "3", "--templates", "2", "--streams", "2",
                        "--words-per-stream", "3", "--passes", "1"]
+MEASURE_SERVE_CALLS = 20      # serve_latency's calls a row (the JAX default 50, cut
+                              # to keep the whole script under ~750 s on an H100
+                              # 80GB HBM3 at 700 W with phase bench)
 MEASURE_SERVE_BANK = 10       # serve_latency.build's bank at the cut
 MEASURE_SERVE_BATCH = 8       # its batch of requests held to the CPU's
 MEASURE_THR_TOL = dict(rtol=1e-3, atol=1e-2)   # kNN thresholds (tests' THR_TOL["knn"])
 MEASURE_TRACED_STAGES = ("fe", "dtw", "full")  # fe_profile's stages under the profiler
 MEASURE_CHILD_TIMEOUT_S = 300   # the process that profiles them
+BENCH_LAUNCHES = 4 * (1 + 5)    # bench.py: 1024 / 256 chunks x (warm-up + 5 passes)
+BENCH_ALL_CUT = dict(batch=8, templates_per_word=2, clips=4, sc2_per_word=1)   # vs the CPU
+BENCH_ROW_KERNELS = {0: "dtw_banded", 1: "dtw_banded", 4: "dtw_banded",
+                     "connected": "dtw_banded", "spot": "spot_subseq"}
+BENCH_LABEL_ROWS = (0, 1, 4, "connected", "ltw")
+BENCH_MFCC_TOL = dict(rtol=1e-3, atol=1e-3)    # the streaming front end (phase streaming)
+BENCH_SCORE_RTOL = 1e-4     # score_words, each device on its own features (test_torch_gmm_hmm)
 
 
 def fail(msg: str):
@@ -1883,12 +1935,30 @@ def compare_hmm_fields(spotter, host, sigs, what: str):
             x, n, sp_.cfg, 1 + (HMM_SPOT_SAMPLES - f.frame_len) // f.hop_len)
         ubm_ll = tsh._ubm_loglik(feats.feats, sp_.rec.ubm).cpu().numpy()
         fields.append((llr, start, hmm_raw_scores(llr, start, ubm_ll)))
-    (gl, gs, gv), (wl, ws, wv) = fields
+    stats = hmm_fields_gap(*fields, what)
+    (gl, gs, _), (_, ws, _) = fields
+    return (gl, gs), stats, set(np.nonzero((gs != ws).any(axis=(1, 2)))[0].tolist())
+
+
+def hmm_fields_gap(got, want, what: str, prefix_ulp=None) -> dict:
+    """Two (LLR, start, best-path log-lik) fields [B, W, U] (numpy) by
+    :func:`compare_hmm_fields`' rule; returns its stats.  ``prefix_ulp``
+    [B], where given, adds ``HMM_SPOT_PREFIX_ULPS`` float32 spacings of a
+    stream's largest UBM prefix sum over the span to the LLR tolerance: the
+    readout subtracts two such sums, so float32 rounds an LLR by that much
+    on either device."""
+    import numpy as np
+
+    (gl, gs, gv), (wl, ws, wv) = got, want
     if gl.shape != wl.shape or not np.isfinite(gl).all():
         fail(f"{what}: LLR fields {gl.shape} vs {wl.shape}, finite {np.isfinite(gl).all()}")
     agree, flip = gs == ws, gs != ws
     err = np.abs(gl - wl)[agree]
     tol = HMM_SPOT_LLR_TOL["atol"] + HMM_SPOT_LLR_TOL["rtol"] * np.abs(wl[agree])
+    if prefix_ulp is not None:
+        span = np.arange(wl.shape[-1]) - ws + 1
+        rounding = HMM_SPOT_PREFIX_ULPS * prefix_ulp[:, None, None] / span
+        tol = tol + rounding[agree]
     if (err > tol).any():
         fail(f"{what}: LLRs differ where the witnesses agree: max abs err {err.max():.3e}")
     raw_rel = np.abs(gv - wv)[flip] / np.abs(wv[flip])
@@ -1899,11 +1969,10 @@ def compare_hmm_fields(spotter, host, sigs, what: str):
     if share >= 1e-3:
         fail(f"{what}: witnesses differ at {share:.2e} of the sites (>= 0.1%)")
     rel = err / np.maximum(np.abs(wl[agree]), 1e-30)
-    stats = dict(n_sites=int(flip.size), max_abs_err=float(err.max()),
-                 max_rel_err=float(rel.max()), witness_flips=int(flip.sum()),
-                 flip_share=share,
-                 max_raw_rel_at_flips=float(raw_rel.max()) if raw_rel.size else 0.0)
-    return (gl, gs), stats, set(np.nonzero(flip.any(axis=(1, 2)))[0].tolist())
+    return dict(n_sites=int(flip.size), max_abs_err=float(err.max()),
+                max_rel_err=float(rel.max()), witness_flips=int(flip.sum()),
+                flip_share=share,
+                max_raw_rel_at_flips=float(raw_rel.max()) if raw_rel.size else 0.0)
 
 
 def same_hmm_events(got, want) -> bool:
@@ -3758,7 +3827,8 @@ def measure_phase(dev, report) -> dict:
     # serve_latency: kernel 1; the timed calls' labels against one more
     # classify_batch of the same signals, and at the cut build()'s
     # recognizer and request modes against the CPU's
-    serve = card("serve_latency", lambda: serve_latency.main([]))
+    serve = card("serve_latency",
+                 lambda: serve_latency.main(["--calls", str(MEASURE_SERVE_CALLS)]))
     rec = serve["recognizer"]
     for b, row in serve["batches"].items():
         again = rec.classify_batch(serve_latency.batch_signals(b, rec.cfg.max_samples))
@@ -3876,6 +3946,181 @@ def measure_phase(dev, report) -> dict:
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     out.update(summary, cascade_cut=cascade_cut, seconds=seconds, launches_by_run=launches,
                launches=counted, text=text, phase_seconds=time.perf_counter() - t_phase)
+    return counted
+
+
+def bench_row_gap(config, card_row, cpu_row, got, want) -> dict:
+    """One ``bench_all`` row's output on the card against the CPU's at the
+    CPU tests' tolerances; returns the measured gap (RuntimeError past it)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.ops import spot_hmm as tsh
+    from dsp_tpu_torch.scripts import compare_spot
+
+    what = f"bench_all {config} at the cut"
+    if config in BENCH_LABEL_ROWS:
+        if not torch.equal(got.cpu(), want):
+            fail(f"{what}: labels {got.tolist()} on the card, {want.tolist()} on the CPU")
+        return {"labels_equal": True}
+    if config in (2, 3):
+        tol = BENCH_MFCC_TOL if config == 2 else dict(rtol=BENCH_SCORE_RTOL, atol=0.0)
+        g, w = got.cpu().numpy(), want.numpy()
+        if g.shape != w.shape or not np.allclose(g, w, **tol):
+            fail(f"{what}: {g.shape} vs {w.shape}, max abs err {np.abs(g - w).max():.3e}")
+        return {"max_abs_err": float(np.abs(g - w).max()),
+                "max_rel_err": float((np.abs(g - w) / np.maximum(np.abs(w), 1e-30)).max())}
+    lens = [r.args[1].cpu() for r in (card_row, cpu_row)]
+    if not torch.equal(*lens):
+        fail(f"{what}: the VAD's frame counts differ: {lens[0].tolist()} vs {lens[1].tolist()}")
+    if config == "connected-level":
+        g, w = got.cpu().numpy(), want.numpy()
+        fin = w < 1e20
+        if ((g < 1e20) != fin).any() or not np.allclose(g[fin], w[fin], rtol=CONN_PLANE_RTOL,
+                                                       atol=0.0):
+            fail(f"{what}: level costs differ past rtol {CONN_PLANE_RTOL}")
+        return {"max_rel_err": float((np.abs(g - w)[fin] / np.abs(w[fin])).max())}
+    if config in ("spot", "spot-scan"):
+        return compare_spot(tuple(a.cpu().numpy() for a in got),
+                            tuple(a.numpy() for a in want), lens[1].numpy(),
+                            cpu_row.args[3].numpy(), what)
+    fields = []
+    for (llr, start), row in ((got, card_row), (want, cpu_row)):
+        feats, _, _, ubm = row.args
+        llr, start = llr.cpu().numpy(), start.cpu().numpy()
+        ubm_ll = tsh._ubm_loglik(feats, ubm).cpu().numpy()
+        fields.append((llr, start, hmm_raw_scores(llr, start, ubm_ll)))
+    prefix = np.abs(np.cumsum(ubm_ll.astype(np.float64), axis=1)).max(axis=1)
+    return hmm_fields_gap(*fields, what,
+                          prefix_ulp=np.spacing(prefix.astype(np.float32)).astype(np.float64))
+
+
+def bench_phase(dev, report) -> dict:
+    """Phase bench: the port's benchmark entry points on the card.
+    ``bench.bench_body`` at its defaults and with ``BENCH_SLOPE=itakura``
+    (the last chunk's labels against the plain route's), ``python -m
+    dsp_tpu_torch bench`` through ``cli.main``, and ``bench_all.main()``
+    (every row, launches counted a row), then each ``bench_all`` row at
+    ``BENCH_ALL_CUT`` against the CPU; returns the counted launches of
+    kernels 1 and 3."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from dsp_tpu_torch import bench, bench_all, cli
+    from dsp_tpu_torch import pipeline as tpl
+    from dsp_tpu_torch.kernels import _build
+
+    out = report["bench"]
+    smi = "; ".join(report["nvidia_smi"])
+    t_phase = time.perf_counter()
+    counted = dict.fromkeys(("dtw_banded", "spot_subseq"), 0)
+    launches, seconds = {}, {}
+
+    def card(name, fn):
+        """``fn()`` on the card, its launches counted from 0 and its wall
+        time kept as ``name``."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: n for k, n in _build.LAUNCHES.items() if n}
+        for k in counted:
+            counted[k] += launches[name].get(k, 0)
+        return res
+
+    # bench.py: every pass's chunks are on the card before its timer starts
+    results = {}
+    for name, slope in (("default", ""), ("itakura", "itakura")):
+        keep = {}
+        os.environ["BENCH_SLOPE"] = slope
+        try:
+            results[name] = card(f"bench_{name}", lambda: bench.bench_body(dev, keep))
+        finally:
+            os.environ.pop("BENCH_SLOPE")
+        print(json.dumps(results[name]), flush=True)
+        cfg = keep["cfg"]
+        plain = dataclasses.replace(cfg, dtw=dataclasses.replace(cfg.dtw, impl="scan"))
+        p_labels, p_dists = tpl.recognize_batch(keep["chunk"], keep["n_samples"], keep["bank"],
+                                                keep["ids"], plain)
+        diff = (keep["labels"] != p_labels).cpu().numpy()
+        ties = near_ties(p_dists.cpu().numpy())
+        if (diff & ~ties).any() or launches[f"bench_{name}"] != {"dtw_banded": BENCH_LAUNCHES}:
+            fail(f"bench {name}: {int((diff & ~ties).sum())} labels of the last chunk part "
+                 f"from the plain route's outside near-ties; launches "
+                 f"{launches[f'bench_{name}']}, expected {BENCH_LAUNCHES} of dtw_banded")
+        out[name] = dict(results[name], label_mismatches_at_near_ties=int(diff.sum()),
+                         pass_seconds=keep["pass_seconds"])
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        card("cli_bench", lambda: cli.main(["bench"]))
+    print(buf.getvalue(), end="", flush=True)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    cli_line = json.loads(lines[0]) if len(lines) == 1 else {}
+    if list(cli_line) != list(results["default"]) or \
+            launches["cli_bench"] != {"dtw_banded": BENCH_LAUNCHES}:
+        fail(f"bench through the CLI: {lines}, launches {launches['cli_bench']}")
+    out["cli"] = cli_line
+    main_rate = report["main"]["default"]["alignments_per_s"]
+    for name, line in (("bench", results["default"]), ("cli bench", cli_line)):
+        print(f"bench: {name} {line['value']} alignments/s (median of {line['passes']}, "
+              f"chunks already on the card) against phase main's 1024-query pass "
+              f"{main_rate:.1f} (classify_batch from host signals): ratio "
+              f"{line['value'] / main_rate:.3f}", flush=True)
+    out["main_pass_alignments_per_s"] = main_rate
+
+    # bench_all: main() as a user runs it, each row's launches counted
+    rows_run = {}
+    timed = bench_all.timed
+
+    def counted_timed(row, passes):
+        config = row.meta["config"]
+        line = card(f"bench_all {config}", lambda: timed(row, passes))
+        rows_run[config] = 1 + passes * row.n_iters
+        return line
+
+    bench_all.timed = counted_timed
+    try:
+        all_lines = bench_all.main()
+    finally:
+        bench_all.timed = timed
+    if [ln["config"] for ln in all_lines] != list(rows_run) or len(rows_run) != 11:
+        fail(f"bench_all printed rows {[ln['config'] for ln in all_lines]}")
+    for config, calls in rows_run.items():
+        kernel = BENCH_ROW_KERNELS.get(config)
+        want = {kernel: calls} if kernel else {}
+        if launches[f"bench_all {config}"] != want:
+            fail(f"bench_all {config}: launches {launches[f'bench_all {config}']}, "
+                 f"expected {want}")
+    out["bench_all"] = all_lines
+
+    # each row once at the cut, the card against the CPU
+    gaps = {}
+    for card_row, cpu_row in zip(bench_all.rows(dev, **BENCH_ALL_CUT),
+                                 bench_all.rows("cpu", **BENCH_ALL_CUT)):
+        config = card_row.meta["config"]
+        got = card(f"cut {config}", lambda: card_row.step(*card_row.args))
+        kernel = BENCH_ROW_KERNELS.get(config)
+        if launches[f"cut {config}"] != ({kernel: 1} if kernel else {}):
+            fail(f"bench_all {config} at the cut: launches {launches[f'cut {config}']}")
+        gaps[config] = bench_row_gap(config, card_row, cpu_row, got,
+                                     cpu_row.step(*cpu_row.args))
+    out["cut_against_cpu"] = gaps
+    print(f"bench checks: labels of the last chunk as the plain route's (near-ties "
+          f"{out['default']['label_mismatches_at_near_ties']} / "
+          f"{out['itakura']['label_mismatches_at_near_ties']}); bench_all at "
+          f"{BENCH_ALL_CUT} against the CPU: {gaps}", flush=True)
+    print(f"bench wall s on {smi}: " + "  ".join(f"{k} {v:.3f}" for k, v in seconds.items()),
+          flush=True)
+    print(f"bench launches: {launches}; total {counted}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out.update(seconds=seconds, launches_by_run=launches, launches=counted,
+               phase_seconds=time.perf_counter() - t_phase)
     return counted
 
 
@@ -4449,36 +4694,50 @@ def main() -> int:
               "fused": {}, "wavefront": {}, "matchers": {}, "mb_wavefront": {},
               "streaming": {}, "hmm": {}, "cascade": {}, "connected": {},
               "remainder": {}, "mesh": {}, "cli": {}, "tools": {}, "measure": {},
-              "nvidia_smi": smi}
+              "bench": {}, "nvidia_smi": smi, "phase_seconds": {}}
+
+    def run(name, fn, *phase_args):
+        """One phase, its wall seconds printed and kept."""
+        t_run = time.perf_counter()
+        res = fn(*phase_args)
+        report["phase_seconds"][name] = time.perf_counter() - t_run
+        print(f"phase {name}: {report['phase_seconds'][name]:.1f} s", flush=True)
+        return res
+
     rng = np.random.default_rng(args.seed)
-    dtw_phase(rng, np.random.default_rng([args.seed, 1]), dev, report)
-    mfcc_phase(dev, report)
-    small_phase(rng, dev, report)
-    launches = main_phase(dev, report)
-    spot_phase(rng, np.random.default_rng([args.seed, 3]), dev, report)
-    launches["spot_subseq"] = spotter_phase(args.seed, dev, report)
-    fused_phase(rng, np.random.default_rng([args.seed, 2]), dev, report)
-    wavefront_phase(rng, dev, report)
-    routes = matchers_phase(dev, report)
+    run("dtw", dtw_phase, rng, np.random.default_rng([args.seed, 1]), dev, report)
+    run("mfcc", mfcc_phase, dev, report)
+    run("small", small_phase, rng, dev, report)
+    launches = run("main", main_phase, dev, report)
+    run("spot", spot_phase, rng, np.random.default_rng([args.seed, 3]), dev, report)
+    launches["spot_subseq"] = run("spotter", spotter_phase, args.seed, dev, report)
+    run("fused", fused_phase, rng, np.random.default_rng([args.seed, 2]), dev, report)
+    run("wavefront", wavefront_phase, rng, dev, report)
+    routes = run("matchers", matchers_phase, dev, report)
     launches["dtw_fused"] = routes["fused"]["dtw_fused"]
     launches["dtw_wavefront"] = routes["pallas"]["dtw_wavefront"]
-    launches.update(mb_wavefront_phase(args.seed, dev, report))
-    report["streaming"]["launches"] = streaming_phase(args.seed, dev, report)
-    report["hmm"]["launches"] = {"mfcc_fused": hmm_phase(args.seed, dev, report)}
-    report["cascade"]["launches"] = {"spot_subseq": cascade_phase(args.seed, dev, report)}
+    launches.update(run("mb_wavefront", mb_wavefront_phase, args.seed, dev, report))
+    report["streaming"]["launches"] = run("streaming", streaming_phase, args.seed, dev, report)
+    report["hmm"]["launches"] = {"mfcc_fused": run("hmm", hmm_phase, args.seed, dev, report)}
+    report["cascade"]["launches"] = {
+        "spot_subseq": run("cascade", cascade_phase, args.seed, dev, report)}
     launches["spot_subseq"] += report["cascade"]["launches"]["spot_subseq"]
-    report["connected"]["launches"] = {"dtw_banded": connected_phase(args.seed, dev, report)}
+    report["connected"]["launches"] = {
+        "dtw_banded": run("connected", connected_phase, args.seed, dev, report)}
     launches["dtw_banded"] += report["connected"]["launches"]["dtw_banded"]
-    report["remainder"]["launches"] = {"dtw_banded": remainder_phase(args.seed, dev, report)}
+    report["remainder"]["launches"] = {
+        "dtw_banded": run("remainder", remainder_phase, args.seed, dev, report)}
     launches["dtw_banded"] += report["remainder"]["launches"]["dtw_banded"]
-    for name, n in mesh_phase(args.seed, dev, report).items():
-        launches[name] += n
-    for name, n in cli_phase(dev, report).items():
-        launches[name] += n
-    for name, n in tools_phase(dev, report).items():
-        launches[name] += n
-    for name, n in measure_phase(dev, report).items():
-        launches[name] += n
+    for phase, fn in (("mesh", lambda: mesh_phase(args.seed, dev, report)),
+                      ("cli", lambda: cli_phase(dev, report)),
+                      ("tools", lambda: tools_phase(dev, report)),
+                      ("measure", lambda: measure_phase(dev, report)),
+                      ("bench", lambda: bench_phase(dev, report))):
+        for name, n in run(phase, fn).items():
+            launches[name] += n
+    print("phase seconds: " + "  ".join(f"{k} {v:.1f}"
+                                        for k, v in report["phase_seconds"].items())
+          + f"; total {sum(report['phase_seconds'].values()):.1f}", flush=True)
     if {m.split(".")[0] for m in sys.modules} & {"jax", "dsp_tpu"}:
         fail("the port imported jax or dsp_tpu")
 

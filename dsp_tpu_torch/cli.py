@@ -17,6 +17,7 @@ Speech Commands evaluation, the pipeline picture and the streaming demo:
     python -m dsp_tpu_torch evaluate-hmm --corpus data/test --model hmm.npz
     python -m dsp_tpu_torch train-vq    --corpus data/train --model vq.npz
     python -m dsp_tpu_torch evaluate-vq --corpus data/test --model vq.npz
+    python -m dsp_tpu_torch bench
     python -m dsp_tpu_torch evaluate-sc2 --root speech_commands_v2/
     python -m dsp_tpu_torch plot        --word three --bank bank.npz --out p.png
     python -m dsp_tpu_torch demo        --bank bank.npz [--wav stream.wav]
@@ -26,9 +27,11 @@ runs it on the CPU instead.  Without a card the default raises, as every
 entry point of the port does.  Banks and models are the JAX package's
 ``.npz`` files, so either CLI reads what the other wrote.  Every flag maps
 1:1 onto a config dataclass field; defaults are the classical values
-(16 kHz, 25 ms/10 ms, 13 MFCC, lifter 22).  Two subcommands of the JAX
-CLI stay out: ``bench`` waits for the port's own benchmark, and ``warm``
-fills the TPU's compilation cache, which the port does not have.
+(16 kHz, 25 ms/10 ms, 13 MFCC, lifter 22).  ``bench`` runs
+``dsp_tpu_torch.bench`` (its ``BENCH_*`` knobs) on ``--device``: ``--device
+cpu bench`` is ``BENCH_PLATFORM=cpu``.  One subcommand of the JAX CLI stays
+out: ``warm`` fills the TPU's compilation cache, which the port does not
+have.
 """
 
 from __future__ import annotations
@@ -739,6 +742,12 @@ def cmd_evaluate_vq(args):
         m.dump(args.metrics_out)
 
 
+def cmd_bench(args):
+    """The headline benchmark (``dsp_tpu_torch.bench``) on ``--device``."""
+    from dsp_tpu_torch import bench
+    bench.main(device=args.device)
+
+
 def cmd_evaluate_sc2(args):
     """Speech Commands v2 35-class kNN-DTW over a local checkout (config
     4): the bank sharded over the ranks of a torchrun world (one process a
@@ -1174,6 +1183,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", required=True)
     _add_common(p)
     p.set_defaults(fn=cmd_evaluate_vq)
+
+    p = sub.add_parser("bench", help="run the headline throughput benchmark")
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("evaluate-sc2",
                        help="Speech Commands v2 kNN-DTW eval (local dataset)")

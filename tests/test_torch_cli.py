@@ -49,7 +49,7 @@ from test_torch_io import sc2_root  # noqa: F401  (the tiny Speech Commands layo
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBCOMMANDS = ["make-corpus", "enroll", "recognize", "evaluate", "evaluate-connected",
                "spot", "evaluate-spot", "serve", "train-hmm", "evaluate-hmm", "train-vq",
-               "evaluate-vq", "evaluate-sc2", "plot", "demo"]
+               "evaluate-vq", "bench", "evaluate-sc2", "plot", "demo"]
 HMM_ARGS = ["--states", "3", "--mix", "2", "--iters", "3"]
 CORPUS_ARGS = ["--n", "2", "--words", "3", "--connected", "3", "--spotting", "2"]
 # printed scores and distances: the packages' float32 sums round apart
@@ -705,7 +705,7 @@ def test_help_lists_the_ported_subcommands_and_imports_no_jax():
         "line = next(ln for ln in r.stdout.splitlines() if ln.strip().startswith('{'))\n"
         "print(line.strip())\n"
         "import dsp_tpu_torch.cli, dsp_tpu_torch.io.native, dsp_tpu_torch.utils.profiling\n"
-        "import dsp_tpu_torch.viz\n"
+        "import dsp_tpu_torch.viz, dsp_tpu_torch.bench, dsp_tpu_torch.bench_all\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'dsp_tpu'}))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=120,
