@@ -363,7 +363,15 @@ each of which raises on failure (non-zero exit):
              decimals); the native batch reader equal to ``read_wav`` on
              every file of the corpus (or, without g++, the Python reader
              alone); and ``utils.profiling.trace`` around one ``evaluate``,
-             whose Chrome trace must name the ``dtw_banded`` kernel.
+             whose Chrome trace must name the ``dtw_banded`` kernel.  Then
+             ``python -m dsp_tpu_torch warm --connected 1 --stages`` in a
+             process of its own with the kernel library moved out of
+             ``build/`` (a fresh checkout's state): it must build the
+             library and print the JAX CLI's lines (batches 1 and 256,
+             the connected length, the stage shape, the library named
+             last); then a fresh process's ``recognize`` of one test file
+             must load that library without building, launch kernel 1
+             once and give the label of this process's ``recognize``.
              Prints each subcommand's wall seconds (``StageTimer``: card
              runs, synchronized) with the card's name and power limit;
              kernels 1, 3, 4 and 5's launches here join the kernel table's.
@@ -448,6 +456,15 @@ each of which raises on failure (non-zero exit):
              bench`` through ``cli.main``: one line with the JAX keys, 24
              launches.  Prints bench's rate beside phase main's 1024-query
              pass (host signals through ``classify_batch``) and their ratio.
+             Then one chunk of ``recognize_batch`` under
+             ``torch.cuda.set_sync_debug_mode("error")``, and
+             ``bench_body`` under ``BENCH_DISPATCH=single``: the warm-up,
+             then one capture of the four chunks' ``recognize_batch`` into
+             one CUDA graph, which must count 4 launches of kernel 1 (a
+             replay passes through no wrapper, so the run counts 4 + 4),
+             and a replay a pass; the last chunk's labels and distances
+             must equal the default run's bit for bit (the same kernels in
+             the same order).  Prints both rates and their ratio.
              ``bench_all.main()`` at the JAX sizes: the eleven rows' lines
              in the JAX order, each row's launches as counted from the
              source (1 + passes x calls a pass of kernel 1 in configs 0, 1,
@@ -464,7 +481,8 @@ each of which raises on failure (non-zero exit):
              launches here join the kernel table's.
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
-plain versions' first timed run follows their checked one); the main
+plain versions' first timed run follows their checked one, and in phases
+dtw and spot their medians are of ``PLAIN_REPS`` = 3 runs); the main
 path's alignments/s is the median of 3 synchronized host-clock passes
 after the checked one, and one 256-query chunk is broken into stages
 (pad + copy, features, DTW + argmin, copy back).  Each kernel's bound is
@@ -472,7 +490,11 @@ the larger of its fp32 operations over 67 TFLOP/s and its bytes (inputs
 read once, outputs written once) over 3.35 TB/s, counted from this run's
 inputs and only the cells inside their lengths (and band).  Each phase
 prints its wall seconds as it ends, and all of them before the kernel
-table.  The last two
+table.  A kernel's ``launches`` in the table counts its wrapper's calls
+in the phases' counted runs; the CUDA graph of phase bench's
+``BENCH_DISPATCH=single`` run launches kernel 1 at each replay without a
+wrapper call, so those launches are not in it (the line before the
+table gives them).  The last two
 lines of stdout are the kernel table and the run's result, each one JSON
 object; the lines before them are ``nvidia-smi``'s
 name and power limit.
@@ -491,6 +513,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 REPS = 5
+PLAIN_REPS = 3             # the plain versions' timed runs in phases dtw and spot (at
+                           # REPS they took ~60 s of the two phases' 103 s)
 # (name, DtwConfig overrides, (B, K, T, U)); F = 39 throughout
 DTW_CASES = [
     ("default", {}, (256, 100, 198, 198)),
@@ -650,6 +674,7 @@ MESH_HMM_QUERIES = 256
 MESH_STREAMS = 64
 MESH_STREAM_CHUNKS = 10
 CLI_SPOTTING = 4            # phase cli: make-corpus --spotting / --connected
+CLI_CHILD_TIMEOUT_S = 300   # phase cli: warm, and a fresh recognize after it
 CLI_CONNECTED = 8
 # phase tools: the evaluation scripts at tests/test_torch_scripts.py's cut
 # (a 3-word vocabulary where a script allows it, corpora capped at 2
@@ -693,6 +718,7 @@ MEASURE_THR_TOL = dict(rtol=1e-3, atol=1e-2)   # kNN thresholds (tests' THR_TOL[
 MEASURE_TRACED_STAGES = ("fe", "dtw", "full")  # fe_profile's stages under the profiler
 MEASURE_CHILD_TIMEOUT_S = 300   # the process that profiles them
 BENCH_LAUNCHES = 4 * (1 + 5)    # bench.py: 1024 / 256 chunks x (warm-up + 5 passes)
+BENCH_CAPTURED = 4              # BENCH_DISPATCH=single: one capture of the 4 chunks
 BENCH_ALL_CUT = dict(batch=8, templates_per_word=2, clips=4, sc2_per_word=1)   # vs the CPU
 BENCH_ROW_KERNELS = {0: "dtw_banded", 1: "dtw_banded", 4: "dtw_banded",
                      "connected": "dtw_banded", "spot": "spot_subseq"}
@@ -746,7 +772,7 @@ def dtw_phase(rng, long_rng, dev, report):
         rel, abs_err, fin = compare_dtw(got, want, 1e-4)
         ms = time_ms(lambda: kdtw.dtw_batch_fused_banded(q, ql, bk, bl, cfg))
         plain_ms = time_ms(lambda: kdtw.dtw_batch_plain(q, ql, bk, bl, cfg),
-                           warmup=False)
+                           PLAIN_REPS, warmup=False)
         # cells the DP must visit for these inputs: in length, band, window
         # (masked_cost leaves rows past la valid where there is no band)
         rows = torch.arange(t, device=dev)[None, None, :, None]
@@ -1178,7 +1204,7 @@ def spot_phase(rng, long_rng, dev, report):
             cmp = compare_spot([x.cpu().numpy() for x in got],
                                [x.cpu().numpy() for x in want], sl, tl, f"spot {key}")
             plain_ms = time_ms(lambda: ksp.subseq_dtw_batch_plain(*args, squared=squared),
-                               warmup=False)
+                               PLAIN_REPS, warmup=False)
             ms = time_ms(lambda: ksp.subseq_dtw_fused(*args, squared=squared))
             # per cell: a F-long dot product (2F) and the DP's adds and min
             b_ms, b_by = bound(cells * (2 * f + 3),
@@ -1216,7 +1242,8 @@ def spot_phase(rng, long_rng, dev, report):
                            [x.cpu().numpy() for x in ksp.subseq_dtw_batch_plain(*args)],
                            sl, bl, f"spot {name}")
         ms = time_ms(lambda: ksp.subseq_dtw_fused(*args))
-        plain_ms = time_ms(lambda: ksp.subseq_dtw_batch_plain(*args))
+        plain_ms = time_ms(lambda: ksp.subseq_dtw_batch_plain(*args), PLAIN_REPS,
+                           warmup=False)     # the check above ran it
         cells = int(np.sum(sl.astype(np.int64)[:, None] * bl[None, :]))
         b_ms, b_by = bound(cells * (2 * f + 3),
                            4 * ((b * u + k * t) * f + b + k) + 8 * b * k * u)
@@ -3215,7 +3242,8 @@ def mesh_phase(seed: int, dev, report) -> dict:
 def cli_phase(dev, report) -> dict:
     """Phase cli: ``python -m dsp_tpu_torch``'s subcommands (ROADMAP items
     16a and 20) run in-process at the default device (the card), each held
-    against ``--device cpu``; returns the counted launches of its kernels."""
+    against ``--device cpu``, then ``warm`` and a later ``recognize`` in
+    processes of their own; returns the counted launches of its kernels."""
     import contextlib
     import io
     import os
@@ -3432,6 +3460,48 @@ def cli_phase(dev, report) -> dict:
         kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
         if not any("dtw_banded" in k for k in kernels):
             fail(f"cli trace: no dtw_banded kernel among {kernels[:20]}")
+
+        # warm on a checkout whose kernel library is gone, then a fresh
+        # process's recognize: it must load what warm built
+        lib_path = _build.library_path()
+        aside = lib_path.with_name(lib_path.name + ".aside")
+        os.replace(lib_path, aside)
+        try:
+            t0 = time.perf_counter()
+            w = subprocess.run([sys.executable, "-m", "dsp_tpu_torch", "warm", "--connected",
+                                "1", "--stages"], cwd=ROOT, capture_output=True, text=True,
+                               timeout=CLI_CHILD_TIMEOUT_S)
+            warm_s = time.perf_counter() - t0
+        finally:
+            if lib_path.exists():
+                aside.unlink()
+            else:
+                os.replace(aside, lib_path)
+        print(w.stdout, end="", flush=True)
+        warm_lines = w.stdout.strip().splitlines()
+        heads = [" ".join(ln.split()[:2]) for ln in warm_lines]
+        if w.returncode != 0 or heads != ["warm: kernels", "warm: batch=1", "warm: batch=256",
+                                          "warm: connected+spot", "warm: fe-profile",
+                                          "warm: done"] or \
+                "built in" not in warm_lines[0] or str(lib_path) not in warm_lines[-1]:
+            fail(f"cli warm: rc {w.returncode}, stdout {warm_lines}, stderr {w.stderr[-2000:]}")
+        code = ("import sys\nfrom dsp_tpu_torch import cli\n"
+                "from dsp_tpu_torch.kernels import _build\ncli.main(sys.argv[1:])\n"
+                "print('build_seconds', _build.build_seconds, 'dtw_banded', "
+                "_build.LAUNCHES['dtw_banded'])\n")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code, "recognize", "--bank", bank,
+                            test_wavs[0]], cwd=ROOT, capture_output=True, text=True,
+                           timeout=CLI_CHILD_TIMEOUT_S)
+        fresh_s = time.perf_counter() - t0
+        fresh = r.stdout.strip().splitlines()
+        if r.returncode != 0 or fresh[-1:] != ["build_seconds None dtw_banded 1"] or \
+                [cells(ln)[0][1] for ln in fresh[:1]] != rec_card[:1]:
+            fail(f"cli: a fresh recognize after warm: rc {r.returncode}, stdout {fresh}, "
+                 f"stderr {r.stderr[-2000:]}")
+        print(f"cli warm: {warm_s:.1f} s in its process ({warm_lines[0]}); a fresh "
+              f"recognize after it {fresh_s:.1f} s, no build", flush=True)
+        out["warm"] = dict(lines=warm_lines, seconds=warm_s, fresh_recognize_seconds=fresh_s)
 
     times = timer.report()
     for k, n in counted.items():
@@ -3999,10 +4069,11 @@ def bench_phase(dev, report) -> dict:
     """Phase bench: the port's benchmark entry points on the card.
     ``bench.bench_body`` at its defaults and with ``BENCH_SLOPE=itakura``
     (the last chunk's labels against the plain route's), ``python -m
-    dsp_tpu_torch bench`` through ``cli.main``, and ``bench_all.main()``
-    (every row, launches counted a row), then each ``bench_all`` row at
-    ``BENCH_ALL_CUT`` against the CPU; returns the counted launches of
-    kernels 1 and 3."""
+    dsp_tpu_torch bench`` through ``cli.main``, ``bench_body`` under
+    ``BENCH_DISPATCH=single`` (one CUDA graph, against the default run),
+    and ``bench_all.main()`` (every row, launches counted a row), then each
+    ``bench_all`` row at ``BENCH_ALL_CUT`` against the CPU; returns the
+    counted launches of kernels 1 and 3."""
     import contextlib
     import io
     import os
@@ -4034,9 +4105,9 @@ def bench_phase(dev, report) -> dict:
         return res
 
     # bench.py: every pass's chunks are on the card before its timer starts
-    results = {}
+    results, keeps = {}, {}
     for name, slope in (("default", ""), ("itakura", "itakura")):
-        keep = {}
+        keep = keeps[name] = {}
         os.environ["BENCH_SLOPE"] = slope
         try:
             results[name] = card(f"bench_{name}", lambda: bench.bench_body(dev, keep))
@@ -4073,6 +4144,51 @@ def bench_phase(dev, report) -> dict:
               f"{main_rate:.1f} (classify_batch from host signals): ratio "
               f"{line['value'] / main_rate:.3f}", flush=True)
     out["main_pass_alignments_per_s"] = main_rate
+
+    # BENCH_DISPATCH=single: the chain captured once as one CUDA graph,
+    # replayed once a pass; the capture's launches counted apart
+    chunked = keeps["default"]
+    no_host_sync("bench: a chunk of recognize_batch", lambda: tpl.recognize_batch(
+        chunked["chunk"], chunked["n_samples"], chunked["bank"], chunked["ids"],
+        chunked["cfg"]))
+    captured, capture = [], bench.capture
+
+    def counted_capture(run_chain, stream):
+        before = dict(_build.LAUNCHES)
+        replay = capture(run_chain, stream)
+        captured.append({k: n - before[k] for k, n in _build.LAUNCHES.items()
+                         if n != before[k]})
+        return replay
+
+    keep = keeps["single"] = {}
+    bench.capture = counted_capture
+    os.environ["BENCH_DISPATCH"] = "single"
+    try:
+        results["single"] = card("bench_single", lambda: bench.bench_body(dev, keep))
+    finally:
+        os.environ.pop("BENCH_DISPATCH")
+        bench.capture = capture
+    print(json.dumps(results["single"]), flush=True)
+    equal = torch.equal(keep["labels"], chunked["labels"]) and \
+        torch.equal(keep["dists"], chunked["dists"])
+    if not equal or captured != [{"dtw_banded": BENCH_CAPTURED}] or \
+            launches["bench_single"] != {"dtw_banded": 2 * BENCH_CAPTURED}:
+        fail(f"bench single: labels and distances of the last chunk equal to the "
+             f"chunked run's: {equal}; captured {captured}, expected one capture of "
+             f"{BENCH_CAPTURED} dtw_banded; launches {launches['bench_single']}")
+    ratio = results["single"]["value"] / results["default"]["value"]
+    print(f"bench dispatch on {smi}: chunked {results['default']['value']} "
+          f"({results['default']['min']}-{results['default']['max']}), single (one CUDA "
+          f"graph, a replay a pass) {results['single']['value']} ({results['single']['min']}-"
+          f"{results['single']['max']}) alignments/s, median of "
+          f"{results['single']['passes']}: single / chunked {ratio:.3f}", flush=True)
+    # the replays launch the captured kernels without their wrappers: not counted
+    replayed = {k: n * len(keep["pass_seconds"]) for k, n in captured[0].items()}
+    print(f"bench single: {len(keep['pass_seconds'])} replays launched {replayed} on the "
+          f"card beyond the counted launches", flush=True)
+    out["single"] = dict(results["single"], captured_launches=captured[0],
+                         replayed_launches=replayed, pass_seconds=keep["pass_seconds"],
+                         single_over_chunked=ratio)
 
     # bench_all: main() as a user runs it, each row's launches counted
     rows_run = {}
@@ -4782,6 +4898,8 @@ def main() -> int:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
+    print(f"launches: the kernel table counts wrapper calls; phase bench's graph "
+          f"replays launched {report['bench']['single']['replayed_launches']} more")
     for line in smi:
         print(line)
     print(json.dumps({"kernels": kernels}))

@@ -18,6 +18,7 @@ Speech Commands evaluation, the pipeline picture and the streaming demo:
     python -m dsp_tpu_torch train-vq    --corpus data/train --model vq.npz
     python -m dsp_tpu_torch evaluate-vq --corpus data/test --model vq.npz
     python -m dsp_tpu_torch bench
+    python -m dsp_tpu_torch warm        --bank bank.npz --batches 1,256
     python -m dsp_tpu_torch evaluate-sc2 --root speech_commands_v2/
     python -m dsp_tpu_torch plot        --word three --bank bank.npz --out p.png
     python -m dsp_tpu_torch demo        --bank bank.npz [--wav stream.wav]
@@ -29,9 +30,10 @@ entry point of the port does.  Banks and models are the JAX package's
 1:1 onto a config dataclass field; defaults are the classical values
 (16 kHz, 25 ms/10 ms, 13 MFCC, lifter 22).  ``bench`` runs
 ``dsp_tpu_torch.bench`` (its ``BENCH_*`` knobs) on ``--device``: ``--device
-cpu bench`` is ``BENCH_PLATFORM=cpu``.  One subcommand of the JAX CLI stays
-out: ``warm`` fills the TPU's compilation cache, which the port does not
-have.
+cpu bench`` is ``BENCH_PLATFORM=cpu``.  ``warm`` fills the port's
+compilation cache, ``build/``, where the kernels are compiled at first use
+and which later processes load, then checks in its own process that the
+serving programs run (:func:`cmd_warm`).
 """
 
 from __future__ import annotations
@@ -748,6 +750,127 @@ def cmd_bench(args):
     bench.main(device=args.device)
 
 
+def cmd_warm(args):
+    """Build the kernels into the port's compilation cache, then check that
+    the serving programs run on ``--device``:
+
+        python -m dsp_tpu_torch warm --bank bank.npz --batches 1,256
+
+    The cache is ``build/``: ``kernels/_build.py`` compiles every kernel
+    with nvcc into ``libdsp_tpu_torch_<hash>.so`` there at first use, and
+    a later process of the same sources loads it without building.  That
+    library is all ``warm`` leaves for later processes: a first ``serve``
+    request then pays no nvcc, but still its process's start and first
+    launches.  ``warm`` then drives the REAL ``classify_batch`` path on
+    synthetic utterances at each batch size, the connected decoders and
+    the spotter at each ``--connected`` length, and ``fe_profile``'s
+    stages at each ``--stages`` shape.  These runs warm only this process
+    and persist nothing (the port has no cache of launched programs, as
+    the JAX CLI's XLA cache is one): they check, before traffic comes,
+    that each serving program launches at the deployment's shapes, and
+    their lines give each one's seconds in this process.  Without
+    ``--bank`` a bank of ``--bank-size`` synthetic templates is enrolled.
+    On the CPU nothing is built: CPU tensors take the kernels' plain
+    versions.
+    """
+    import time as _time
+
+    import torch
+
+    from dsp_tpu_torch.io.dataset import DIGITS, synth_word
+    from dsp_tpu_torch.kernels import _build
+    from dsp_tpu_torch.scripts import fe_profile
+
+    if args.timeout is not None or args.retries is not None:
+        print("# warm: --timeout and --retries bound the JAX package's relay child; "
+              "the port warms in this process and does not read them", file=sys.stderr)
+    cfg = _pipeline_cfg(args)
+    device = torch.device(args.device)
+    batches = sorted({int(b) for b in args.batches.split(",") if b.strip()})
+    t0 = _time.perf_counter()
+    lib_path = None
+    if device.type == "cuda":
+        lib_path = _build.build()
+        _build.lib()
+        secs = _build.build_seconds
+        how = "loaded, no build" if secs is None else f"built in {secs:.1f}s"
+        print(f"warm: kernels {lib_path} ({how})", flush=True)
+    for b in batches:
+        sigs = [synth_word(DIGITS[i % len(DIGITS)], 7000 + i,
+                           max_samples=cfg.max_samples) for i in range(b)]
+        t1 = _time.perf_counter()
+        n_templates, matcher, k = _warm_batch(args.bank, cfg, args.bank_size, args.k,
+                                              args.matcher, args.shortlist, sigs, device)
+        print(f"warm: batch={b} bank={n_templates} matcher={matcher} "
+              f"k={k} ({_time.perf_counter() - t1:.1f}s)", flush=True)
+    for mult in sorted({int(m) for m in args.connected.split(",") if m.strip()}):
+        t1 = _time.perf_counter()
+        _warm_connected(args.bank, cfg, args.bank_size, args.k, args.max_segments, mult,
+                        args.grammar, device)
+        print(f"warm: connected+spot len={mult}x max_samples "
+              f"({_time.perf_counter() - t1:.1f}s)", flush=True)
+    for spec in (args.stages.split(",") if args.stages else []):
+        chunk, _, k_t = spec.partition("x")
+        t1 = _time.perf_counter()
+        for _, fn, fn_args in fe_profile.stages(int(chunk), int(k_t or 100), device):
+            fn(*fn_args)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        print(f"warm: fe-profile stages chunk={chunk} templates="
+              f"{k_t or 100} ({_time.perf_counter() - t1:.1f}s)", flush=True)
+    done = (f"later processes load {lib_path} without building" if lib_path is not None
+            else f"no kernel library is built for {device}")
+    print(f"warm: done in {_time.perf_counter() - t0:.1f}s — {done}")
+
+
+def _warm_recognizer(bank_path, cfg, bank_size, k, device, **matcher):
+    """The bank ``warm`` drives: the one at ``bank_path``, else the ten
+    digits with ``ceil(bank_size / 10)`` synthetic templates each."""
+    from dsp_tpu_torch.io.dataset import DIGITS, synth_word
+    from dsp_tpu_torch.models.knn_dtw import KnnDtwRecognizer
+
+    if bank_path:
+        return KnnDtwRecognizer.load(bank_path, cfg, device=device)
+    rec = KnnDtwRecognizer(cfg, k=k or 1, device=device, **matcher)
+    per = max(1, -(-bank_size // len(DIGITS)))
+    for lab in DIGITS:
+        rec.enroll(lab, [synth_word(lab, i, max_samples=cfg.max_samples)
+                         for i in range(per)])
+    return rec
+
+
+def _warm_connected(bank_path, cfg, bank_size, k, max_segments, mult, grammar, device):
+    """``warm``'s connected step: the VAD split and the level-building
+    decode (with the grammar's DP when one is given) of one recording
+    ``mult`` x ``max_samples`` long, and the spotter's scores on it: what
+    ``serve``'s ``connected ``, ``level `` and ``spot `` lines run."""
+    import numpy as np
+
+    from dsp_tpu_torch.io.dataset import synth_connected
+    from dsp_tpu_torch.models.spotter import KeywordSpotter
+
+    rec = _warm_recognizer(bank_path, cfg, bank_size, k, device)
+    sig = synth_connected(rec.labels[:3] or ["zero"], seed=1)
+    n = mult * cfg.max_samples
+    sig = np.pad(sig[:n], (0, max(0, n - sig.shape[0])))
+    rec.classify_connected([sig], max_segments=max_segments)
+    rec.classify_connected([sig], max_segments=max_segments, method="level")
+    if grammar:
+        rec.classify_connected([sig], max_segments=max_segments, method="level",
+                               grammar=grammar)
+    KeywordSpotter(rec).scores([sig])
+
+
+def _warm_batch(bank_path, cfg, bank_size, k, matcher, shortlist, sigs, device):
+    """``warm``'s batch step: the bank, then the real ``classify_batch``
+    on ``sigs``.  Returns ``(n_templates, matcher, k)``, as the JAX CLI's
+    ``_warm_batch`` does."""
+    rec = _warm_recognizer(bank_path, cfg, bank_size, k, device,
+                           matcher=matcher or "dtw", shortlist=shortlist or 8)
+    rec.classify_batch(sigs)
+    return rec.n_templates, rec.matcher, rec.k
+
+
 def cmd_evaluate_sc2(args):
     """Speech Commands v2 35-class kNN-DTW over a local checkout (config
     4): the bank sharded over the ranks of a torchrun world (one process a
@@ -1186,6 +1309,45 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("bench", help="run the headline throughput benchmark")
     p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser(
+        "warm", help="build the kernels into build/, which later processes "
+                     "load, and check that the serving programs run (that "
+                     "check warms only this process)")
+    p.add_argument("--bank", default=None,
+                   help="existing bank .npz (its size/matcher/k define the "
+                        "programs); omit to use a synthetic bank")
+    p.add_argument("--bank-size", type=int, default=100,
+                   help="synthetic bank templates when no --bank")
+    p.add_argument("--batches", default="1,256",
+                   help="comma-separated query batch sizes to run "
+                        "(classify_batch chunks at 256)")
+    p.add_argument("--timeout", type=float, default=None,
+                   help="the JAX CLI's per-batch deadline of its relay "
+                        "child: accepted, not read (the port warms in "
+                        "process)")
+    p.add_argument("--retries", type=int, default=None,
+                   help="the JAX CLI's relay retries: accepted, not read")
+    p.add_argument("--connected", default="", metavar="M1,M2",
+                   help="also run the connected decoders (VAD split + "
+                        "level building; + the grammar DP with --grammar) "
+                        "and the spotter at these recording-length "
+                        "multiples of max_samples: what serve's "
+                        "'connected '/'level '/'spot ' prefixes run")
+    p.add_argument("--max-segments", type=int, default=8,
+                   help="segment/level capacity for --connected warming "
+                        "(must match serving)")
+    p.add_argument("--grammar", metavar="JSON",
+                   help="grammar spec to warm the constrained DP with "
+                        "(--connected only)")
+    p.add_argument("--stages", nargs="?", const="256x100", default="",
+                   metavar="CHUNKxK[,..]",
+                   help="also run the fe-profile stages "
+                        "(dsp_tpu_torch/scripts/fe_profile.py: noop/mfcc/"
+                        "vad/fe/dtw/full) at these chunk-x-templates shapes "
+                        "(bare flag = the 256x100 bench shape)")
+    _add_common(p)
+    p.set_defaults(fn=cmd_warm)
 
     p = sub.add_parser("evaluate-sc2",
                        help="Speech Commands v2 kNN-DTW eval (local dataset)")

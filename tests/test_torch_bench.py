@@ -11,8 +11,9 @@ package's ``bench.py`` and ``bench_all.py``, on the CPU.
   port's lines at a stand-in time equal JAX's (keys, order, names, rates).
 * ``bench_body``'s labels on its last chunk equal JAX's
   ``pipeline.recognize_batch`` on the same signals, with and without
-  ``BENCH_SLOPE=itakura``; distances at rtol 1e-3 (the tolerance of
-  ``tests/test_torch_pipeline.py``).
+  ``BENCH_SLOPE=itakura``, under both ``BENCH_DISPATCH`` modes (on the CPU
+  ``single`` runs the chunked chain as its one call); distances at rtol
+  1e-3 (the tolerance of ``tests/test_torch_pipeline.py``).
 * ``bench_all``'s rows at a small size, each run once on CPU tensors:
   configs 0, 1 and 4 give JAX's ``recognize_batch`` labels; config 3 JAX's
   ``score_words`` at rtol 1e-5 on the same features and parameters
@@ -21,9 +22,11 @@ package's ``bench.py`` and ``bench_all.py``, on the CPU.
   start witnesses equal on every valid column (``tests/test_torch_spot.py``).
   The other rows run once: shapes, finite values, and ``spot`` equal to
   ``spot-scan`` (both the plain route on the CPU).
-* ``bench.main`` prints one JSON line with JAX's keys; the refusals: the
-  TPU-only ``BENCH_DISPATCH=single``, the default device with no card,
-  ``bench_all`` anywhere but on a card; the CLI's ``bench`` subcommand.
+* ``bench.main`` prints one JSON line with JAX's keys, also under
+  ``BENCH_DISPATCH=single`` (with a stderr line that the CPU has no CUDA
+  graphs); the refusals: the default device with no card, ``bench_all``
+  anywhere but on a card; the CLI's ``bench`` subcommand, and its help
+  listing the JAX CLI's seventeen subcommands.
 """
 
 import inspect
@@ -122,9 +125,11 @@ def test_bench_inputs_equal_jax(monkeypatch, env, no_cache, capsys):
         _same_bytes(ids, want_ids)
 
 
+@pytest.mark.parametrize("dispatch", ["chunked", "single"])
 @pytest.mark.parametrize("slope", ["", "itakura"])
-def test_bench_labels_equal_jax(env, slope):
-    env(BENCH_PLATFORM="cpu", BENCH_PASSES=1, BENCH_SLOPE=slope, **TINY)
+def test_bench_labels_equal_jax(env, slope, dispatch):
+    env(BENCH_PLATFORM="cpu", BENCH_PASSES=1, BENCH_SLOPE=slope, BENCH_DISPATCH=dispatch,
+        **TINY)
     keep = {}
     res = bench.bench_body("cpu", keep)
     cfg = keep["cfg"]
@@ -145,16 +150,19 @@ def test_bench_labels_equal_jax(env, slope):
     assert keep["labels"].tolist() == np.asarray(want).tolist()
     _, got_d = tpl.recognize_batch(keep["chunk"], keep["n_samples"], keep["bank"],
                                    keep["ids"], cfg)
+    assert torch.equal(keep["dists"], got_d)
     want_d = np.asarray(want_d)
     assert ((got_d.numpy() >= 1e20) == (want_d >= 1e20)).all()
     fin = want_d < 1e20
     np.testing.assert_allclose(got_d.numpy()[fin], want_d[fin], rtol=1e-3)
 
 
-@pytest.mark.parametrize("entry", ["module", "cli"])
+@pytest.mark.parametrize("entry", ["module", "cli", "single"])
 def test_bench_main_prints_one_jax_line(env, capsys, entry):
-    if entry == "module":
+    if entry in ("module", "single"):
         env(BENCH_PLATFORM="cpu", BENCH_PASSES=3, **TINY)
+        if entry == "single":
+            env(BENCH_DISPATCH="single")
         bench.main()
     else:                                  # --device cpu stands for BENCH_PLATFORM=cpu
         env(BENCH_PASSES=3, **TINY)
@@ -169,6 +177,7 @@ def test_bench_main_prints_one_jax_line(env, capsys, entry):
     assert rec["vs_baseline"] == round(rec["value"] / 1e4, 3)
     assert 0 < rec["min"] <= rec["value"] <= rec["max"]
     assert out.err.splitlines()[0] == "# bench: device cpu"
+    assert ("no CUDA graphs" in out.err) == (entry == "single")
 
 
 def _refuse_no_card(run):
@@ -178,14 +187,10 @@ def _refuse_no_card(run):
         run()
 
 
-@pytest.mark.parametrize("case", ["dispatch_single", "bench_no_card", "cli_no_card",
-                                  "bench_all_cpu", "bench_all_no_card"])
+@pytest.mark.parametrize("case", ["bench_no_card", "cli_no_card", "bench_all_cpu",
+                                  "bench_all_no_card"])
 def test_entry_points_refuse(env, capsys, case):
-    if case == "dispatch_single":
-        env(BENCH_PLATFORM="cpu", BENCH_DISPATCH="single", **TINY)
-        with pytest.raises(ValueError, match="TPU-only"):
-            bench.main()
-    elif case == "bench_no_card":
+    if case == "bench_no_card":
         env(**TINY)
         _refuse_no_card(bench.main)
     elif case == "cli_no_card":
@@ -215,9 +220,10 @@ def test_cli_bench_reaches_bench_main_and_help_lists_sixteen(monkeypatch, capsys
         return next(ln.strip() for ln in text.splitlines()
                     if ln.strip().startswith("{")).strip("{}").split(",")
 
+    # sixteen before the port's ``warm``, which makes the JAX CLI's seventeen
     port, jax_cli = choices(cli.main), choices(jcli.main)
-    assert len(port) == 16 and "bench" in port and "warm" not in port
-    assert port == [c for c in jax_cli if c != "warm"]
+    assert len(port) == 17 and "bench" in port and "warm" in port
+    assert port == jax_cli
 
 
 # ------------------------------------------------------------ bench_all

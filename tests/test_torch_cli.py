@@ -20,7 +20,10 @@ semantics that ``tests/test_cli.py`` holds for these subcommands
 (rejection, connected and level decoding, grammars, the flag sentinels,
 the serve loop, ``--mesh`` in one process, ``evaluate-sc2``'s bank sharded
 over a gloo world of two processes) on the port, the device default, and a
-clean subprocess that imports no jax.
+clean subprocess that imports no jax.  ``warm`` runs on the CPU and prints
+the JAX CLI's line formats; its batch step returns what the JAX CLI's
+``_warm_batch`` returns, called in this process, with ``classify_batch``'s
+labels equal.
 """
 
 import argparse
@@ -49,7 +52,7 @@ from test_torch_io import sc2_root  # noqa: F401  (the tiny Speech Commands layo
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBCOMMANDS = ["make-corpus", "enroll", "recognize", "evaluate", "evaluate-connected",
                "spot", "evaluate-spot", "serve", "train-hmm", "evaluate-hmm", "train-vq",
-               "evaluate-vq", "bench", "evaluate-sc2", "plot", "demo"]
+               "evaluate-vq", "bench", "warm", "evaluate-sc2", "plot", "demo"]
 HMM_ARGS = ["--states", "3", "--mix", "2", "--iters", "3"]
 CORPUS_ARGS = ["--n", "2", "--words", "3", "--connected", "3", "--spotting", "2"]
 # printed scores and distances: the packages' float32 sums round apart
@@ -714,3 +717,69 @@ def test_help_lists_the_ported_subcommands_and_imports_no_jax():
     choices, leaked = r.stdout.strip().splitlines()
     assert choices == "{" + ",".join(SUBCOMMANDS) + "}"
     assert leaked == "[]"
+
+
+WARM_LINES = [r"warm: batch=1 bank=10 matcher=dtw k=1 \(\d+\.\ds\)",
+              r"warm: batch=2 bank=10 matcher=dtw k=1 \(\d+\.\ds\)",
+              r"warm: connected\+spot len=1x max_samples \(\d+\.\ds\)",
+              r"warm: fe-profile stages chunk=4 templates=10 \(\d+\.\ds\)",
+              r"warm: done in \d+\.\ds — no kernel library is built for cpu"]
+
+
+def test_warm_prints_the_jax_lines_and_its_batch_step_returns_jax(capsys, monkeypatch):
+    """``warm`` on the CPU: the JAX CLI's line formats (``dsp_tpu/cli.py``
+    ``cmd_warm``), no library built, the relay flags accepted and not
+    read; ``_warm_batch`` returns what the JAX CLI's returns on the same
+    signals, with ``classify_batch``'s labels equal."""
+    import re
+
+    from dsp_tpu.config import PipelineConfig as JPipelineConfig
+    from dsp_tpu.io.dataset import DIGITS
+    from dsp_tpu_torch.config import PipelineConfig
+
+    port("warm", "--bank-size", "10", "--batches", "1,2", "--connected", "1",
+         "--stages", "4x10", "--timeout", "5", "--retries", "2")
+    out = capsys.readouterr()
+    lines = out.out.strip().splitlines()
+    assert len(lines) == len(WARM_LINES)
+    assert all(re.fullmatch(p, ln) for p, ln in zip(WARM_LINES, lines)), lines
+    assert "does not read them" in out.err
+
+    labels = {}
+    for name, cls in (("jax", JKnnDtwRecognizer), ("port", KnnDtwRecognizer)):
+        def kept(self, *a, _orig=cls.classify_batch, _name=name, **k):
+            labels[_name] = _orig(self, *a, **k)
+            return labels[_name]
+        monkeypatch.setattr(cls, "classify_batch", kept)
+    sigs = [synth_word(DIGITS[i % len(DIGITS)], 7000 + i, max_samples=32000)
+            for i in range(2)]
+    want = jcli._warm_batch(None, JPipelineConfig(), 10, None, None, None, sigs)
+    got = tcli._warm_batch(None, PipelineConfig(), 10, None, None, None, sigs, "cpu")
+    assert got == want == (10, "dtw", 1)
+    assert list(labels["port"]) == list(labels["jax"]) and len(labels["jax"]) == 2
+
+
+def test_warm_drives_a_loaded_bank_and_the_grammar(c, capsys, monkeypatch):
+    """``warm --bank`` drives that bank (its size, matcher and k in the
+    batch line) and ``--grammar`` adds the constrained level decode to the
+    VAD split and the plain level decode."""
+    import re
+
+    grammars = []
+    orig = KnnDtwRecognizer.classify_connected
+
+    def kept(self, *a, **k):
+        grammars.append((k.get("method", "vad"), k.get("grammar")))
+        return orig(self, *a, **k)
+
+    monkeypatch.setattr(KnnDtwRecognizer, "classify_connected", kept)
+    capsys.readouterr()
+    port("warm", "--bank", c.bank_k3, "--batches", "1", "--connected", "1",
+         "--grammar", c.grammar_all)
+    lines = capsys.readouterr().out.strip().splitlines()
+    rec = KnnDtwRecognizer.load(c.bank_k3, device="cpu")
+    assert rec.k == 3
+    assert re.fullmatch(rf"warm: batch=1 bank={rec.n_templates} matcher={rec.matcher} "
+                        rf"k=3 \(\d+\.\ds\)", lines[0]), lines
+    assert re.fullmatch(WARM_LINES[2], lines[1]) and re.fullmatch(WARM_LINES[4], lines[2])
+    assert grammars == [("vad", None), ("level", None), ("level", c.grammar_all)]

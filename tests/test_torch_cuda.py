@@ -1571,3 +1571,90 @@ def test_measurement_scripts_on_the_card(dev, capsys, name, argv, kernels):
         assert all(r["max_rel_err"] <= 1e-4 for r in out)
     else:
         assert out["check"]["flip_share"] < 1e-3 and out["scan"]["ms"] > out["fused"]["ms"] > 0
+
+
+BENCH_TINY = dict(BENCH_UTTS="8", BENCH_CHUNK="4", BENCH_TEMPLATES="10", BENCH_PASSES="2")
+
+
+def _bench_keep(monkeypatch, dev, dispatch):
+    from dsp_tpu_torch import bench
+
+    for k, v in dict(BENCH_TINY, BENCH_DISPATCH=dispatch).items():
+        monkeypatch.setenv(k, v)
+    keep = {}
+    bench.bench_body(dev, keep)
+    torch.cuda.synchronize()
+    return keep
+
+
+def test_bench_single_graph_equals_chunked(dev, monkeypatch):
+    """``BENCH_DISPATCH=single``: the CUDA graph's last-chunk labels and
+    distances equal the chunked run's bit for bit (the same kernels in the
+    same order)."""
+    got, want = (_bench_keep(monkeypatch, dev, d) for d in ("single", "chunked"))
+    assert torch.equal(got["labels"], want["labels"])
+    assert torch.equal(got["dists"], want["dists"])
+
+
+def test_bench_graph_replays_agree(dev):
+    """One capture of two chunks counts kernel 1 twice; two replays give
+    the same outputs, and replays count nothing."""
+    from dsp_tpu_torch import bench
+
+    cfg = bench.config()
+    bank_sigs, bank_ns, ids, chunks, qn = bench.inputs(8, 10, 4, cfg, dev)
+    bank = tpl.extract_features(bank_sigs, bank_ns, cfg)
+
+    def run_chain():
+        return [tpl.recognize_batch(c, qn, bank, ids, cfg) for c in chunks]
+
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        want = run_chain()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    _build.reset_launches()
+    replay = bench.capture(run_chain, stream)
+    assert _build.LAUNCHES["dtw_banded"] == len(chunks) == 2
+    first = [(lab.clone(), d.clone()) for lab, d in replay()]
+    second = replay()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["dtw_banded"] == 2
+    for (lab1, d1), (lab2, d2), (lab0, d0) in zip(first, second, want):
+        assert torch.equal(lab1, lab2) and torch.equal(d1, d2)
+        assert torch.equal(lab1, lab0) and torch.equal(d1, d0)
+
+
+def test_fresh_process_after_warm_builds_nothing(dev, tmp_path):
+    """``python -m dsp_tpu_torch warm`` on an empty kernel cache builds the
+    library there; a later process classifies through kernel 1 and builds
+    nothing.  Both processes point ``_build.BUILD_DIR`` at ``tmp_path``,
+    so the library that earlier tests left in ``build/`` cannot stand in
+    for the one ``warm`` builds."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    at = ("import sys\nfrom pathlib import Path\n"
+          "from dsp_tpu_torch.kernels import _build\n"
+          "_build.BUILD_DIR = Path(sys.argv[1])\n")
+    w = subprocess.run([sys.executable, "-c", at + "from dsp_tpu_torch import cli\n"
+                        "cli.main(sys.argv[2:])\n", str(tmp_path), "warm", "--bank-size",
+                        "10", "--batches", "1"], cwd=repo, capture_output=True, text=True,
+                       timeout=600)
+    assert w.returncode == 0, w.stderr
+    lines = w.stdout.strip().splitlines()
+    libs = list(tmp_path.glob("libdsp_tpu_torch_*.so"))
+    assert len(libs) == 1
+    assert lines[0].startswith(f"warm: kernels {libs[0]} (built in ") and str(libs[0]) in lines[-1]
+    code = (at + "from dsp_tpu_torch import KnnDtwRecognizer\n"
+            "from dsp_tpu_torch.io import synth_word\n"
+            "rec = KnnDtwRecognizer()\n"
+            "for lab in ('zero', 'one'):\n"
+            "    rec.enroll(lab, [synth_word(lab, 0)])\n"
+            "print(rec.classify_batch([synth_word('one', 5)]), _build.build_seconds,\n"
+            "      _build.LAUNCHES['dtw_banded'], _build.library_path() == Path(sys.argv[2]))\n")
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path), str(libs[0])], cwd=repo,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["['one']", "None", "1", "True"]
