@@ -39,6 +39,7 @@ serving programs run (:func:`cmd_warm`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -73,6 +74,14 @@ def _pipeline_cfg(args) -> PipelineConfig:
         max_samples=args.max_samples,
         use_vad=not args.no_vad,
     )
+
+
+def _add_trace(p: argparse.ArgumentParser):
+    p.add_argument("--trace", metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run, with "
+                        "the pipeline's dsp.* spans, into DIR, and print the "
+                        "run's counters (bytes copied to the card, host "
+                        "waits) to stderr")
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -332,7 +341,32 @@ def cmd_enroll(args):
              rec.n_templates, len(rec.labels), args.bank)
 
 
+@contextlib.contextmanager
+def _traced(args, metrics: RunMetrics | None = None):
+    """``--trace DIR``: the block under ``utils.profiling.trace(DIR)`` (a
+    Chrome trace with the pipeline's ``dsp.*`` spans), then the changes
+    of ``utils.profiling.counts()`` over it on stderr and in
+    ``metrics``; without the flag, the block alone."""
+    if not getattr(args, "trace", None):
+        yield
+        return
+    from dsp_tpu_torch.utils import profiling
+    before = profiling.counts()
+    with profiling.trace(args.trace):
+        yield
+    delta = {k: v - before.get(k, 0) for k, v in profiling.counts().items()
+             if v != before.get(k, 0)}
+    print(f"counts: {json.dumps(delta, sort_keys=True)}", file=sys.stderr)
+    if metrics is not None:
+        metrics.record(counts=delta)
+
+
 def cmd_recognize(args):
+    with _traced(args):
+        _recognize(args)
+
+
+def _recognize(args):
     from dsp_tpu_torch.io.wav import read_wav
     cfg = _pipeline_cfg(args)
     rec = _load_bank(args, cfg)
@@ -370,10 +404,11 @@ def cmd_evaluate(args):
     cfg = _pipeline_cfg(args)
     corpus = _load_corpus(args.corpus, args.sr)
     metrics = RunMetrics("evaluate")
-    rec = _load_bank(args, cfg)
-    rec.mesh = _maybe_mesh(args)
-    _apply_matcher_flags(rec, args)
-    result = rec.evaluate(corpus, reject=_reject_arg(args))
+    with _traced(args, metrics):
+        rec = _load_bank(args, cfg)
+        rec.mesh = _maybe_mesh(args)
+        _apply_matcher_flags(rec, args)
+        result = rec.evaluate(corpus, reject=_reject_arg(args))
     metrics.record(accuracy=result["accuracy"], n=result["n"],
                    bank_size=rec.n_templates, config=cfg)
     print(json.dumps(result["confusion"], indent=2, sort_keys=True))
@@ -1169,6 +1204,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "relative confidence, pipeline.nbest_from_scores)")
     _add_reject(p)
     _add_connected_method(p)
+    _add_trace(p)
     p.add_argument("wavs", nargs="+")
     _add_common(p)
     p.set_defaults(fn=cmd_recognize)
@@ -1177,6 +1213,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--corpus", required=True)
     p.add_argument("--bank", required=True)
     _add_reject(p)
+    _add_trace(p)
     _add_common(p)
     p.set_defaults(fn=cmd_evaluate)
 

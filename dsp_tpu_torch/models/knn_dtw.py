@@ -31,6 +31,7 @@ from dsp_tpu_torch import pipeline as pl
 from dsp_tpu_torch.config import PipelineConfig
 from dsp_tpu_torch.ops import align as talign
 from dsp_tpu_torch.ops.grammar import Grammar
+from dsp_tpu_torch.utils import profiling
 
 NO_MATCH = "<no-match>"     # vote row with no live candidate (sentinel -1)
 REJECT = "<reject>"         # best bank distance fails the rejection threshold
@@ -254,10 +255,12 @@ class KnnDtwRecognizer:
             return labels
         if self.mesh is not None:
             return self._classify_sharded(signals, return_distances)
-        label_ids, dists, _ = self._match(signals)
-        labels = self._ids_to_labels(label_ids)
-        if return_distances:
-            return labels, dists.cpu().numpy()
+        with profiling.stage("dsp.classify_chunk"):
+            label_ids, dists, _ = self._match(signals)
+            with profiling.stage("dsp.readback"):
+                labels = self._ids_to_labels(label_ids)
+                if return_distances:
+                    return labels, _to_host(dists).numpy()
         return labels
 
     def _check_mesh_matcher(self) -> None:
@@ -287,7 +290,7 @@ class KnnDtwRecognizer:
             return_full=return_distances)
         labels = self._ids_to_labels(label_ids[:b_orig])
         if return_distances:
-            return labels, dist[:b_orig, :self.n_templates].cpu().numpy()
+            return labels, _to_host(dist[:b_orig, :self.n_templates]).numpy()
         return labels
 
     def _match(self, signals):
@@ -339,7 +342,7 @@ class KnnDtwRecognizer:
     def _ids_to_labels(self, label_ids) -> list:
         """Map vote ids to strings; the -1 all-dead sentinel becomes NO_MATCH."""
         return [self.labels[i] if i >= 0 else NO_MATCH
-                for i in label_ids.cpu().tolist()]
+                for i in _to_host(label_ids).tolist()]
 
     def recognize(self, signal, reject=None) -> str:
         """Single utterance -> label (the reference's main entry point);
@@ -565,6 +568,14 @@ class KnnDtwRecognizer:
             rec.reject_threshold = rt if np.isfinite(rt) else None
             rec.reject_scale = str(data["reject_scale"]) or None
         return rec
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the CPU; a copy from another device waits for it, and
+    counts as one of ``host_syncs``."""
+    if t.device.type != "cpu":
+        profiling.count("host_syncs")
+    return t.cpu()
 
 
 def grammar_masks(grammar, labels, unit_labels, what: str):

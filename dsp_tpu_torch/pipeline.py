@@ -27,6 +27,7 @@ from dsp_tpu_torch.ops import frontend as fe
 from dsp_tpu_torch.ops import level_building as lb
 from dsp_tpu_torch.ops import lpc
 from dsp_tpu_torch.ops import vad as tvad
+from dsp_tpu_torch.utils import profiling
 
 # Distances at or above this are dead (unreachable or masked) candidates:
 # unreachable pairs arrive normalised (BIG/(la+lb) ~ 2.5e27), every
@@ -40,14 +41,24 @@ class Features(NamedTuple):
 
 
 def pad_signals(signals, max_samples: int, device: str | torch.device = "cuda"):
-    """Host list of 1-D signals -> (padded [B, max_samples] f32, lengths [B] i32)."""
-    out = np.zeros((len(signals), max_samples), dtype=np.float32)
-    lens = np.zeros(len(signals), dtype=np.int32)
-    for i, s in enumerate(signals):
-        s = np.asarray(s, dtype=np.float32)[:max_samples]
-        out[i, : len(s)] = s
-        lens[i] = len(s)
-    return (torch.from_numpy(out).to(device), torch.from_numpy(lens).to(device))
+    """Host list of 1-D signals -> (padded [B, max_samples] f32, lengths [B] i32).
+
+    Spans ``dsp.pad`` (the fill) and ``dsp.h2d`` (the copies); where
+    ``device`` is not the CPU, counts the bytes copied (``h2d_bytes``) and
+    the two blocking copies (``host_syncs``)."""
+    with profiling.stage("dsp.pad"):
+        out = np.zeros((len(signals), max_samples), dtype=np.float32)
+        lens = np.zeros(len(signals), dtype=np.int32)
+        for i, s in enumerate(signals):
+            s = np.asarray(s, dtype=np.float32)[:max_samples]
+            out[i, : len(s)] = s
+            lens[i] = len(s)
+    with profiling.stage("dsp.h2d"):
+        x, n = torch.from_numpy(out).to(device), torch.from_numpy(lens).to(device)
+        if x.device.type != "cpu":
+            profiling.count("h2d_bytes", out.nbytes + lens.nbytes)
+            profiling.count("host_syncs", 2)
+    return x, n
 
 
 def _cepstra(signals: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
@@ -124,9 +135,15 @@ def extract_features(signals: torch.Tensor, n_samples: torch.Tensor,
     """Padded signal batch [B, max_samples] + true lengths [B] -> Features.
 
     With ``FrontendConfig.impl="pallas"`` the cepstra come from the fused
-    MFCC kernel (plain version for CPU tensors)."""
-    c = _cepstra(signals, cfg)
-    return _finalize_window(c, *_endpoints(signals, n_samples, cfg), cfg)
+    MFCC kernel (plain version for CPU tensors).  Spans ``dsp.frontend``
+    around ``dsp.mfcc``, ``dsp.vad`` and ``dsp.deltas``."""
+    with profiling.stage("dsp.frontend"):
+        with profiling.stage("dsp.mfcc"):
+            c = _cepstra(signals, cfg)
+        with profiling.stage("dsp.vad"):
+            start, end = _endpoints(signals, n_samples, cfg)
+        with profiling.stage("dsp.deltas"):
+            return _finalize_window(c, start, end, cfg)
 
 
 def _plain_cepstra(signals: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
@@ -226,18 +243,20 @@ def classify_features(feats: Features, bank: Features,
     """Features [B] x template bank [K] -> (label_ids [B], distances [B,K]).
 
     k=1 is plain nearest-template; k>1 does a kNN majority vote with
-    distance-sum tie-breaking."""
-    dists = dtw_pairs(feats.feats, feats.length, bank.feats, bank.length,
-                      cfg.dtw)
-    if k <= 1:
+    distance-sum tie-breaking.  Spans ``dsp.dtw`` and ``dsp.argmin``."""
+    if k > 1 and n_labels is None:
+        raise ValueError("n_labels required for k > 1")
+    with profiling.stage("dsp.dtw"):
+        dists = dtw_pairs(feats.feats, feats.length, bank.feats, bank.length,
+                          cfg.dtw)
+    with profiling.stage("dsp.argmin"):
+        if k > 1:
+            return knn_vote(dists, bank_label_ids, n_labels, k), dists
         best_d, best = torch.min(dists, dim=-1)
         ids = bank_label_ids[best]
         # all-dead row (e.g. slope="itakura" with no admissible length
         # ratio) -> sentinel -1, matching vote_topk
         return torch.where(best_d < DEAD, ids, torch.full_like(ids, -1)), dists
-    if n_labels is None:
-        raise ValueError("n_labels required for k > 1")
-    return knn_vote(dists, bank_label_ids, n_labels, k), dists
 
 
 def knn_vote(dists: torch.Tensor, bank_label_ids: torch.Tensor,

@@ -783,3 +783,29 @@ def test_warm_drives_a_loaded_bank_and_the_grammar(c, capsys, monkeypatch):
                         rf"k=3 \(\d+\.\ds\)", lines[0]), lines
     assert re.fullmatch(WARM_LINES[2], lines[1]) and re.fullmatch(WARM_LINES[4], lines[2])
     assert grammars == [("vad", None), ("level", None), ("level", c.grammar_all)]
+
+
+@pytest.mark.parametrize("sub", ["recognize", "evaluate"])
+def test_trace_flag_writes_the_spans_and_the_counts(c, tmp_path, capsys, sub):
+    """``recognize`` / ``evaluate --trace DIR``: stdout as without the
+    flag, a Chrome trace in DIR holding the front end's and the matcher's
+    spans, and the run's counter changes on stderr and, for ``evaluate``,
+    under ``counts`` in ``--metrics-out`` (none on the CPU: nothing
+    crosses to another device)."""
+    metrics = str(tmp_path / "m.json")
+    args = {"recognize": ["--bank", c.bank, *c.test_wavs],
+            "evaluate": ["--corpus", c.test, "--bank", c.bank, "--metrics-out", metrics]}[sub]
+    capsys.readouterr()
+    port(sub, *args)
+    plain = capsys.readouterr().out
+    port(sub, "--trace", str(tmp_path / "trace"), *args)
+    out, err = capsys.readouterr()
+    assert out == plain
+    (path,) = (tmp_path / "trace").glob("*.json")
+    names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert {"dsp.frontend", "dsp.dtw"} <= names
+    assert "counts: {}" in err.splitlines()
+    if sub == "evaluate":
+        with open(metrics) as f:
+            assert json.load(f)["counts"] == {}

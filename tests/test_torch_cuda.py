@@ -1658,3 +1658,55 @@ def test_fresh_process_after_warm_builds_nothing(dev, tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["['one']", "None", "1", "True"]
+
+
+def test_classify_batch_spans_share_the_trace_clock_and_count_every_wait(dev, tmp_path):
+    """``classify_batch`` on the card: the host waits exactly where
+    ``host_syncs`` counts (sync-debug warnings: two copies and two
+    readbacks a chunk), ``h2d_bytes`` is each chunk's padded clips and
+    lengths, and in a profiler trace each kernel-1 launch starts after its
+    chunk's ``dsp.dtw`` span starts and each copy to the card starts
+    inside a ``dsp.h2d`` span."""
+    import json
+    import warnings
+
+    from dsp_tpu_torch.utils import profiling
+
+    rec = _small_bank(["one", "two", "three"], 2, dev)
+    sigs = [synth_word(w, 40 + i) for i, w in enumerate(["one", "two", "three"] * 3)]
+    chunks = 3                                       # 9 clips in chunks of 4
+    want = rec.classify_batch(sigs, chunk=4)
+    torch.cuda.synchronize()
+    before = profiling.counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = rec.classify_batch(sigs, chunk=4, return_distances=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counted = {k: v - before.get(k, 0) for k, v in profiling.counts().items()}
+    waits = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert got[0] == want
+    assert counted["host_syncs"] == 4 * chunks == len(waits), waits
+    assert counted["h2d_bytes"] == chunks * (4 * rec.cfg.max_samples * 4 + 4 * 4)
+
+    with profiling.trace(str(tmp_path)):
+        rec.classify_batch(sigs, chunk=4, return_distances=True)
+    (path,) = [p for p in tmp_path.iterdir() if p.suffix == ".json"]
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+
+    def spans(name):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("cat") == "user_annotation" and e["name"] == name)
+
+    kernels = sorted(e["ts"] for e in events
+                     if e.get("cat") == "kernel" and "dtw_banded" in e["name"])
+    copies = sorted(e["ts"] for e in events
+                    if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"])
+    dtw, h2d = spans("dsp.dtw"), spans("dsp.h2d")
+    assert len(spans("dsp.classify_chunk")) == len(dtw) == len(kernels) == chunks
+    assert all(k >= s for k, (s, _) in zip(kernels, dtw))
+    assert len(copies) == 2 * chunks
+    assert all(any(a <= c <= b for a, b in h2d) for c in copies)
