@@ -11,7 +11,7 @@ each of which raises on failure (non-zero exit):
              main-path shape (B=256 queries x K=100 templates, T=U=198,
              F=39, seeded lengths in [20, 198]) under four configs, plus a
              sliding-window shape (T=120, U=300, band 0.1) and B=16, K=8
-             at U=1,357 (the longest template staged whole), 1,358 and
+             at U=1,369 (the longest template staged whole), 1,370 and
              3,000 (the kernel's window mode).  The
              BIG/finite pattern must be identical and finite distances
              allclose at rtol 1e-4 (other summation order; the kernel sums
@@ -528,8 +528,8 @@ DTW_CASES = [
 # staged whole (one warp a block), the next one frame up in window mode,
 # and a long template in window mode
 DTW_LONG_CASES = [
-    ("staged_edge", {}, (16, 8, 198, 1357)),
-    ("window_edge", {}, (16, 8, 198, 1358)),
+    ("staged_edge", {}, (16, 8, 198, 1369)),
+    ("window_edge", {}, (16, 8, 198, 1370)),
     ("long", {}, (16, 8, 198, 3000)),
 ]
 GRID_ROWS_CASE = (65_537, 4, 24, 24)     # (B, K, T, U): one query past two launches' rows
@@ -818,18 +818,13 @@ def dtw_phase(rng, long_rng, dev, report):
 
 
 def walked_cells(q_lens, bank_lens, cfg, t: int, u: int) -> int:
-    """Costs the banded DTW kernel computes for these lengths: per strip of
-    ``strip_columns``, chunks of 32 steps x 32 lanes, a chunk's last steps
-    in whole groups of 8 (``csrc/dtw_banded.cu``)."""
+    """Costs the banded DTW kernel computes for these lengths: 16 a tile of
+    ``cost_tiles`` (``csrc/dtw_banded.cu``)."""
     from dsp_tpu_torch.kernels import dtw_fused_banded as kdtw
 
-    total = 0
-    for la in q_lens.tolist():
-        for lb in bank_lens.tolist():
-            for r0, r1, jlo, jhi in kdtw.strip_columns(la, lb, cfg, t, u):
-                steps = (jhi - jlo + 1) + (r1 - r0)
-                total += kdtw.STRIP * (steps // 32 * 32 + -(-(steps % 32) // 8) * 8)
-    return total
+    side = kdtw.TILE_SIDE
+    return sum(side * side * len(kdtw.cost_tiles(la, lb, cfg, t, u))
+               for la in q_lens.tolist() for lb in bank_lens.tolist())
 
 
 def small_phase(rng, dev, report):
@@ -4742,10 +4737,10 @@ def launch_host(seed: int, dev, report):
             lambda: torch.cuda.current_stream(dev).cuda_stream,
         "torch._C._cuda_getCurrentRawStream(index)":
             lambda: torch._C._cuda_getCurrentRawStream(idx),
-        # 19 arguments converted by argtypes; rb = 0 returns before any CUDA call
-        "ctypes call, 19 args, no launch (dtw_banded, rb=0)":
+        # 22 arguments converted by argtypes; rb = 0 returns before any CUDA call
+        "ctypes call, 22 args, no launch (dtw_banded, rb=0)":
             lambda: lib.dtw_banded(ptr, ptr, ptr, ptr, optr, 1, 1, 1, 1, 1, 1, 0, 0,
-                                   0, 0, 0.0, 0, 0, raw),
+                                   0, 0, 0.0, 0, 0, 0, 1, 1, raw),
         "ctypes call + launch (mb_trivial)": lambda: lib.mb_trivial(ptr, optr, n, raw),
         "torch.empty_like(x)": lambda: torch.empty_like(x),
         "trivial's checks": checks,

@@ -14,21 +14,24 @@
 //   (W, S_MAX, rb) come from window_plan.plan_window on the padded shapes.
 //   Invalid cells are exactly BIG = 1e30.
 //
-// The local cost is the exact sqrt(sum (a-b)^2) in fp32 (its square with
-// `squared`), not the TPU's |a|^2 + |b|^2 - 2ab expansion, whose rounding
-// residue the MXU GEMM leaves; a self-pair comes out exactly 0.  With
-// `itakura` the DP is the Itakura slope recursion (steps (1,0), (1,1),
-// (1,2), no two (1,0) in a row) over the same valid cells.
+// The local cost is the exact sqrt(sum (a-b)^2) in fp32, summed over the
+// features in ascending order (its square with `squared`), not the TPU's
+// |a|^2 + |b|^2 - 2ab expansion, whose rounding residue the MXU GEMM
+// leaves; a self-pair comes out exactly 0.  With `itakura` the DP is the
+// Itakura slope recursion (steps (1,0), (1,1), (1,2), no two (1,0) in a
+// row) over the same valid cells.
 //
-// What bounds it on the H100: instruction issue and the shared-memory load
-// rate, not device memory.  At the main-path shape (256 queries x 100
-// templates, T = U = 198, F = 39, band 0.17) the in-band cells cost 39
-// squared differences each (about 0.16 ms of fp32 work over the card),
-// while one chunk reads ~11 MB of features.  The DP itself is a chain of
-// ~la + lb dependent min/add steps a pair.  The first design (one block a
-// pair, the cells of an anti-diagonal shared by 256 threads, a block
-// barrier between diagonals) spent ~7 of its 10.8 ms in that per-diagonal
-// skeleton: ~395 barrier-separated steps a pair with ~34 cells each.
+// What bounds it on the H100: instruction issue and latency, not device
+// memory.  An in-band cell costs F squared differences, two fp32
+// instructions a feature (the subtraction and the FMA), which no
+// rearrangement of the exact cost removes; one chunk reads ~11 MB of
+// features.  The operands come from shared memory, which serves one 32-lane
+// 4-byte load an SM a clock, a quarter of the fp32 issue rate: the previous
+// design, which loaded one template value a (cell, feature) for every cell
+// of the walked parallelogram (2.4-6x the band's cells), was bound by those
+// loads.  The DP itself is a chain of ~la + lb dependent min/add steps a
+// pair, each a shuffle's latency long, so the warps an SM holds (shared
+// memory and 128 registers a thread) set how much of it is hidden.
 //
 // Design, after kernel 5 (csrc/dtw_wavefront.cu) and the microbenchmarks
 // of csrc/mb_wavefront.cu:
@@ -39,46 +42,56 @@
 //   lane 0 of the next through shared memory.
 // * Only the band is walked.  Row i's valid columns form one interval
 //   [lo(i), hi(i)] whose ends never decrease with i, so a strip walks
-//   columns lo(r0) .. hi(last row), ~67 + 31 steps at the main shape, not
+//   columns lo(r0) .. hi(last row), ~67 + 31 steps at T = U = 198, not
 //   lb + 31.  kernels/dtw_fused_banded.py:strip_columns is the same rule
 //   in Python, tested against the reference's valid-cell mask.
-// * The cost is out of the dependent chain.  For each chunk of 32 steps
-//   every lane first computes its row's 32 costs (independent FMAs, eight
-//   at a time) into a 32 x 33 shared tile, then the 32 dependent steps run
-//   over the tile: one shuffle, two mins and an add a step.  The query row
-//   stays in the lane's registers for the whole strip (F <= 40; wider
-//   features are summed 40 at a time into the tile); template rows come
-//   from shared memory at an odd row stride, so the 32 lanes, on 32
-//   consecutive template rows, hit 32 banks.
-// * A block holds up to 8 warps = 8 queries against one template, which
-//   is staged once (31 KB at U = 198); query rows come from device memory
-//   (a chunk's features sit in L2).  The host takes fewer warps a block
-//   where shared memory or the batch is short.
+// * Only the band's costs are computed, in register tiles.  A strip's
+//   cells are cut into tiles of 4 rows x 4 columns (tile row t: rows
+//   r0 + 4t .. + 3; tile columns at jlo + 4k); of each tile row only the
+//   tiles from its first row's lo to its last row's hi are computed, less
+//   those that meet no row's interval (kernels/dtw_fused_banded.py:
+//   cost_tiles states the rule): 1.1-1.5x the valid cells.  A feature's 4
+//   query and 4 template values serve a tile's 16 cells (0.5 loads a cell
+//   and feature), the strip's query rows staged in shared memory beside the
+//   template, both at an odd row stride, so that distinct tile rows or
+//   columns of 32 fall on distinct banks.  The 32 lanes take the tiles 32
+//   at a time in one order (by block of 32 columns, tile row, column),
+//   whatever row they own; a round of 16 or fewer tiles gives each tile 2
+//   or 4 lanes, 2 rows or 1 each.
+// * The costs reach the walk through a ring of two blocks of 32 columns a
+//   row (block m in half (m + 1) % 2).  Chunk c of 32 steps reads columns
+//   jlo + 32c - 31 .. jlo + 32c + 31, blocks c - 1 and c, so the warp
+//   computes block c's tiles just before it; a step's 32 lanes read 32
+//   distinct banks.  The walk itself is the previous design's.
+// * A block stages one template (31 KB at U = 198) for up to 16 warps; its
+//   warps take its queries one at a time (an atomic counter in shared
+//   memory), so short and long queries even out.  The host takes the block
+//   size that keeps most warps on an SM and up to 8 queries a warp where
+//   the launch has pairs enough to keep every warp the card holds busy
+//   (kernels/dtw_fused_banded.py:launch_plan, queries_a_block).
 // * Long templates: where the whole template does not fit a one-warp block
-//   (at F = 39, T = 198: U > 1,357 frames, U > 1,325 with Itakura), the
-//   kernel runs in its window mode instead.  A chunk of 32 steps over 32
-//   lanes reads template rows jlo + s0 - 31 .. jlo + s0 + 31 (clamped to
-//   [0, lb-1]); each warp stages those 63 rows into a window of its own
-//   (10.3 KB at F = 39, same odd stride) before the chunk's costs, and the
-//   cost loop reads slot 31 - lane + step.  The edge row (NS * u_pad floats
-//   a warp) is then what bounds U: at one warp, F = 39 and T = 198, U up to
-//   54,428 frames (27,201 with Itakura); beyond that the launch fails and
-//   the wrapper raises.  kernels/dtw_fused_banded.py:launch_plan states the
-//   host's rule in Python.  Window mode's time is in PERF.md (kernel 1,
-//   the `long` case of chip_smoke.py).
+//   (at F = 39, T = 198: U > 1,369 frames, U > 1,335 with Itakura), the
+//   kernel runs in its window mode: the tiles read their template values
+//   from device memory (the L1 and L2 caches) instead.  The edge row (NS *
+//   u_pad floats a warp) is then what bounds U: at one warp, F = 39 and T
+//   = 198, U up to 54,770 frames (27,372 with Itakura); beyond that the
+//   launch fails and the wrapper raises.  Window mode's time is in PERF.md
+//   (kernel 1, the `long` case of chip_smoke.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "warp_walk.cuh"
+
 namespace {
 
 constexpr float BIG = 1e30f;
-constexpr int MAX_WARPS = 8;            // pairs per block, one warp each
-constexpr int TILE = 32;                // rows per strip = steps per cost chunk
-constexpr int TS = TILE + 1;            // tile row stride
-constexpr int QF = 40;                  // query features held in registers
-constexpr int G = 8;                    // costs summed side by side
-constexpr int WIN = 2 * TILE - 1;       // template rows a chunk reads (window mode)
+constexpr int MAX_WARPS = 16;           // warps a block, each walking one pair at a time
+constexpr int TILE = 32;                // rows per strip = steps per chunk = columns per block
+constexpr int RING = 2 * TILE;          // cost columns a row keeps: two blocks
+constexpr int CT = 4;                   // a cost tile: CT rows x CT columns
+constexpr int TROWS = TILE / CT;        // tile rows a strip
+constexpr int TCOLS = TILE / CT;        // tile columns a block
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Pair {
@@ -114,205 +127,320 @@ __device__ __forceinline__ float row_above(const float* edge, int c, int lo, int
   return (c >= lo && c <= hi) ? v : BIG;
 }
 
-// Template row stride: the features rounded up to whole blocks of QF (zero
-// filled, so the cost loop needs no bound) and odd, so that 32 lanes on 32
-// consecutive rows fall on 32 banks.
-__host__ __device__ __forceinline__ int feature_stride(int f_dim) {
-  return (((f_dim + QF - 1) / QF) * QF) | 1;
+// Row stride of the staged query strip and template: odd, so that rows a
+// tile (4) or a tile row (1) apart, up to 8 of them, fall on distinct banks.
+__host__ __device__ __forceinline__ int feature_stride(int f_dim) { return f_dim | 1; }
+
+// Tiles of a tile row in blocks before block m: the row's tiles are tile
+// columns a .. a + n - 1.
+__device__ __forceinline__ int tiles_before(int m, int a, int n) {
+  return min(max(m * TCOLS - a, 0), n);
+}
+
+// Rows r0 .. r0 + 31 of a query (q: [t_pad][f_dim]; rows past t_pad - 1
+// repeat it) into qs ([TILE][fs]).  With fs == f_dim the rows are one run
+// of floats, and a lane issues all its loads (up to QB a batch) before it
+// stores them, so their latencies overlap.
+constexpr int QB = 40;                  // query loads a lane has in flight
+__device__ __forceinline__ void stage_strip(float* qs, const float* __restrict__ q, int r0,
+                                            int t_pad, int f_dim, int fs, int lane) {
+  if (fs != f_dim) {
+    walk::stage_rows(qs, q, r0, TILE, t_pad - 1, f_dim, fs, lane);
+    return;
+  }
+  const int first = r0 * f_dim, last = t_pad * f_dim - 1;
+  for (int i0 = 0; i0 < f_dim; i0 += QB) {
+    float v[QB];
+#pragma unroll
+    for (int i = 0; i < QB; ++i)
+      if (i0 + i < f_dim) v[i] = __ldg(q + min(first + (i0 + i) * 32 + lane, last));
+#pragma unroll
+    for (int i = 0; i < QB; ++i)
+      if (i0 + i < f_dim) qs[(i0 + i) * 32 + lane] = v[i];
+  }
+}
+
+// The costs of ROWS rows (query rows q, q + fs, ..; ring rows dst, dst +
+// RING, ..) against template columns c0 .. c0 + 3 (rows of trows at stride
+// ts, those past lb - 1 repeating it): a feature's ROWS + 4 loads serve
+// its 4 ROWS cells.  Each cost sums (q - t)^2 over the features in order.
+template <int ROWS, bool WINDOW>
+__device__ __forceinline__ void tile_costs(const float* q, int fs, const float* trows, int ts,
+                                           int c0, int lb, int f_dim, int squared,
+                                           float* dst) {
+  const float* tp[CT];
+#pragma unroll
+  for (int e = 0; e < CT; ++e) tp[e] = trows + (size_t)min(c0 + e, lb - 1) * ts;
+  float acc[ROWS][CT];
+#pragma unroll
+  for (int a = 0; a < ROWS; ++a)
+#pragma unroll
+    for (int e = 0; e < CT; ++e) acc[a][e] = 0.f;
+#pragma unroll 2
+  for (int f = 0; f < f_dim; ++f) {
+    float qv[ROWS], tv[CT];
+#pragma unroll
+    for (int a = 0; a < ROWS; ++a) qv[a] = q[a * fs + f];
+#pragma unroll
+    for (int e = 0; e < CT; ++e) tv[e] = WINDOW ? __ldg(tp[e] + f) : tp[e][f];
+#pragma unroll
+    for (int a = 0; a < ROWS; ++a)
+#pragma unroll
+      for (int e = 0; e < CT; ++e) {
+        const float d = qv[a] - tv[e];
+        acc[a][e] = fmaf(d, d, acc[a][e]);
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < ROWS; ++a)
+#pragma unroll
+    for (int e = 0; e < CT; ++e) dst[a * RING + e] = squared ? acc[a][e] : sqrtf(acc[a][e]);
 }
 
 template <bool ITAKURA, bool WINDOW>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 2)
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 dtw_banded_kernel(const float* __restrict__ queries, const int* __restrict__ q_lens,
                   const float* __restrict__ bank, const int* __restrict__ bank_lens,
                   float* __restrict__ out, int n_queries, int n_templates, int t_pad,
                   int u_pad, int f_dim, int w, int s_max, int rb, int banded,
-                  int windowed, float band_frac, int squared) {
+                  int windowed, float band_frac, int squared, int per_block) {
   constexpr int NS = ITAKURA ? 2 : 1;   // DP states handed from strip to strip
   extern __shared__ float smem[];
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int k = blockIdx.x;
-  const int b = blockIdx.y * warps + warp;
+  const int b_first = blockIdx.y * per_block;
+  const int b_end = min(b_first + per_block, n_queries);
   const int fs = feature_stride(f_dim);
   const int nb = (t_pad + rb - 1) / rb;
 
   Pair g;
   g.lb = min(max(bank_lens[k], 1), u_pad);
 
-  // stage the template once for the block's warps, zero past f_dim (in
-  // window mode each warp stages the rows of a chunk instead)
+  // stage the template once for the block's warps (window mode reads it
+  // from device memory)
   float* tmpl = smem;                   // [u_pad][fs], none in window mode
   const float* bg = bank + (size_t)k * u_pad * f_dim;
   if (!WINDOW) {
-    for (int idx = threadIdx.x; idx < g.lb * fs; idx += blockDim.x) {
-      const int r = idx / fs, f = idx - r * fs;
-      tmpl[idx] = f < f_dim ? bg[r * f_dim + f] : 0.f;
-    }
-    __syncthreads();
+    const int per = (g.lb + warps - 1) / warps;
+    const int first = warp * per;
+    walk::stage_rows(tmpl + (size_t)first * fs, bg, first, min(per, g.lb - first), g.lb - 1,
+                     f_dim, fs, lane);
   }
-  if (b >= n_queries) return;           // whole warp: no block barrier follows
+  const size_t per_warp = TILE * RING + TILE * fs + NS * TILE + NS * u_pad + nb;
+  // the block's next query, taken by the first free warp
+  int* next_pair = reinterpret_cast<int*>(tmpl + (WINDOW ? 0 : (size_t)u_pad * fs) +
+                                          warps * per_warp);
+  if (threadIdx.x == 0) *next_pair = b_first;
+  __syncthreads();
 
-  const size_t per_warp = TILE * TS + NS * TILE + NS * u_pad + nb + (WINDOW ? WIN * fs : 0);
-  float* tile = tmpl + (WINDOW ? 0 : (size_t)u_pad * fs) + warp * per_warp;  // [TILE][TS]
-  float* stage = tile + TILE * TS;      // [NS][TILE] the last row's chunk
+  float* ring = tmpl + (WINDOW ? 0 : (size_t)u_pad * fs) + warp * per_warp;  // [TILE][RING]
+  float* qs = ring + TILE * RING;       // [TILE][fs] the strip's query rows
+  float* stage = qs + TILE * fs;        // [NS][TILE] the last row's chunk
   float* edge = stage + NS * TILE;      // [NS][u_pad] D (and N) of row r0 - 1
   int* offs = reinterpret_cast<int*>(edge + NS * u_pad);  // [nb]
-  float* win = edge + NS * u_pad + nb;  // [WIN][fs] window mode: template rows of a chunk
+  const float* trows = WINDOW ? bg : tmpl;
+  const int ts = WINDOW ? f_dim : fs;
 
-  g.la = min(max(q_lens[b], 1), t_pad);
-  g.lam1 = max(g.la - 1, 1);
-  g.lbm1 = g.lb - 1;
-  g.banded = banded != 0;
-  g.windowed = windowed != 0;
-  g.w = w;
-  g.rb_shift = __ffs(rb) - 1;           // rb is a power of two (plan_window: 16 or 32)
-  g.offs = offs;
-  g.r2 = 0;
-  if (g.banded) {
-    // f32 multiply + floor, as ops/dtw.py:band_r2 (no contraction, no fast math)
-    const float radius = fmaxf(1.0f, __fmul_rn(band_frac, (float)max(g.la, g.lb)));
-    g.r2 = (int)floorf(__fmul_rn(radius, (float)g.lam1));
-  }
-  if (g.windowed && lane == 0) {
-    int prev = 0;
-    const int clip8 = ((max(g.lb - w, 0) + 7) / 8) * 8;
-    for (int blk = 0; blk < nb; ++blk) {
-      const int num = max(blk * rb * g.lbm1 - g.r2, 0);
-      const int jlo = (num + g.lam1 - 1) / g.lam1;
-      int off = max((jlo / 8) * 8 - 8, 0);
-      off = min(off, clip8);
-      off = min(off, prev + s_max);
-      offs[blk] = off;
-      prev = off;
+  for (;;) {
+    int b = 0;
+    if (lane == 0) b = atomicAdd(next_pair, 1);
+    b = __shfl_sync(FULL, b, 0);
+    if (b >= b_end) break;                // whole warp: no block barrier follows
+    g.la = min(max(q_lens[b], 1), t_pad);
+    g.lam1 = max(g.la - 1, 1);
+    g.lbm1 = g.lb - 1;
+    g.banded = banded != 0;
+    g.windowed = windowed != 0;
+    g.w = w;
+    g.rb_shift = __ffs(rb) - 1;           // rb is a power of two (plan_window: 16 or 32)
+    g.offs = offs;
+    g.r2 = 0;
+    if (g.banded) {
+      // f32 multiply + floor, as ops/dtw.py:band_r2 (no contraction, no fast math)
+      const float radius = fmaxf(1.0f, __fmul_rn(band_frac, (float)max(g.la, g.lb)));
+      g.r2 = (int)floorf(__fmul_rn(radius, (float)g.lam1));
     }
-  }
-  __syncwarp();
+    if (g.windowed && lane == 0) {
+      int prev = 0;
+      const int clip8 = ((max(g.lb - w, 0) + 7) / 8) * 8;
+      for (int blk = 0; blk < nb; ++blk) {
+        const int num = max(blk * rb * g.lbm1 - g.r2, 0);
+        const int jlo = (num + g.lam1 - 1) / g.lam1;
+        int off = max((jlo / 8) * 8 - 8, 0);
+        off = min(off, clip8);
+        off = min(off, prev + s_max);
+        offs[blk] = off;
+        prev = off;
+      }
+    }
+    __syncwarp();
 
-  const float* qg = queries + (size_t)b * t_pad * f_dim;
-  float result = BIG;
-  int pjlo = 0, pjhi = -1;              // columns of row r0 - 1 in `edge` (none above row 0)
-  for (int r0 = 0; r0 < g.la; r0 += TILE) {
-    const int i = r0 + lane;
-    const int r_last = min(r0 + TILE, g.la) - 1;
-    int lo, hi, jlo, jhi, unused;
-    g.row(i, lo, hi);
-    g.row(r0, jlo, unused);
-    g.row(r_last, unused, jhi);
-    if (jhi < jlo) break;               // every row of the strip is empty: unreachable
-    const float* qrow = qg + (size_t)min(i, g.la - 1) * f_dim;
-    float q[QF];
-    if (f_dim <= QF) {
+    const float* qg = queries + (size_t)b * t_pad * f_dim;
+    float result = BIG;
+    int pjlo = 0, pjhi = -1;              // columns of row r0 - 1 in `edge` (none above row 0)
+    for (int r0 = 0; r0 < g.la; r0 += TILE) {
+      const int i = r0 + lane;
+      const int r_last = min(r0 + TILE, g.la) - 1;
+      int lo, hi, jlo, jhi, unused;
+      g.row(i, lo, hi);
+      g.row(r0, jlo, unused);
+      g.row(r_last, unused, jhi);
+      if (jhi < jlo) break;               // every row of the strip is empty: unreachable
+      // the strip's query rows; the last strip's readers finished at its
+      // closing __syncwarp
+      stage_strip(qs, qg, r0, t_pad, f_dim, fs, lane);
+      // tile row t = lane % 8 (rows r0 + 4t ..): tile columns ta .. ta + tn - 1
+      // (relative to jlo), from its first row's lo to its last row's hi;
+      // `gaps` where some tile row's rows leave a column between them that
+      // none holds (then a tile in its range may meet no row)
+      int ta, tn;
+      bool gaps;
+      {
+        const int t = lane % TROWS;
+        const int first = CT * t, last = min(CT * t + CT - 1, r_last - r0);
+        const int flo = __shfl_sync(FULL, lo, first), lhi = __shfl_sync(FULL, hi, last);
+        ta = (flo - jlo) / CT;
+        tn = first <= r_last - r0 && flo <= lhi ? (lhi - jlo) / CT - ta + 1 : 0;
+        bool gap = false;
+        int reach = flo - 1;              // the last column the rows so far hold
 #pragma unroll
-      for (int f = 0; f < QF; ++f) q[f] = f < f_dim ? qrow[f] : 0.f;
-    }
-    const int n_steps = (jhi - jlo + 1) + (r_last - r0);
-    // DP state: D(i, j-1); the values this lane sent at the previous step;
-    // D(i-1, j-1) and D(i-1, j-2), i.e. what it received one and two steps ago
-    // (lane 0: the row above, read from `edge`)
-    float left = BIG, last = BIG, last_n = BIG;
-    float up1 = lane == 0 ? row_above(edge, jlo - 1, pjlo, pjhi, u_pad) : BIG;
-    float up2 = lane == 0 ? row_above(edge, jlo - 2, pjlo, pjhi, u_pad) : BIG;
-    const bool origin = lane == 0 && r0 == 0;  // lane 0 of row 0 starts from D(-1,-1) = 0
-    for (int s0 = 0; s0 < n_steps; s0 += TILE) {
-      const int jc = jlo + s0 - lane;   // this lane's column at step s0
-      const int n_here = min(TILE, n_steps - s0);
-      if (WINDOW) {
-        // 0. template rows jlo+s0-31 .. jlo+s0+31, clamped to [0, lb-1]: slot
-        // x holds the row lane l reads at step s for x = 31 - l + s (the
-        // previous chunk's reads ended at its closing __syncwarp)
-        const int base = jlo + s0 - (TILE - 1);
-        for (int x = 0; x < WIN; ++x) {
-          const float* src = bg + (size_t)min(max(base + x, 0), g.lb - 1) * f_dim;
-          for (int f = lane; f < fs; f += 32) win[x * fs + f] = f < f_dim ? src[f] : 0.f;
+        for (int a = 0; a < CT; ++a) {
+          const int rlo = __shfl_sync(FULL, lo, min(first + a, last));
+          const int rhi = __shfl_sync(FULL, hi, min(first + a, last));
+          if (rlo <= rhi) {
+            gap |= rlo > reach + 1;
+            reach = max(reach, rhi);
+          }
+        }
+        gaps = __any_sync(FULL, (gap || reach < lhi) && tn > 0);
+      }
+      __syncwarp();                       // qs's rows, for every lane
+      int done = 0;                       // tiles computed, in the order above
+      const int n_steps = (jhi - jlo + 1) + (r_last - r0);
+      // DP state: D(i, j-1); the values this lane sent at the previous step;
+      // D(i-1, j-1) and D(i-1, j-2), i.e. what it received one and two steps ago
+      // (lane 0: the row above, read from `edge`)
+      float left = BIG, last = BIG, last_n = BIG;
+      float up1 = lane == 0 ? row_above(edge, jlo - 1, pjlo, pjhi, u_pad) : BIG;
+      float up2 = lane == 0 ? row_above(edge, jlo - 2, pjlo, pjhi, u_pad) : BIG;
+      const bool origin = lane == 0 && r0 == 0;  // lane 0 of row 0 starts from D(-1,-1) = 0
+      for (int s0 = 0, c = 0; s0 < n_steps; s0 += TILE, ++c) {
+        const int jc = jlo + s0 - lane;   // this lane's column at step s0
+        const int n_here = min(TILE, n_steps - s0);
+        // 1. the costs of block c, 32 tiles at a time, off the dependent
+        // chain.  Lane t < 8 holds tile row t's tiles in the block: cnt of
+        // them from tile column k0, flat indices from first (the block's
+        // tiles come after those of blocks before it, done so far, and in
+        // tile-row order)
+        const int b0 = tiles_before(c, ta, tn);
+        const int cnt = lane < TROWS ? tiles_before(c + 1, ta, tn) - b0 : 0;
+        const int k0 = ta + b0;
+        int incl = cnt;
+#pragma unroll
+        for (int d = 1; d < TROWS; d <<= 1) {
+          const int v = __shfl_up_sync(FULL, incl, d);
+          if (lane >= d) incl += v;
+        }
+        const int first = lane < TROWS ? done + incl - cnt : 0x7fffffff;
+        const int need = done + __shfl_sync(FULL, incl, TROWS - 1);
+        while (done < need) {
+          const int end = min(done + 32, need);
+          // a round of few tiles splits each over 2 or 4 lanes, rows apart
+          const int split = end - done <= TILE / 4 ? 4 : end - done <= TILE / 2 ? 2 : 1;
+          const int x = done + lane / split;
+          // the group of flat index x: the last whose first index is <= x
+          int tt = 0;
+#pragma unroll
+          for (int step = TROWS / 2; step > 0; step >>= 1)
+            if (__shfl_sync(FULL, first, tt + step) <= x) tt += step;
+          const int kk = __shfl_sync(FULL, k0, tt) + x - __shfl_sync(FULL, first, tt);
+          const int c0 = jlo + CT * kk;   // the tile's first column
+          bool live = x < end;
+          if (gaps) {
+            bool meets = false;
+#pragma unroll
+            for (int a = 0; a < CT; ++a) {
+              const int rlo = __shfl_sync(FULL, lo, CT * tt + a);
+              const int rhi = __shfl_sync(FULL, hi, CT * tt + a);
+              meets |= rlo <= rhi && rlo <= c0 + CT - 1 && rhi >= c0;
+            }
+            live &= meets;
+          }
+          if (live) {
+            const int row = CT * tt + lane % split * (CT / split);  // this lane's first row
+            const float* q = qs + row * fs;
+            // block c lives in half (c + 1) % 2 of the ring
+            float* dst = ring + row * RING + TILE * ((c + 1) % 2) + (CT * kk) % TILE;
+            if (split == 1)
+              tile_costs<CT, WINDOW>(q, fs, trows, ts, c0, g.lb, f_dim, squared, dst);
+            else if (split == 2)
+              tile_costs<CT / 2, WINDOW>(q, fs, trows, ts, c0, g.lb, f_dim, squared, dst);
+            else
+              tile_costs<CT / 4, WINDOW>(q, fs, trows, ts, c0, g.lb, f_dim, squared, dst);
+          }
+          done = end;
+        }
+        __syncwarp();
+        // 2. the 32 dependent steps over the ring: at step s this lane reads
+        // column jc + s, in block c - 1 while s < lane, else in block c
+        const float* cost_lo = ring + lane * RING + TILE * (c % 2) + TILE - lane;
+        const float* cost_hi = ring + lane * RING + TILE * ((c + 1) % 2) - lane;
+#pragma unroll 4
+        for (int s = 0; s < n_here; ++s) {
+          const int j = jc + s;
+          const bool ok = j >= lo && j <= hi;
+          const float cv = (s < lane ? cost_lo : cost_hi)[s];
+          const float up_e = row_above(edge, j, pjlo, pjhi, u_pad);
+          float up = __shfl_up_sync(FULL, last, 1);      // D(i-1, j) from lane l-1
+          if (lane == 0) up = up_e;
+          const float d1 = (origin && j == 0) ? 0.f : up1;  // D(i-1, j-1)
+          float val;
+          if (!ITAKURA) {
+            val = ok ? cv + fminf(left, fminf(up, d1)) : BIG;
+            left = val;
+            if (lane == TILE - 1) stage[s] = val;
+          } else {
+            const float up_ne = row_above(edge + u_pad, j, pjlo, pjhi, u_pad);
+            float up_n = __shfl_up_sync(FULL, last_n, 1);  // N(i-1, j)
+            if (lane == 0) up_n = up_ne;
+            const float d2 = up2;                          // D(i-1, j-2)
+            float nv = BIG;
+            val = BIG;
+            if (ok) {
+              nv = cv + fminf(d1, d2);
+              val = fminf(nv, cv + up_n);  // one (1,0) step after a non-(1,0) one
+            }
+            last_n = nv;
+            if (lane == TILE - 1) {
+              stage[s] = val;
+              stage[TILE + s] = nv;
+            }
+          }
+          if (i == g.la - 1 && j == g.lb - 1) result = val;
+          up2 = up1;
+          up1 = up;
+          last = val;
+        }
+        // 3. hand the last row's chunk (columns jlo+s0-31 .. jlo+s0) to the
+        // next strip; lane 0 of this strip reads only columns > jlo+s0 from
+        // here on, so the overwrite is safe
+        __syncwarp();
+        const int col = jlo + s0 + lane - (TILE - 1);
+        if (col >= 0 && col < u_pad) {
+          edge[col] = stage[lane];
+          if (ITAKURA) edge[u_pad + col] = stage[TILE + lane];
         }
         __syncwarp();
       }
-      // 1. this lane's 32 costs of the chunk, off the dependent chain
-      for (int fb = 0; fb < f_dim; fb += QF) {
-        if (f_dim > QF) {
-#pragma unroll
-          for (int f = 0; f < QF; ++f) q[f] = fb + f < f_dim ? qrow[fb + f] : 0.f;
-        }
-        const bool last_block = fb + QF >= f_dim;
-        for (int s = 0; s < n_here; s += G) {
-          float acc[G];
-          int at[G];
-#pragma unroll
-          for (int e = 0; e < G; ++e) {
-            at[e] = (WINDOW ? TILE - 1 - lane + s + e : min(max(jc + s + e, 0), g.lb - 1)) * fs + fb;
-            acc[e] = fb == 0 ? 0.f : tile[lane * TS + s + e];
-          }
-          // features past f_dim are 0 in both q and the template: d = 0 adds 0
-          const float* rows = WINDOW ? win : tmpl;
-#pragma unroll
-          for (int f = 0; f < QF; ++f) {
-#pragma unroll
-            for (int e = 0; e < G; ++e) {
-              const float d = q[f] - rows[at[e] + f];
-              acc[e] = fmaf(d, d, acc[e]);
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < G; ++e)
-            tile[lane * TS + s + e] = (last_block && !squared) ? sqrtf(acc[e]) : acc[e];
-        }
-      }
-      // 2. the 32 dependent steps over the tile
-#pragma unroll 8
-      for (int s = 0; s < n_here; ++s) {
-        const int j = jc + s;
-        const bool ok = j >= lo && j <= hi;
-        const float c = tile[lane * TS + s];
-        const float up_e = row_above(edge, j, pjlo, pjhi, u_pad);
-        float up = __shfl_up_sync(FULL, last, 1);      // D(i-1, j) from lane l-1
-        if (lane == 0) up = up_e;
-        const float d1 = (origin && j == 0) ? 0.f : up1;  // D(i-1, j-1)
-        float val;
-        if (!ITAKURA) {
-          val = ok ? c + fminf(left, fminf(up, d1)) : BIG;
-          left = val;
-          if (lane == TILE - 1) stage[s] = val;
-        } else {
-          const float up_ne = row_above(edge + u_pad, j, pjlo, pjhi, u_pad);
-          float up_n = __shfl_up_sync(FULL, last_n, 1);  // N(i-1, j)
-          if (lane == 0) up_n = up_ne;
-          const float d2 = up2;                          // D(i-1, j-2)
-          float nv = BIG;
-          val = BIG;
-          if (ok) {
-            nv = c + fminf(d1, d2);
-            val = fminf(nv, c + up_n);   // one (1,0) step after a non-(1,0) one
-          }
-          last_n = nv;
-          if (lane == TILE - 1) {
-            stage[s] = val;
-            stage[TILE + s] = nv;
-          }
-        }
-        if (i == g.la - 1 && j == g.lb - 1) result = val;
-        up2 = up1;
-        up1 = up;
-        last = val;
-      }
-      // 3. hand the last row's chunk (columns jlo+s0-31 .. jlo+s0) to the
-      // next strip; lane 0 of this strip reads only columns > jlo+s0 from
-      // here on, so the overwrite is safe
-      __syncwarp();
-      const int col = jlo + s0 + lane - (TILE - 1);
-      if (col >= 0 && col < u_pad) {
-        edge[col] = stage[lane];
-        if (ITAKURA) edge[u_pad + col] = stage[TILE + lane];
-      }
-      __syncwarp();
+      pjlo = jlo;
+      pjhi = jhi;
     }
-    pjlo = jlo;
-    pjhi = jhi;
+    // the lane that owns row la-1 holds the answer
+    result = __shfl_sync(FULL, result, (g.la - 1) % TILE);
+    if (lane == 0)
+      out[(size_t)b * n_templates + k] = result / (float)(q_lens[b] + bank_lens[k]);
   }
-  // the lane that owns row la-1 holds the answer
-  result = __shfl_sync(FULL, result, (g.la - 1) % TILE);
-  if (lane == 0)
-    out[(size_t)b * n_templates + k] = result / (float)(q_lens[b] + bank_lens[k]);
 }
 
 // Mirrored by kernels/dtw_fused_banded.py:smem_bytes.
@@ -321,47 +449,39 @@ size_t dtw_banded_smem_bytes(int warps, int t_pad, int u_pad, int f_dim, int rb,
   const int ns = itakura ? 2 : 1;
   const size_t fs = feature_stride(f_dim);
   const size_t nb = (t_pad + rb - 1) / rb;
-  const size_t per_warp =
-      TILE * TS + ns * TILE + (size_t)ns * u_pad + nb + (window ? WIN * fs : 0);
-  return sizeof(float) * ((window ? 0 : (size_t)u_pad * fs) + warps * per_warp);
+  const size_t per_warp = TILE * RING + TILE * fs + ns * TILE + (size_t)ns * u_pad + nb;
+  // and the block's next query
+  return sizeof(float) * ((window ? 0 : (size_t)u_pad * fs) + warps * per_warp + 1);
 }
 
 }  // namespace
 
+// One launch in window mode or not, at `warps` warps a block taking
+// `per_block` queries, as kernels/dtw_fused_banded.py:launch_plan and
+// queries_a_block plan it.
 extern "C" int dtw_banded(const void* queries, const void* q_lens, const void* bank,
                           const void* bank_lens, void* out, int n_queries,
                           int n_templates, int t_pad, int u_pad, int f_dim, int w,
                           int s_max, int rb, int banded, int windowed,
-                          float band_frac, int squared, int itakura, void* stream) {
-  if (rb <= 0 || (rb & (rb - 1)) != 0 || t_pad < 1 || u_pad < 1 || f_dim < 1)
+                          float band_frac, int squared, int itakura, int window,
+                          int warps, int per_block, void* stream) {
+  if (rb <= 0 || (rb & (rb - 1)) != 0 || t_pad < 1 || u_pad < 1 || f_dim < 1 ||
+      warps < 1 || warps > MAX_WARPS || per_block < 1)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  // fewest idle warps for short batches; window mode where the whole template
-  // does not fit a one-warp block; fewer warps where shared memory is short
-  // (kernels/dtw_fused_banded.py:launch_plan is the same rule)
-  int warps = MAX_WARPS;
-  while (warps > 1 && warps / 2 >= n_queries) warps /= 2;
-  const bool window =
-      dtw_banded_smem_bytes(1, t_pad, u_pad, f_dim, rb, itakura, false) > (size_t)optin;
-  while (warps > 1 &&
-         dtw_banded_smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window) > (size_t)optin)
-    warps /= 2;
-  const size_t smem = dtw_banded_smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window);
+  const size_t smem =
+      dtw_banded_smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window != 0);
   auto kernel = itakura ? (window ? dtw_banded_kernel<true, true> : dtw_banded_kernel<true, false>)
                         : (window ? dtw_banded_kernel<false, true> : dtw_banded_kernel<false, false>);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so it cannot surface at the next launch
     return (int)err;
   }
-  dim3 grid(n_templates, (n_queries + warps - 1) / warps);
+  dim3 grid(n_templates, (n_queries + per_block - 1) / per_block);
   kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
       (const float*)queries, (const int*)q_lens, (const float*)bank,
       (const int*)bank_lens, (float*)out, n_queries, n_templates, t_pad, u_pad, f_dim,
-      w, s_max, rb, banded, windowed, band_frac, squared);
+      w, s_max, rb, banded, windowed, band_frac, squared, per_block);
   return (int)cudaGetLastError();
 }

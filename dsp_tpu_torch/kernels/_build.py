@@ -44,7 +44,7 @@ _U = ctypes.c_uint
 # C signatures: (argtypes, restype).  Pointers and the stream are c_void_p.
 _SIGNATURES = {
     "dtw_banded": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _I, _F, _I, _I, _P), _I),
+                    _I, _F, _I, _I, _I, _I, _I, _P), _I),
     "mfcc_fused": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                     _I, _I, _I, _F, _I, _I, _I, _I, _I, _P), _I),
     "spot_subseq": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

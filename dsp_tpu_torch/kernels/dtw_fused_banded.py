@@ -3,7 +3,8 @@
 Port of ``dsp_tpu/kernels/dtw_fused_banded.py:dtw_batch_fused_banded``.
 The kernel (``csrc/dtw_banded.cu``) runs one warp per (query, template)
 pair over strips of 32 rows, walking only the columns of
-:func:`strip_columns`; its header says what it computes and what bounds it.
+:func:`strip_columns` and computing only the costs of :func:`cost_tiles`;
+its header says what it computes and what bounds it.
 
 :func:`dtw_batch_fused_banded` takes CUDA tensors to the kernel and CPU
 tensors to :func:`dtw_batch_plain` (``ops/dtw.py:dtw_batch``, the same
@@ -17,14 +18,18 @@ import torch
 
 from dsp_tpu_torch.config import DtwConfig
 from dsp_tpu_torch.kernels import _build
+from dsp_tpu_torch.kernels.dtw_fused import resident_warps
 from dsp_tpu_torch.ops import dtw as tdtw
+from dsp_tpu_torch.utils import profiling
 from dsp_tpu_torch.window_plan import LANE, plan_window, round_up
 
 STRIP = 32      # rows a warp walks together, one a lane
-MAX_WARPS = 8   # pairs a block, one warp each
-WINDOW_ROWS = 2 * STRIP - 1   # template rows a chunk of 32 steps reads
-QF = 40         # features summed at a time: the template row stride's unit
+MAX_WARPS = 16  # warps a block, each taking the block's queries one at a time
+TILE_SIDE = 4   # a cost tile: 4 rows x 4 columns, one lane's at a time
+RING = 64       # cost columns a warp keeps a row: the blocks of two chunks
 SMEM_OPTIN = 232_448   # shared memory a block may use on the H100 (227 KB)
+SM_COUNT = 132         # SMs of the H100 (SXM5)
+PAIRS_A_WARP = 8       # the most queries a block takes a warp
 
 
 def _check_config(cfg: DtwConfig) -> None:
@@ -100,36 +105,72 @@ def strip_columns(la: int, lb: int, cfg: DtwConfig, t_pad: int, u_pad: int):
     return strips
 
 
+def cost_tiles(la: int, lb: int, cfg: DtwConfig, t_pad: int, u_pad: int):
+    """The cost tiles the kernel computes for pair (la, lb) at padded shape
+    (t_pad, u_pad): a list of (i0, j0), each the tile of rows i0 .. i0 + 3
+    and columns j0 .. j0 + 3.  In each strip of :func:`strip_columns`
+    (rows r0 .., columns jlo ..), tile row t holds rows r0 + 4t .. + 3 of
+    the strip, and its tiles start at columns jlo + 4k: those that meet a
+    row's valid interval (the kernel walks the tiles from its first row's
+    lo to its last row's hi and skips the others).  Cells past the lengths
+    inside a tile are computed and never read."""
+    rows = _row_columns(la, lb, cfg, t_pad, u_pad)
+    tiles = []
+    for r0, r1, jlo, _ in strip_columns(la, lb, cfg, t_pad, u_pad):
+        for i0 in range(r0, r1 + 1, TILE_SIDE):
+            ks = {k for lo, hi in rows[i0:min(i0 + TILE_SIDE, r1 + 1)] if lo <= hi
+                  for k in range((lo - jlo) // TILE_SIDE, (hi - jlo) // TILE_SIDE + 1)}
+            tiles += [(i0, jlo + TILE_SIDE * k) for k in sorted(ks)]
+    return tiles
+
+
 def _feature_stride(f_dim: int) -> int:
-    return (-(-f_dim // QF) * QF) | 1
+    return f_dim | 1
 
 
 def smem_bytes(warps: int, t_pad: int, u_pad: int, f_dim: int, rb: int,
                itakura: bool, window: bool) -> int:
     """Shared memory of one block, as ``csrc/dtw_banded.cu`` sizes it: the
-    whole template (staged mode) or a window of 63 template rows a warp
-    (window mode), and a warp's cost tile, staged row, edge row and window
-    offsets."""
+    whole template (staged mode; none in window mode), a warp's cost ring,
+    query strip, staged row, edge row and window offsets, and the block's
+    next query."""
     ns, fs = (2 if itakura else 1), _feature_stride(f_dim)
-    per_warp = (STRIP * (STRIP + 1) + ns * STRIP + ns * u_pad + -(-t_pad // rb)
-                + (WINDOW_ROWS * fs if window else 0))
-    return 4 * ((0 if window else u_pad * fs) + warps * per_warp)
+    per_warp = STRIP * RING + STRIP * fs + ns * STRIP + ns * u_pad + -(-t_pad // rb)
+    return 4 * ((0 if window else u_pad * fs) + warps * per_warp + 1)
 
 
 def launch_plan(n_queries: int, t_pad: int, u_pad: int, f_dim: int, rb: int,
                 itakura: bool, optin: int = SMEM_OPTIN) -> tuple[bool, int, int]:
-    """(window mode, warps a block, shared bytes) of a launch, the rule of
-    ``csrc/dtw_banded.cu:dtw_banded``: no more warps than queries need;
-    window mode where the whole template does not fit a one-warp block;
-    half the warps while the block does not fit.  The launch fails where
-    the bytes still exceed ``optin``."""
-    warps = MAX_WARPS
-    while warps > 1 and warps // 2 >= n_queries:
-        warps //= 2
+    """(window mode, warps a block, shared bytes) of a launch, which the
+    wrapper hands to ``csrc/dtw_banded.cu:dtw_banded``: window mode where
+    the whole template does not fit a one-warp block; then, of the block
+    sizes up to :data:`MAX_WARPS` that fit ``optin`` and that the queries
+    fill, the one that keeps most warps on an SM
+    (``dtw_fused.resident_warps``: this kernel too takes 128 registers a
+    thread), the larger on a tie.  The launch fails where even one warp
+    exceeds ``optin``."""
     window = smem_bytes(1, t_pad, u_pad, f_dim, rb, itakura, False) > optin
-    while warps > 1 and smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window) > optin:
-        warps //= 2
-    return window, warps, smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window)
+
+    def smem(warps):
+        return smem_bytes(warps, t_pad, u_pad, f_dim, rb, itakura, window)
+
+    top = min(MAX_WARPS, max(1, n_queries))
+    fits = [w for w in range(1, top + 1) if smem(w) <= optin] or [1]
+    warps = max(fits, key=lambda w: (resident_warps(w, smem(w)), w))
+    return window, warps, smem(warps)
+
+
+def queries_a_block(n_queries: int, n_templates: int, warps: int, smem: int) -> int:
+    """Queries a block of ``warps`` warps and ``smem`` shared bytes takes
+    (its warps take them one at a time): :data:`PAIRS_A_WARP` a warp where
+    the launch's pairs keep every warp the card holds on 4 or more, fewer
+    down to one a warp where they do not, spread evenly over a template's
+    blocks.  (A block past what an SM holds counts as one, so that its
+    launch reaches the kernel's entry and fails there.)"""
+    held = SM_COUNT * max(1, resident_warps(warps, smem))
+    per_warp = max(1, min(PAIRS_A_WARP, n_queries * n_templates // (4 * held)))
+    blocks = -(-n_queries // (warps * per_warp))
+    return -(-n_queries // blocks)
 
 
 def config_plan(n_queries: int, t_pad: int, u_pad: int, f_dim: int,
@@ -171,13 +212,15 @@ def dtw_batch_fused_banded(queries: torch.Tensor, q_lens: torch.Tensor,
     ``band_frac=None`` the result is plain unbanded DTW.  Pairs that are
     unreachable come out >= 1e20.  A block stages one template in shared
     memory (at most 227 KB) where it fits a one-warp block (at F=39 and
-    T=198: U up to 1,357 frames, 1,325 with the Itakura slope); longer
-    templates run in the kernel's window mode, where a warp stages the 63
-    template rows a chunk reads and its edge row of U floats (two with
-    Itakura) bounds U: at F=39, T=198 and band 0.17 up to 54,428 frames
-    (27,201 with Itakura), :func:`max_template_frames` for other shapes.
-    Beyond that the launch fails and this raises RuntimeError.  Any number
-    of queries runs, in launches of at most 65,535.
+    T=198: U up to 1,369 frames, 1,335 with the Itakura slope); longer
+    templates run in the kernel's window mode, where the cost tiles read
+    the template from device memory and a warp's edge row of U floats (two
+    with Itakura) bounds U: at F=39, T=198 and band 0.17 up to 54,770
+    frames (27,372 with Itakura), :func:`max_template_frames` for other
+    shapes.  Beyond that the launch fails and this raises RuntimeError.
+    Any number of queries runs, in launches of at most 65,535, each
+    counted in ``utils.profiling`` as ``dtw_banded.tiled`` (staged mode)
+    or ``dtw_banded.window``.
     """
     _check_config(cfg)
     if queries.device.type == "cpu":
@@ -204,10 +247,15 @@ def dtw_batch_fused_banded(queries: torch.Tensor, q_lens: torch.Tensor,
     if k == 0:
         return out
     w, s_max, rb, banded, windowed = _window(cfg, t, u)
+    itakura = cfg.slope == "itakura"
     for lo, hi in _build.row_slices(b):
+        window, warps, smem = launch_plan(hi - lo, t, u, f, rb, itakura)
+        per_block = queries_a_block(hi - lo, k, warps, smem)
         _build.launch("dtw_banded", dev, queries[lo].data_ptr(), q_lens[lo].data_ptr(),
                       bank.data_ptr(), bank_lens.data_ptr(), out[lo].data_ptr(), hi - lo,
                       k, t, u, f, w, s_max, rb, int(banded), int(windowed),
                       float(np.float32(cfg.band_frac)) if banded else 0.0,
-                      int(cfg.squared), int(cfg.slope == "itakura"))
+                      int(cfg.squared), int(itakura), int(window),
+                      min(warps, per_block), per_block)
+        profiling.count("dtw_banded.window" if window else "dtw_banded.tiled")
     return out

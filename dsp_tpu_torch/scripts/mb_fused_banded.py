@@ -14,7 +14,7 @@ The JAX script sweeps its kernel's QUERY_TILE.  This kernel's own knob is
 the warps a block that ``launch_plan`` picks from the number of queries,
 so in its place the rows sweep the batch: the first B queries, for each
 warp count the largest B of the powers of two up to ``--b`` and ``--b``
-itself that gives it (at the defaults B = 1, 2, 4 and 128).  Each row
+itself that gives it (at the defaults B = 1, 2, 4, 8 and 128).  Each row
 prints the plan it ran with (mode, warps a block, shared bytes), the
 counterpart of the JAX script's effective tile, and its distances are held
 to the plain version (``ops/dtw.py:dtw_batch``) at rtol 1e-4 with the BIG

@@ -183,8 +183,9 @@ def test_dtw_kernel_self_pair_is_exactly_zero(dev, kw):
 
 @pytest.mark.parametrize("f", [1, 13, 40, 41, 60, 100])
 def test_dtw_kernel_any_feature_width(dev, f):
-    """Widths other than the main path's 39: zero-padded template columns,
-    and beyond 40 features the cost summed 40 at a time."""
+    """Widths other than the main path's 39: even widths (staged at a row
+    stride one wider), and beyond 40 features (the query strip staged row
+    by row)."""
     for kw in ({}, {"slope": "itakura"}):
         args = _dtw_inputs(dev, 5, 4, 70, 64, f=f, seed=f)
         _check_dtw(kdtw.dtw_batch_fused_banded(*args, DtwConfig(**kw)),
@@ -195,17 +196,18 @@ LONG_TEMPLATE_CONFIGS = [{}, {"slope": "itakura"}, {"band_frac": None},
                          {"band_frac": None, "slope": "itakura"}]
 
 
-@pytest.mark.parametrize("u", [1325, 1357, 1358, 4000, 12000])
+@pytest.mark.parametrize("u", [1335, 1336, 1369, 1370, 4000, 12000])
 @pytest.mark.parametrize("kw", LONG_TEMPLATE_CONFIGS)
 def test_dtw_kernel_long_templates(dev, kw, u):
     """Templates that fit a one-warp block run staged (at F = 39, T = 198:
-    up to 1,357 frames, 1,325 with Itakura); longer ones run in the
-    kernel's window mode, 63 template rows a chunk."""
+    up to 1,369 frames, 1,335 with Itakura); longer ones run in the
+    kernel's window mode, the cost tiles reading the template from device
+    memory."""
     cfg = DtwConfig(**kw)
     t = 198
     itakura = cfg.slope == "itakura"
     window, _, _ = kdtw.launch_plan(3, t, u, 39, kdtw._window(cfg, t, u)[2], itakura)
-    assert window == (u > (1325 if itakura else 1357))
+    assert window == (u > (1335 if itakura else 1369))
     args = _dtw_inputs(dev, 3, 2, t, u, seed=6, min_len=20)
     _check_dtw(kdtw.dtw_batch_fused_banded(*args, cfg), kdtw.dtw_batch_plain(*args, cfg))
 
@@ -222,6 +224,49 @@ def test_dtw_kernel_longest_template_and_one_more(dev, kw):
         kdtw.dtw_batch_fused_banded(*_dtw_inputs(dev, 1, 1, 20, u + 1, seed=6), cfg)
     small = _dtw_inputs(dev, 2, 2, 30, 30)
     _check_dtw(kdtw.dtw_batch_fused_banded(*small, cfg), kdtw.dtw_batch_plain(*small, cfg))
+
+
+# the benchmark's cells: (queries, templates, T = U, shortest length)
+BENCH_CELLS = {"sc2-35w.host256": (256, 2240, 98, 13),
+               "digits-100.dev1024": (1024, 100, 198, 20)}
+
+
+@pytest.mark.parametrize("cell", sorted(BENCH_CELLS))
+def test_dtw_kernel_at_the_benchmark_cells_shapes(dev, cell):
+    """The cells' launches (lengths spread over the shortest to T), and 1,
+    3, 8 and 9 queries of them, where a block has fewer queries than its
+    warps' share: each against the plain version, and each bitwise the
+    rows of the whole batch (a pair's distance does not depend on the
+    block, warp or round that computed it)."""
+    b, k, t, lo = BENCH_CELLS[cell]
+    q, ql, bk, bl = _dtw_inputs(dev, b, k, t, t, seed=b + k, min_len=lo)
+    cfg = DtwConfig()
+    got = kdtw.dtw_batch_fused_banded(q, ql, bk, bl, cfg)
+    _check_dtw(got, kdtw.dtw_batch_plain(q, ql, bk, bl, cfg))
+    for n in (1, 3, 8, 9):
+        part = kdtw.dtw_batch_fused_banded(q[:n].contiguous(), ql[:n].contiguous(), bk, bl, cfg)
+        _check_dtw(part, kdtw.dtw_batch_plain(q[:n], ql[:n], bk, bl, cfg))
+        assert torch.equal(part, got[:n]), n
+
+
+def test_dtw_kernel_counts_each_launch_by_its_cost_path(dev):
+    """``dtw_banded.tiled`` for a staged launch, ``dtw_banded.window`` for a
+    template past the staged limit, one a launch."""
+    from dsp_tpu_torch.utils import profiling
+
+    cfg = DtwConfig()
+
+    def counted(*args):
+        before = profiling.counts()
+        kdtw.dtw_batch_fused_banded(*args, cfg)
+        return {n: v - before.get(n, 0) for n, v in profiling.counts().items()
+                if n.startswith("dtw_banded.") and v != before.get(n, 0)}
+
+    assert counted(*_dtw_inputs(dev, 4, 3, 98, 98)) == {"dtw_banded.tiled": 1}
+    assert counted(*_dtw_inputs(dev, 2, 2, 198, 2000, min_len=20)) == {"dtw_banded.window": 1}
+    b = ROWS_PAST_THE_GRID
+    assert counted(*_dtw_inputs(dev, b, 2, 8, 8, f=3, seed=12)) == {
+        "dtw_banded.tiled": len(_build.row_slices(b))}
 
 
 def test_auto_takes_templates_past_the_staged_limit(dev):
@@ -1566,8 +1611,8 @@ def test_measurement_scripts_on_the_card(dev, capsys, name, argv, kernels):
         assert row["kernel"] > 0 and row["unbanded"] > 0 and row["scan"] > row["kernel"]
         assert row["kernel_max_rel_err"] <= 1e-4 and row["unbanded_max_rel_err"] <= 1e-4
     elif name == "mb_fused_banded":
-        assert [r["b"] for r in out] == [1, 2, 4, 16] * 3
-        assert [r["warps"] for r in out[:4]] == [1, 2, 4, 8]
+        assert [r["b"] for r in out] == [1, 2, 4, 8, 16] * 3
+        assert [r["warps"] for r in out[:5]] == [1, 2, 3, 5, 14]
         assert all(r["max_rel_err"] <= 1e-4 for r in out)
     else:
         assert out["check"]["flip_share"] < 1e-3 and out["scan"]["ms"] > out["fused"]["ms"] > 0

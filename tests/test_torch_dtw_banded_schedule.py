@@ -5,6 +5,9 @@
 must hold every valid cell of the reference's windowed band
 (``dsp_tpu/golden/dtw.py:windowed_band_mask``) and no row outside the
 query's length, and with ``band_frac=None`` it must walk whole rows.
+``cost_tiles`` is the kernel's rule for the 4 x 4 tiles whose costs it
+computes: every valid cell in exactly one tile, no tile without a valid
+cell, and few cells more than the valid ones.
 
 Off the card no wrapper may reach ``_build``: with its library and launch
 helper made to raise, CPU tensors still take each kernel's plain version.
@@ -25,8 +28,9 @@ from dsp_tpu_torch.kernels import mb_wavefront as kmb
 from dsp_tpu_torch.kernels import mfcc_fused as kmf
 from dsp_tpu_torch.kernels import spot_fused as ksp
 
-# (T, U): the main path's shape and chip_smoke.py's sliding case
-MAIN, SLIDING = (198, 198), (120, 300)
+# (T, U): the main path's shape, chip_smoke.py's sliding case and the
+# benchmark's Speech Commands clips
+MAIN, SLIDING, SC2 = (198, 198), (120, 300), (98, 98)
 EDGE_LENGTHS = (1, 2, 31, 32, 33, 63, 64, 65)
 
 
@@ -92,6 +96,44 @@ def test_strip_columns_walk_the_band_not_the_row():
     strips = kdtw.strip_columns(198, 198, cfg, *MAIN)
     widths = [jhi - jlo + 1 + (r1 - r0) for r0, r1, jlo, jhi in strips]
     assert len(strips) == 7 and max(widths) < 198 // 2 + 31
+
+
+def _valid(la: int, lb: int, band_frac, t_pad: int, u_pad: int) -> np.ndarray:
+    if band_frac is None:
+        return np.ones((la, lb), dtype=bool)
+    w, s_max, _, rb, _ = plan_window(band_frac, t_pad, u_pad, 2.0)
+    return windowed_band_mask(la, lb, band_frac, window=w, row_block=rb, s_max=s_max)
+
+
+@pytest.mark.parametrize("shape", [MAIN, SLIDING, SC2], ids=["main", "sliding", "sc2"])
+@pytest.mark.parametrize("band_frac", [0.1, 0.17, 0.2, None])
+def test_cost_tiles_hold_every_valid_cell_once(shape, band_frac):
+    t_pad, u_pad = shape
+    cfg = DtwConfig(band_frac=band_frac, max_warp_scale=2.0)
+    side = kdtw.TILE_SIDE
+    for la, lb in _pairs(t_pad, u_pad, seed=int((band_frac or 0) * 100) + t_pad + 1):
+        tiles = kdtw.cost_tiles(la, lb, cfg, t_pad, u_pad)
+        valid = _valid(la, lb, band_frac, t_pad, u_pad)
+        held = np.zeros((la + side, lb + side), dtype=int)
+        for i0, j0 in tiles:
+            assert i0 % side == 0 and 0 <= i0 < la and 0 <= j0 < lb, (la, lb, i0, j0)
+            held[i0:i0 + side, j0:j0 + side] += 1
+            # no tile wholly outside the band
+            assert valid[i0:i0 + side, j0:j0 + side].any(), (la, lb, i0, j0)
+        assert (held[:la, :lb][valid] == 1).all(), (la, lb)
+
+
+@pytest.mark.parametrize("n", [40, 70, 98])
+def test_cost_tiles_compute_near_the_valid_cells(n):
+    """At T = 98 the tiles hold at most 1.5x the valid cells, under half
+    the walked parallelogram's (3-6x them)."""
+    cfg = DtwConfig()
+    side = kdtw.TILE_SIDE
+    computed = side * side * len(kdtw.cost_tiles(n, n, cfg, *SC2))
+    walked = sum(kdtw.STRIP * ((jhi - jlo + 1) + (r1 - r0))
+                 for r0, r1, jlo, jhi in kdtw.strip_columns(n, n, cfg, *SC2))
+    valid = kdtw.valid_cells(n, n, cfg, *SC2)
+    assert computed <= 1.5 * valid and 2 * computed < walked
 
 
 def _rng_tensor(shape, seed=0):

@@ -2,9 +2,10 @@
 
 - The launch slices (``_build.row_slices``) that let kernels 1, 3 and 4
   take any batch: every row once, in order, at most 65,535 rows a launch.
-- Kernel 1's launch plan (``dtw_fused_banded.launch_plan``, the host rule
-  of ``csrc/dtw_banded.cu``): the staged and window modes' limits the
-  wrapper's docstring states.
+- Kernel 1's launch plan (``dtw_fused_banded.launch_plan`` and
+  ``queries_a_block``, the host's rule for ``csrc/dtw_banded.cu``): the
+  staged and window modes' limits the wrapper's docstring states, and how
+  a launch's queries spread over its blocks.
 - The plain version the card holds kernel 1 to, against the JAX scan
   (``dsp_tpu/ops/dtw.py``) at a template longer than the staged mode's
   limit: rtol 1e-5 (the same cost GEMMs, rounded in another order), the
@@ -53,10 +54,10 @@ def test_row_slices_cover_every_row_once_in_order(n):
 
 
 @pytest.mark.parametrize("kw,staged,longest", [
-    ({}, 1357, 54_428),
-    ({"slope": "itakura"}, 1325, 27_201),
-    ({"band_frac": None}, 1357, 54_434),
-    ({"band_frac": None, "slope": "itakura"}, 1325, 27_201),
+    ({}, 1369, 54_770),
+    ({"slope": "itakura"}, 1335, 27_372),
+    ({"band_frac": None}, 1369, 54_776),
+    ({"band_frac": None, "slope": "itakura"}, 1335, 27_372),
 ])
 def test_kernel1_launch_plan_limits(kw, staged, longest):
     """At F = 39 and T = 198: the longest template staged whole in a
@@ -70,11 +71,46 @@ def test_kernel1_launch_plan_limits(kw, staged, longest):
     assert plan(1, staged)[0] is False and plan(1, staged + 1)[0] is True
     assert kdtw.max_template_frames(198, 39, cfg) == longest
     assert plan(1, longest)[2] <= kdtw.SMEM_OPTIN < plan(1, longest + 1)[2]
-    # the main path keeps its staged launch at 8 warps a block
+    # the main path keeps its staged launch, at the block size that keeps
+    # most warps on an SM: one block of 14 (13 with Itakura)
     window, warps, smem = plan(256, 198)
-    assert (window, warps) == (False, 8) and smem <= kdtw.SMEM_OPTIN
-    # a long template in window mode keeps 8 warps a block while they fit
-    assert plan(16, 3000)[:2] == (True, 8 if not itakura else 4)
+    assert (window, warps) == (False, 14 if not itakura else 13)
+    rb = kdtw._window(cfg, 198, 198)[2]
+    assert smem <= kdtw.SMEM_OPTIN < kdtw.smem_bytes(warps + 1, 198, 198, 39, rb, itakura, False)
+    assert kdtw.resident_warps(warps, smem) == warps
+    # a long template in window mode: as many warps as fit one block
+    assert plan(16, 3000)[:2] == (True, 9 if not itakura else 6)
+
+
+@pytest.mark.parametrize("b,k,t,u", [(256, 2240, 98, 98), (1024, 100, 198, 198),
+                                     (256, 100, 198, 198), (64, 32, 120, 300),
+                                     (16, 8, 198, 1369), (1, 100, 198, 198), (9, 5, 98, 98),
+                                     (65_535, 2, 8, 8)])
+def test_kernel1_queries_a_block(b, k, t, u):
+    """A launch's queries fill its blocks evenly, at most 8 a warp: 8 where
+    the pairs keep every warp the card holds on 4 or more, one a warp where
+    they cannot fill it."""
+    window, warps, smem = kdtw.launch_plan(b, t, u, 39, kdtw._window(DtwConfig(), t, u)[2],
+                                           False)
+    per = kdtw.queries_a_block(b, k, warps, smem)
+    blocks = -(-b // per)
+    assert 1 <= per <= warps * kdtw.PAIRS_A_WARP
+    assert per * blocks - b < blocks     # no block takes two fewer than another
+    held = kdtw.SM_COUNT * kdtw.resident_warps(warps, smem)
+    if b * k >= 4 * held * kdtw.PAIRS_A_WARP:
+        assert blocks == -(-b // (warps * kdtw.PAIRS_A_WARP))
+    if b * k < 8 * held:
+        assert per <= warps
+
+
+def test_kernel1_queries_a_block_past_the_shared_memory():
+    """One frame past the longest template: no SM holds the block, and the
+    queries still land in blocks (the launch then fails at the entry)."""
+    cfg = DtwConfig()
+    u = kdtw.max_template_frames(20, 39, cfg) + 1
+    window, warps, smem = kdtw.launch_plan(1, 20, u, 39, kdtw._window(cfg, 20, u)[2], False)
+    assert smem > kdtw.SMEM_OPTIN and kdtw.resident_warps(warps, smem) == 0
+    assert kdtw.queries_a_block(1, 1, warps, smem) == 1
 
 
 @pytest.mark.parametrize("kw", [{}, {"band_frac": None}, {"squared": True},

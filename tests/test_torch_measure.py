@@ -229,7 +229,7 @@ def test_mb_long_t_inputs_and_plans_equal_jax(monkeypatch, no_cache):
         for a, ja in zip(dtw_inputs(b, mb_long_t.K, t, 39, "cpu"), jargs):
             assert a.numpy().tobytes() == np.asarray(ja).tobytes()
     assert [mb_long_t.pair_count(t)[1] for t in mb_long_t.shapes()] == [256, 64, 64]
-    assert mb_long_t.plan_text(16, 198, 39, 0.17).endswith("(staged x8)")
+    assert mb_long_t.plan_text(16, 198, 39, 0.17).endswith("(staged x14)")
     assert mb_long_t.plan_text(4, 1024, 39, 0.17).endswith("(staged x4)")
 
 
@@ -297,9 +297,9 @@ def test_mb_fused_banded_rows_equal_jax_dtw(variant, over):
 
     q, ql, bank, bl = dtw_inputs(3, 4, 24, 39, "cpu")
     cfg = DtwConfig(**over)
-    assert mb_fused_banded.batch_sweep(128, 198, 39, cfg) == [1, 2, 4, 128]
-    assert mb_fused_banded.batch_sweep(16, 198, 39, cfg) == [1, 2, 4, 16]
-    assert [config_plan(b, 198, 198, 39, cfg)[1] for b in (1, 2, 4, 128)] == [1, 2, 4, 8]
+    assert mb_fused_banded.batch_sweep(128, 198, 39, cfg) == [1, 2, 4, 8, 128]
+    assert mb_fused_banded.batch_sweep(16, 198, 39, cfg) == [1, 2, 4, 8, 16]
+    assert [config_plan(b, 198, 198, 39, cfg)[1] for b in (1, 2, 4, 128)] == [1, 2, 3, 14]
     want = np.asarray(jdtw.dtw_batch(*(jnp.asarray(a.numpy()) for a in (q, ql, bank, bl)),
                                      JDtwConfig(**over), jax.lax.Precision.HIGHEST))
     for b in (1, 3):       # a row times the first b queries
