@@ -11,7 +11,15 @@ transitions stay or advance) with diagonal-Gaussian mixture emissions.
   match the JAX package's.
 * **Decode is one batched loop** (``ops/viterbi.py``): log-space Viterbi
   over [B, W, S] log-deltas scores a whole utterance batch against the
-  whole vocabulary.
+  whole vocabulary.  :func:`recognize_batch` runs the front end, the
+  decode and the word choice on the clips' device with no host sync;
+  ``GmmHmmRecognizer.classify_batch`` is the host clips padded and copied
+  (``pipeline.pad_signals``), that, and one readback.  On the card the
+  front end and the Viterbi loop replay CUDA graphs (``utils/graphs.py``):
+  at 8 kHz their ~1,000 small launches a batch took the host longer than
+  the card took to run them.  Under a profiler the emissions are the span
+  ``dsp.emissions``, the word choice ``dsp.argmax`` and the readback
+  ``dsp.readback``.
 * **Training** is segmental (Viterbi) EM or Baum-Welch (``HmmConfig.
   train_mode``) from a uniform segmentation, with a universal background
   GMM (UBM) fitted over every frame, the MAP prior when ``map_tau > 0``
@@ -33,13 +41,17 @@ word's index), moved to the device afterwards, so a fit on the card and a
 fit on the CPU start from the same parameters; ``jax.random`` bits cannot
 be reproduced, so :func:`init_params`, :func:`fit_ubm` and
 :func:`fit_words_batched` take the draw as a tensor and the parity tests
-hand them JAX's own.  The segmental E-step decodes the batch with the
+hand them JAX's own.  The uniform segmentation gives an utterance
+shorter than ``n_states`` frames one state a frame (the JAX package
+spreads it over every state, leaving states between its frames empty).
+The segmental E-step decodes the batch with the
 batched ``viterbi_decode`` and takes the summed log-likelihood from that
 decode.  Checkpoints are the JAX package's ``.npz``, field for field.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 from typing import NamedTuple
 
@@ -48,11 +60,12 @@ import torch
 
 from dsp_tpu_torch import pipeline as pl
 from dsp_tpu_torch.config import HmmConfig, PipelineConfig
-from dsp_tpu_torch.models.knn_dtw import (REJECT, _check_mesh,
+from dsp_tpu_torch.models.knn_dtw import (REJECT, _check_mesh, _to_host,
                                           check_frontend_signature,
                                           frontend_signature, grammar_masks)
 from dsp_tpu_torch.ops import frontend as fe
 from dsp_tpu_torch.ops.viterbi import viterbi_decode, viterbi_score
+from dsp_tpu_torch.utils import graphs, profiling
 
 NEG_INF = -1e30
 LOG_2PI = float(np.log(2.0 * np.pi))
@@ -120,10 +133,11 @@ def emission_logb(x: torch.Tensor, params: HmmParams) -> torch.Tensor:
     """x [..., F] + params [*lead, S, M, F] -> logB [..., *lead, S]."""
     lead = params.means.shape[:-1]                                # (*, S, M)
     f = params.means.shape[-1]
-    ll = gmm_loglik_flat(x, params.means.reshape(-1, f),
-                         params.log_var.reshape(-1, f))           # [..., K]
-    ll = ll.reshape(*x.shape[:-1], *lead)                         # [..., *, S, M]
-    return torch.logsumexp(ll + params.log_mix, dim=-1)           # [..., *, S]
+    with profiling.stage("dsp.emissions"):
+        ll = gmm_loglik_flat(x, params.means.reshape(-1, f),
+                             params.log_var.reshape(-1, f))       # [..., K]
+        ll = ll.reshape(*x.shape[:-1], *lead)                     # [..., *, S, M]
+        return torch.logsumexp(ll + params.log_mix, dim=-1)       # [..., *, S]
 
 
 def _mixture_loglik(feats: torch.Tensor, params: HmmParams) -> torch.Tensor:
@@ -150,6 +164,37 @@ def score_words(feats: torch.Tensor, lengths: torch.Tensor,
                          logb, lengths[:, None])
 
 
+def recognize_batch(signals: torch.Tensor, n_samples: torch.Tensor, params: HmmParams,
+                    cfg: PipelineConfig = PipelineConfig()):
+    """Padded clips [B, max_samples] and their lengths [B] -> (word ids [B],
+    Viterbi log-liks [B, W]) on their device: the front end
+    (``pipeline.extract_features``), :func:`score_words` against the
+    stacked word models ``params`` [W, ...] and the argmax (the first of
+    equal scores), with no host sync."""
+    f = cfg.frontend
+    if f.impl == "xla":
+        # the plain chain reads no constant but these caches'; kernel 2's
+        # tables are not held here, so its route runs op by op
+        keep = (fe.make_matrices(f, signals.device),
+                fe.fold_matrices(f, signals.device) if f.n_fft < f.frame_len else None)
+        feats = graphs.replayed(("extract_features", cfg),
+                                functools.partial(pl.extract_features, cfg=cfg), signals,
+                                n_samples, keep=keep, span="dsp.frontend")
+    else:
+        feats = pl.extract_features(signals, n_samples, cfg)
+    scores = score_words(feats.feats, feats.length, params)
+    with profiling.stage("dsp.argmax"):
+        return scores.argmax(-1), scores
+
+
+def _read_back(ids: torch.Tensor, scores: torch.Tensor):
+    """(ids [B], scores [B, W]) -> numpy (ids int64, scores float32) with
+    one copy, so the host waits on the card once: the ids ride as a
+    float32 column, exact for any vocabulary under 2^24 words."""
+    both = _to_host(torch.cat([scores, ids[:, None].to(scores.dtype)], dim=1)).numpy()
+    return both[:, -1].astype(np.int64), np.ascontiguousarray(both[:, :-1])
+
+
 def score_ubm(feats: torch.Tensor, lengths: torch.Tensor, ubm) -> torch.Tensor:
     """feats [B, T, F] x UBM (means / log_var [M, F], log_mix [M]) -> total
     log-lik [B] over the valid frames: the background score the
@@ -167,9 +212,14 @@ def _valid(t: int, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def _uniform_alignment(t_max: int, length: torch.Tensor, n_states: int) -> torch.Tensor:
-    """Initial state of frame t: floor(t * S / length), clipped; [..., T]."""
+    """Initial state of frame t: floor(t * S / max(length, S)), clipped;
+    [..., T].  An utterance shorter than S frames takes states 0 ..
+    length - 1, one a frame: spread over all S it would leave states
+    between its frames empty, and a left-to-right path with no skips
+    cannot cross an empty state, so EM would keep the word in its first
+    states."""
     t_idx = torch.arange(t_max, device=length.device)
-    st = torch.div(t_idx * n_states, torch.clamp(length, min=1)[..., None],
+    st = torch.div(t_idx * n_states, torch.clamp(length, min=n_states)[..., None],
                    rounding_mode="floor")
     return torch.clamp(st, 0, n_states - 1)
 
@@ -544,6 +594,13 @@ class GmmHmmRecognizer:
         self.noise_adapt = noise_adapt
         self.reject_threshold: float | None = None   # calibrate_rejection
 
+    def device_params(self) -> HmmParams:
+        """The stacked word models [W, ...] on the recognizer's device, in
+        ``labels`` order: what :func:`recognize_batch` takes."""
+        if self.params is None:
+            raise ValueError("model not fitted")
+        return self.params
+
     def extract(self, signals) -> pl.Features:
         """Host list of signals -> Features on the recognizer's device."""
         return pl.extract_signals(signals, self.cfg, self.device)
@@ -626,21 +683,26 @@ class GmmHmmRecognizer:
         threshold (:meth:`calibrate_rejection`), a number is explicit, and
         utterances below it return ``REJECT``.  Composes with
         ``noise_adapt``; with a mesh the decode is data-parallel
-        (:meth:`_score_sharded`)."""
+        (:meth:`_score_sharded`), else the clips are padded and copied
+        (``pipeline.pad_signals``), decoded by :func:`recognize_batch` and
+        read back once (``dsp.readback``)."""
         if self.params is None:
             raise ValueError("model not fitted")
         thr = self._resolve_reject(reject)
         params, ubm = self._scoring_models(signals)
-        feats = None
+        x = None
         if _check_mesh(self.mesh) is not None:
             scores = self._score_sharded(signals, params)
+            ids = scores.argmax(axis=-1)
         else:
-            feats = self.extract(signals)
-            scores = score_words(feats.feats, feats.length, params).cpu().numpy()
-        labels = [self.labels[int(i)] for i in scores.argmax(axis=-1)]
+            x, n = pl.pad_signals(signals, self.cfg.max_samples, self.device)
+            ids, scores = recognize_batch(x, n, params, self.cfg)
+            with profiling.stage("dsp.readback"):
+                ids, scores = _read_back(ids, scores)
+        labels = [self.labels[int(i)] for i in ids]
         if thr is not None:
-            if feats is None:                    # mesh path: extract here
-                feats = self.extract(signals)
+            feats = (self.extract(signals) if x is None       # mesh path
+                     else pl.extract_features(x, n, self.cfg))
             llr = self._utterance_llr(feats, scores, ubm)
             labels = [REJECT if not (s >= thr) else lab
                       for lab, s in zip(labels, llr)]

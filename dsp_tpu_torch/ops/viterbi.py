@@ -10,6 +10,14 @@ Variable-length sequences: frames at ``t >= length`` carry the previous
 state through unchanged, as the JAX scan's masked step does.  No loop
 reads a tensor back to the host.
 
+On the card :func:`viterbi_score` replays its loop from a CUDA graph of
+each shape (``utils/graphs.py``): the loop is ~5 small launches a step,
+so issuing it from the host took longer than the card took to run it
+(197 steps a 2 s clip), and the host's speed set the rate.  Under a
+profiler the loop, or its replay, is the span ``dsp.viterbi``
+(``utils/profiling.stage``), and every call counts its T - 1 time steps
+in ``viterbi_steps``.
+
 Deviation the tests pin: :func:`viterbi_decode` takes leading batch dims
 (``log_b`` [..., T, S]) in place of the JAX package's ``vmap`` over a
 single-sequence decode; with ``log_b`` [T, S] it is that decode.
@@ -21,6 +29,8 @@ oracle: ``dsp_tpu/golden/hmm.py``.
 from __future__ import annotations
 
 import torch
+
+from dsp_tpu_torch.utils import graphs, profiling
 
 NEG_INF = -1e30
 
@@ -46,8 +56,14 @@ def viterbi_score(log_pi: torch.Tensor, log_a: torch.Tensor, log_b: torch.Tensor
     """
     t = log_b.shape[0]
     length = _length(length, t, log_b)
+    profiling.count("viterbi_steps", t - 1)
+    with profiling.stage("dsp.viterbi"):
+        return graphs.replayed("viterbi_score", _viterbi_loop, log_pi, log_a, log_b, length)
+
+
+def _viterbi_loop(log_pi, log_a, log_b, length):
     delta = log_pi + log_b[0]
-    for ti in range(1, t):
+    for ti in range(1, log_b.shape[0]):
         scores = torch.amax(delta[..., :, None] + log_a, dim=-2) + log_b[ti]
         delta = torch.where((ti < length)[..., None], scores, delta)
     return torch.amax(delta, dim=-1)

@@ -1267,6 +1267,96 @@ def test_hmm_lattice_loops_never_wait_for_the_card(dev):
         torch.cuda.set_sync_debug_mode("default")
 
 
+def test_viterbi_score_replays_its_graph_bit_for_bit_and_never_waits(dev, monkeypatch):
+    """The card's ``viterbi_score`` (``utils/graphs.py``: op by op at a
+    shape's first call, a CUDA graph captured at its second and replayed
+    after) against the loop run op by op on the same inputs: equal bits
+    at every call, no host sync, the caller's tensors free to change after
+    a call, and the least recently used shape dropped past
+    ``GRAPHS_KEPT``."""
+    from dsp_tpu_torch.ops import viterbi as tvit
+    from dsp_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(graphs, "_graphs", type(graphs._graphs)())
+    monkeypatch.setattr(graphs, "_seen", type(graphs._seen)())
+    monkeypatch.setattr(graphs, "GRAPHS_KEPT", 2)
+    rng = np.random.default_rng(3)
+
+    def inputs(t, b):
+        log_b = torch.from_numpy(rng.standard_normal((t, b, 3, 16)).astype(np.float32)).to(dev)
+        log_pi = torch.log_softmax(torch.from_numpy(rng.standard_normal((1, 3, 16))), -1)
+        log_a = torch.log_softmax(torch.from_numpy(rng.standard_normal((1, 3, 16, 16))), -1)
+        lengths = torch.from_numpy(rng.integers(1, t + 1, (b, 1)).astype(np.int32))
+        return log_pi.float().to(dev), log_a.float().to(dev), log_b, lengths.to(dev)
+
+    calls = [inputs(40, 5) for _ in range(3)]
+    want = [tvit._viterbi_loop(*x) for x in calls]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tvit.viterbi_score(*x) for x in calls]
+        calls[1][2].fill_(0.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert len(graphs._graphs) == 1 and not graphs._seen
+    for shape in ((40, 6), (41, 5), (40, 5)):
+        for _ in range(2):
+            x = inputs(*shape)
+            assert torch.equal(tvit.viterbi_score(*x), tvit._viterbi_loop(*x))
+    assert [k[4][0] for k in graphs._graphs] == [(41, 5, 3, 16), (40, 5, 3, 16)]
+
+
+def test_hmm_recognize_batch_never_waits_and_classify_batch_reads_back_once(dev):
+    """Aurora 2's topology (16 states x 3 Gaussians, 8 kHz) on the card:
+    ``recognize_batch`` issues no host sync and gives the same bits op by
+    op and from its graphs; ``classify_batch`` waits on
+    its two copies and its one readback, as ``host_syncs`` counts; labels
+    equal and scores at rtol 1e-5 against the CPU on the same models."""
+    import warnings
+
+    from dsp_tpu_torch import GmmHmmRecognizer
+    from dsp_tpu_torch.config import HmmConfig
+    from dsp_tpu_torch.models import gmm_hmm as pg
+    from dsp_tpu_torch.utils import profiling
+
+    cfg = PipelineConfig(frontend=FrontendConfig(sample_rate=8000, frame_len=200, hop_len=80,
+                                                 n_fft=256, n_mels=23, n_mfcc=13),
+                         max_samples=16000)
+    words = ("zero", "oh", "one")
+    train = {w: [synth_word(w, i, sr=8000, max_samples=16000) for i in range(4)] for w in words}
+    rec = GmmHmmRecognizer(cfg, HmmConfig(n_states=16, n_mix=3), device=dev)
+    rec.fit(train)
+    sigs = [synth_word(w, 60 + i, sr=8000, max_samples=16000) for i, w in enumerate(words * 2)]
+    x, n = tpl.pad_signals(sigs, cfg.max_samples, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:    # op by op, then captured, then replayed (utils/graphs.py)
+        runs = [pg.recognize_batch(x, n, rec.device_params(), cfg) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ids, scores = runs[0]
+    assert all(torch.equal(i, ids) and torch.equal(s, scores) for i, s in runs[1:])
+    before = profiling.counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            labels, got = rec.classify_batch(sigs, return_scores=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert profiling.counts()["host_syncs"] - before.get("host_syncs", 0) == 3 == len(waits)
+    assert np.array_equal(got, scores.cpu().numpy())
+    assert labels == [rec.labels[i] for i in ids.cpu().tolist()]
+    host = GmmHmmRecognizer(cfg, HmmConfig(n_states=16, n_mix=3), device="cpu")
+    host.labels, host.params = rec.labels, pg.HmmParams(*(a.cpu() for a in rec.params))
+    want_labels, want = host.classify_batch(sigs, return_scores=True)
+    assert labels == want_labels
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+
+
 def _hmm_pair(dev):
     """A small GMM-HMM fitted on the card, and a CPU recognizer on its
     parameters and UBM."""
