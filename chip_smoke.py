@@ -167,7 +167,8 @@ each of which raises on failure (non-zero exit):
              ``torch.cuda.set_sync_debug_mode("error")``: no call waits for
              the card.
 13. hmm    — the GMM-HMM recognizer (BASELINE config 3) at full width,
-             plain PyTorch on the card: the default ``HmmConfig`` (5
+             PyTorch on the card but for the decode's kernel
+             ``viterbi_score``: the default ``HmmConfig`` (5
              states, 3 mixtures, 10 EM iterations, F = 39, T = 198) fitted
              on 10 digits x 10 utterances, segmental (fitted twice, both
              timed) and Baum-Welch, each against the CPU's EM on the same
@@ -187,9 +188,17 @@ each of which raises on failure (non-zero exit):
              n-best top-1 to the label; a ``noise_adapt=True`` classify of
              the queries under sigma 0.05 noise against the CPU's; a
              save/load round trip (parameters, threshold and labels
-             equal); and one classify through ``FrontendConfig(impl=
+             equal); the Viterbi kernel's launches in the default front
+             end's classify (the benchmark cell's path; counts reset just
+             before, read just after, none fails: the kernel table's
+             count); one classify through ``FrontendConfig(impl=
              "pallas")`` with launch counts reset just before and read just
-             after (kernel 2 must launch, no other kernel).  Prints fit
+             after (kernel 2 and the Viterbi kernel must launch, no other
+             kernel); the Viterbi kernel against ``_viterbi_loop``, equal
+             bits, on the queries' emissions (S = 5) and at the benchmark
+             cell's shape (1,024 x 11 x 16, T = 198), its CUDA-event time
+             there beside the graph route's, the loop's op by op and the
+             bound (``log_b`` read once).  Prints fit
              seconds, accuracy, viterbi_decodes_per_sec (bench_all.py:144:
              256 x 10 utterance-word decodes over the CUDA-event time of one
              ``score_words``) and the device ops and device time of one
@@ -468,7 +477,8 @@ each of which raises on failure (non-zero exit):
              ``bench_all.main()`` at the JAX sizes: the eleven rows' lines
              in the JAX order, each row's launches as counted from the
              source (1 + passes x calls a pass of kernel 1 in configs 0, 1,
-             4 and ``connected``, of kernel 3 in ``spot``, none elsewhere).
+             4 and ``connected``, of kernel 3 in ``spot``, of the Viterbi
+             kernel in config 3, none elsewhere).
              Then each row at ``BENCH_ALL_CUT`` once on the card and once on
              the CPU from the same host inputs: labels equal (configs 0, 1,
              4, ``connected``, ``ltw``); config 2's MFCC at rtol/atol 1e-3;
@@ -478,7 +488,8 @@ each of which raises on failure (non-zero exit):
              cascade's, its LLR tolerance widened by four float32 spacings
              of the stream's largest UBM prefix sum over the span (the
              random UBM's sums reach 2.3e6 nats).  Kernels 1 and 3's
-             launches here join the kernel table's.
+             launches here join the kernel table's (the Viterbi kernel's:
+             phase hmm's default classify alone).
 
 Kernel timings are CUDA-event medians of 5 runs after a warm-up (the
 plain versions' first timed run follows their checked one, and in phases
@@ -720,7 +731,7 @@ MEASURE_CHILD_TIMEOUT_S = 300   # the process that profiles them
 BENCH_LAUNCHES = 4 * (1 + 5)    # bench.py: 1024 / 256 chunks x (warm-up + 5 passes)
 BENCH_CAPTURED = 4              # BENCH_DISPATCH=single: one capture of the 4 chunks
 BENCH_ALL_CUT = dict(batch=8, templates_per_word=2, clips=4, sc2_per_word=1)   # vs the CPU
-BENCH_ROW_KERNELS = {0: "dtw_banded", 1: "dtw_banded", 4: "dtw_banded",
+BENCH_ROW_KERNELS = {0: "dtw_banded", 1: "dtw_banded", 3: "viterbi_score", 4: "dtw_banded",
                      "connected": "dtw_banded", "spot": "spot_subseq"}
 BENCH_LABEL_ROWS = (0, 1, 4, "connected", "ltw")
 BENCH_MFCC_TOL = dict(rtol=1e-3, atol=1e-3)    # the streaming front end (phase streaming)
@@ -1732,9 +1743,11 @@ def params_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def hmm_phase(seed: int, dev, report) -> int:
+def hmm_phase(seed: int, dev, report) -> dict:
     """Phase hmm: BASELINE config 3 on the card against the CPU; returns
-    kernel 2's launches in the fused front-end's classify."""
+    the launches of kernel 2 in the fused front-end's classify and of the
+    Viterbi kernel in the default front-end's (the benchmark cell's path:
+    plain front end, ``score_words``, the kernel)."""
     import numpy as np
     import torch
 
@@ -1821,7 +1834,13 @@ def hmm_phase(seed: int, dev, report) -> int:
     host.labels = rec.labels
     host.params = pg.HmmParams(*(a.cpu() for a in rec.params))
     host.ubm = tuple(a.cpu() for a in rec.ubm)
+    torch.cuda.synchronize()
+    _build.reset_launches()
     labels, scores = rec.classify_batch(sigs, return_scores=True)
+    torch.cuda.synchronize()
+    n_vit = _build.LAUNCHES["viterbi_score"]
+    if n_vit == 0:
+        fail("hmm: the default front-end's classify did not launch viterbi_score")
     h_labels, h_scores = host.classify_batch(sigs, return_scores=True)
     ties = same_labels(labels, h_labels, h_scores, "labels against the CPU")
     score_err = float(np.max(np.abs(scores - h_scores) / np.abs(h_scores)))
@@ -1870,6 +1889,7 @@ def hmm_phase(seed: int, dev, report) -> int:
           f"{ms_text(fit_dev_ms)} device time", flush=True)
     if acc < 0.9:
         fail(f"hmm: accuracy {acc}")
+    out["viterbi_kernel"] = viterbi_kernel_check(seed, dev, qf, rec.params, report)
 
     # noise adaptation: a noisy batch, the word models and UBM PMC-adapted
     rng = np.random.default_rng([seed, 11])
@@ -1902,17 +1922,19 @@ def hmm_phase(seed: int, dev, report) -> int:
     _build.reset_launches()
     f_labels = fused.classify_batch(queries)
     torch.cuda.synchronize()
-    n_mfcc = _build.LAUNCHES["mfcc_fused"]
-    others = {k: v for k, v in _build.LAUNCHES.items() if v and k != "mfcc_fused"}
-    if n_mfcc == 0 or others:
-        fail(f"hmm: the fused front-end's classify launched mfcc_fused {n_mfcc} times "
-             f"and {others}")
+    n_mfcc, f_vit = _build.LAUNCHES["mfcc_fused"], _build.LAUNCHES["viterbi_score"]
+    others = {k: v for k, v in _build.LAUNCHES.items()
+              if v and k not in ("mfcc_fused", "viterbi_score")}
+    if n_mfcc == 0 or f_vit == 0 or others:
+        fail(f"hmm: the fused front-end's classify launched mfcc_fused {n_mfcc} times, "
+             f"viterbi_score {f_vit} and {others}")
     f_ties = same_labels(f_labels, labels[:HMM_QUERIES], scores[:HMM_QUERIES],
                          "fused front-end labels against the default front-end's")
     print(f"hmm noise_adapt at sigma {HMM_NOISE_SIGMA}: accuracy {n_acc:.4f} (without "
           f"{p_acc:.4f}), labels as the CPU's ({n_ties} at near-ties); save/load round "
           f"trip equal; FrontendConfig(impl='pallas'): mfcc_fused launched {n_mfcc} "
-          f"times, labels as the default front-end's ({f_ties} at near-ties)", flush=True)
+          f"times, viterbi_score {f_vit} (the default front-end's classify {n_vit}), "
+          f"labels as the default front-end's ({f_ties} at near-ties)", flush=True)
     out.update(accuracy=acc, labels_at_near_ties=ties, score_max_rel_err_vs_cpu=score_err,
                reject_threshold=thr, reject_threshold_cpu=h_thr,
                evaluate_reject_accuracy=result["accuracy"], evaluate_n=result["n"],
@@ -1923,7 +1945,71 @@ def hmm_phase(seed: int, dev, report) -> int:
                noise_adapt_accuracy=n_acc, noisy_accuracy_without=p_acc,
                noise_adapt_labels_at_near_ties=n_ties, fused_mfcc_launches=n_mfcc,
                fused_labels_at_near_ties=f_ties)
-    return n_mfcc
+    return {"mfcc_fused": n_mfcc, "viterbi_score": n_vit}
+
+
+def viterbi_kernel_check(seed: int, dev, qf, params, report) -> dict:
+    """Kernel ``viterbi_score`` against its plain version (``_viterbi_loop``
+    op by op), equal bits: at phase hmm's states on the classify's
+    emissions, and at the benchmark cell's shape (1,024 clips x 11 words x
+    16 left-to-right states, T = 198, every frame valid).  There, its
+    CUDA-event time beside the graph route's (the loop replayed, its
+    inputs copied in), the loop's op by op, and the bound: ``log_b`` read
+    once, or an add and a max a transition and a step and an add a state,
+    whichever binds.  Its launches are not the kernel table's: they are
+    read in the classify the benchmark cell runs."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.kernels import viterbi_score as kvit
+    from dsp_tpu_torch.models import gmm_hmm as pg
+    from dsp_tpu_torch.ops import viterbi as tvit
+    from dsp_tpu_torch.scripts.roofline import bound
+    from dsp_tpu_torch.utils import graphs
+
+    def same(what, args):
+        """Largest |kernel - loop| over the scores; fails unless the bits
+        are equal."""
+        got, want = kvit.viterbi_score_fused(*args), tvit._viterbi_loop(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"hmm viterbi kernel at {what}: {int((got != want).sum())} of {got.numel()} "
+                 "scores differ from the loop's")
+        return float((got - want).abs().max())
+
+    logb = torch.movedim(pg.emission_logb(qf.feats, params), 1, 0)
+    s_small = logb.shape[-1]
+    err = same(f"S = {s_small}",
+               (params.log_pi[None], params.log_a[None], logb, qf.length[:, None]))
+    b, w, s, t = 1024, 11, 16, 198
+    rng = np.random.default_rng([seed, 13])
+    log_pi = np.full((w, s), -1e30, np.float32)
+    log_pi[:, 0] = 0.0
+    log_a = np.full((w, s, s), -1e30, np.float32)
+    stay, i = rng.uniform(0.3, 0.9, (w, s)), np.arange(s)
+    log_a[:, i, i] = np.log(stay)
+    log_a[:, i[:-1], i[1:]] = np.log1p(-stay[:, :-1])
+    log_a[:, -1, -1] = 0.0
+    args = (torch.from_numpy(log_pi).to(dev)[None], torch.from_numpy(log_a).to(dev)[None],
+            torch.randn(b, t, w, s, generator=torch.Generator(dev).manual_seed(seed + 13),
+                        device=dev).mul_(10.0).sub_(40.0).movedim(1, 0),
+            torch.full((b, 1), t, dtype=torch.int32, device=dev))
+    err = max(err, same(f"{b} x {w} x {s}, T = {t}", args))
+    ms = time_ms(lambda: kvit.viterbi_score_fused(*args))
+    replay = lambda: graphs.replayed("viterbi_score", tvit._viterbi_loop, *args)  # noqa: E731
+    replay()
+    replay()                                        # captured at the second call
+    graph_ms = time_ms(replay)
+    plain_ms = time_ms(lambda: tvit._viterbi_loop(*args), reps=3)
+    n_bytes = 4.0 * (t * b * w * s + w * s + w * s * s + b + b * w)
+    bound_ms, bound_by = bound((t - 1) * b * w * (2.0 * s * s + s), n_bytes)
+    print(f"hmm viterbi kernel: equal bits to the loop at S = {s_small} ({logb.shape[1]} x "
+          f"{logb.shape[2]}, T = {logb.shape[0]}) and at {b} x {w} x {s}, T = {t}; "
+          f"{ms:.4f} ms at the cell's shape, graph route {graph_ms:.3f} ms, loop op by op "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB), "
+          f"on {'; '.join(report['nvidia_smi'])}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, graph_ms=graph_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def hmm_raw_scores(llr, start, ubm_ll):
@@ -4829,7 +4915,8 @@ def main() -> int:
     launches["dtw_wavefront"] = routes["pallas"]["dtw_wavefront"]
     launches.update(run("mb_wavefront", mb_wavefront_phase, args.seed, dev, report))
     report["streaming"]["launches"] = run("streaming", streaming_phase, args.seed, dev, report)
-    report["hmm"]["launches"] = {"mfcc_fused": run("hmm", hmm_phase, args.seed, dev, report)}
+    report["hmm"]["launches"] = run("hmm", hmm_phase, args.seed, dev, report)
+    launches["viterbi_score"] = report["hmm"]["launches"]["viterbi_score"]
     report["cascade"]["launches"] = {
         "spot_subseq": run("cascade", cascade_phase, args.seed, dev, report)}
     launches["spot_subseq"] += report["cascade"]["launches"]["spot_subseq"]
@@ -4882,6 +4969,10 @@ def main() -> int:
               "dsp_tpu/kernels/dtw_fused.py:191", report["fused"]["default"]),
         entry("dtw_wavefront", "dsp_tpu_torch/csrc/dtw_wavefront.cu",
               "dsp_tpu/kernels/dtw_pallas.py:126", report["wavefront"]["default"]),
+        # no TPU kernel: the JAX package's decode is a lax.scan that XLA compiled
+        entry("viterbi_score", "dsp_tpu_torch/csrc/viterbi_score.cu",
+              "none (dsp_tpu/ops/viterbi.py:viterbi_score, lax.scan)",
+              report["hmm"]["viterbi_kernel"]),
         entry("dp_diet", mb_src, "scripts/mb_wavefront.py:78", mb["dp_diet"]),
         entry("dma_fetch", mb_src, "scripts/mb_wavefront.py:125", mb["dma_fetch"]),
         entry("anatomy", mb_src, "scripts/mb_wavefront.py:194", mb["anatomy"]),

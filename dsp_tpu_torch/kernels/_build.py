@@ -41,7 +41,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
-# C signatures: (argtypes, restype).  Pointers and the stream are c_void_p.
+_L = ctypes.c_longlong
+# C signatures: (argtypes, restype).  Pointers (host arrays too) and the stream
+# are c_void_p.
 _SIGNATURES = {
     "dtw_banded": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _I, _F, _I, _I, _I, _I, _I, _P), _I),
@@ -51,6 +53,7 @@ _SIGNATURES = {
                     _I),
     "dtw_fused": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
     "dtw_wavefront": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "viterbi_score": ((_P, _P, _P, _P, _I, _P, _L, _L, _I, _I, _P, _P), _I),
     "mb_dp_diet": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "mb_dma_fetch": ((_P, _P, _P, _P, _U, _I, _I, _I, _I, _P), _I),
     "mb_anatomy": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),

@@ -9,17 +9,18 @@ transitions stay or advance) with diagonal-Gaussian mixture emissions.
   one ``[B*T, F] @ [F, W*S*M]`` product; no [., ., F] broadcast tensor is
   built.  The expanded form is kept (not ``(x - mu)^2``) so that scores
   match the JAX package's.
-* **Decode is one batched loop** (``ops/viterbi.py``): log-space Viterbi
-  over [B, W, S] log-deltas scores a whole utterance batch against the
-  whole vocabulary.  :func:`recognize_batch` runs the front end, the
-  decode and the word choice on the clips' device with no host sync;
+* **Decode is one batched recursion** (``ops/viterbi.py``): log-space
+  Viterbi over [B, W, S] log-deltas scores a whole utterance batch against
+  the whole vocabulary, in one launch of the kernel ``viterbi_score`` on
+  the card (``kernels/viterbi_score.py``) and as a loop on the CPU.
+  :func:`recognize_batch` runs the front end, the decode and the word
+  choice on the clips' device with no host sync;
   ``GmmHmmRecognizer.classify_batch`` is the host clips padded and copied
   (``pipeline.pad_signals``), that, and one readback.  On the card the
-  front end and the Viterbi loop replay CUDA graphs (``utils/graphs.py``):
-  at 8 kHz their ~1,000 small launches a batch took the host longer than
-  the card took to run them.  Under a profiler the emissions are the span
-  ``dsp.emissions``, the word choice ``dsp.argmax`` and the readback
-  ``dsp.readback``.
+  front end replays a CUDA graph (``utils/graphs.py``): at 8 kHz its ~180
+  small launches a batch took the host longer than the card took to run
+  them.  Under a profiler the emissions are the span ``dsp.emissions``,
+  the word choice ``dsp.argmax`` and the readback ``dsp.readback``.
 * **Training** is segmental (Viterbi) EM or Baum-Welch (``HmmConfig.
   train_mode``) from a uniform segmentation, with a universal background
   GMM (UBM) fitted over every frame, the MAP prior when ``map_tau > 0``

@@ -1,8 +1,9 @@
 """CUDA graphs of fixed-shape chains of small launches, replayed.
 
 A chain of many small kernels whose launches take the host longer than
-the card takes to run them (the GMM-HMM's Viterbi loop: ~5 launches a
-frame; the 8 kHz front end's endpoint detector and deltas) leaves the
+the card takes to run them (the GMM-HMM's Viterbi loop where its kernel
+does not take the inputs: ~5 launches a frame; the 8 kHz front end's
+endpoint detector and deltas) leaves the
 card idle and its rate set by the host's speed.  :func:`replayed` runs
 such a chain from a CUDA graph: the host issues one replay.
 

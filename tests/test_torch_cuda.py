@@ -23,10 +23,13 @@ one add per cell).  Wavefront microbenchmark kernels (``mb_*``): equal bits
 to their plain versions (dp_diet: exact mins and one add a cell; anatomy:
 product and sum rounded apart, as the plain version rounds them; trivial,
 transpose and skew move values), the fetch's accumulator at rtol 1e-6.
-GMM-HMM (no kernel): one E-step on the card within 1e-2 of the CPU's
-(max |a - b| / (1 + |b|); chip_smoke.py's HMM_STEP_TOL), transition
-counts, decode paths and labels equal, scores on the same features and
-parameters at rtol 1e-5; the lattice loops never wait for the card.
+GMM-HMM (the decode's kernel ``viterbi_score``; training has none): the
+kernel's scores equal the plain loop's bit for bit (one fp32 add a sum,
+exact maxes), NaN and infinities where the loop has them; one E-step on
+the card within 1e-2 of the CPU's (max |a - b| / (1 + |b|);
+chip_smoke.py's HMM_STEP_TOL), transition counts, decode paths and labels
+equal, scores on the same features and parameters at rtol 1e-5; the
+kernel, the graph route and the lattice loops never wait for the card.
 HMM and cascade spotting (no kernel of their own; the cascade's rerank is
 kernel 3): the keyword/filler column update never waits for the card, its
 witnesses equal the CPU's and its LLRs agree at chip_smoke.py's
@@ -64,6 +67,7 @@ from dsp_tpu_torch.kernels import dtw_pallas as kwf
 from dsp_tpu_torch.kernels import mb_wavefront as kmb
 from dsp_tpu_torch.kernels import mfcc_fused as kmf
 from dsp_tpu_torch.kernels import spot_fused as ksp
+from dsp_tpu_torch.kernels import viterbi_score as kvit
 from dsp_tpu_torch.models import StreamingSpotter
 from dsp_tpu_torch.ops import frontend as fe
 from dsp_tpu_torch.ops import level_building as tlb
@@ -1268,12 +1272,12 @@ def test_hmm_lattice_loops_never_wait_for_the_card(dev):
 
 
 def test_viterbi_score_replays_its_graph_bit_for_bit_and_never_waits(dev, monkeypatch):
-    """The card's ``viterbi_score`` (``utils/graphs.py``: op by op at a
-    shape's first call, a CUDA graph captured at its second and replayed
-    after) against the loop run op by op on the same inputs: equal bits
-    at every call, no host sync, the caller's tensors free to change after
-    a call, and the least recently used shape dropped past
-    ``GRAPHS_KEPT``."""
+    """The card's ``viterbi_score`` on its graph route (``utils/graphs.py``:
+    op by op at a shape's first call, a CUDA graph captured at its second
+    and replayed after), taken by 33 states, past the kernel's 32, against
+    the loop run op by op on the same inputs: equal bits at every call, no
+    host sync, the caller's tensors free to change after a call, and the
+    least recently used shape dropped past ``GRAPHS_KEPT``."""
     from dsp_tpu_torch.ops import viterbi as tvit
     from dsp_tpu_torch.utils import graphs
 
@@ -1283,9 +1287,9 @@ def test_viterbi_score_replays_its_graph_bit_for_bit_and_never_waits(dev, monkey
     rng = np.random.default_rng(3)
 
     def inputs(t, b):
-        log_b = torch.from_numpy(rng.standard_normal((t, b, 3, 16)).astype(np.float32)).to(dev)
-        log_pi = torch.log_softmax(torch.from_numpy(rng.standard_normal((1, 3, 16))), -1)
-        log_a = torch.log_softmax(torch.from_numpy(rng.standard_normal((1, 3, 16, 16))), -1)
+        log_b = torch.from_numpy(rng.standard_normal((t, b, 3, 33)).astype(np.float32)).to(dev)
+        log_pi = torch.log_softmax(torch.from_numpy(rng.standard_normal((1, 3, 33))), -1)
+        log_a = torch.log_softmax(torch.from_numpy(rng.standard_normal((1, 3, 33, 33))), -1)
         lengths = torch.from_numpy(rng.integers(1, t + 1, (b, 1)).astype(np.int32))
         return log_pi.float().to(dev), log_a.float().to(dev), log_b, lengths.to(dev)
 
@@ -1304,7 +1308,109 @@ def test_viterbi_score_replays_its_graph_bit_for_bit_and_never_waits(dev, monkey
         for _ in range(2):
             x = inputs(*shape)
             assert torch.equal(tvit.viterbi_score(*x), tvit._viterbi_loop(*x))
-    assert [k[4][0] for k in graphs._graphs] == [(41, 5, 3, 16), (40, 5, 3, 16)]
+    assert [k[4][0] for k in graphs._graphs] == [(41, 5, 3, 33), (40, 5, 3, 33)]
+
+
+def _lattices(dev, s, b, w, t, model, seed, lengths=None):
+    """``score_words``' arguments on the card: ``log_pi`` [1, W, S],
+    ``log_a`` [1, W, S, S] (dense random, or left-to-right with NEG_INF off
+    the band), the [T, B, W, S] view of a [B, T, W, S] ``log_b`` and [B, 1]
+    int32 lengths (1, T and between, unless given)."""
+    rng = np.random.default_rng(seed)
+    if model == "dense":
+        log_pi = np.log(rng.dirichlet(np.ones(s), size=w))
+        log_a = np.log(rng.dirichlet(np.ones(s), size=(w, s)))
+    else:
+        log_pi, log_a = np.full((w, s), -1e30), np.full((w, s, s), -1e30)
+        log_pi[:, 0] = 0.0
+        stay, i = rng.uniform(0.3, 0.9, (w, s)), np.arange(s)
+        log_a[:, i, i] = np.log(stay)
+        log_a[:, i[:-1], i[1:]] = np.log1p(-stay[:, :-1])
+        log_a[:, -1, -1] = 0.0
+    log_b = rng.standard_normal((b, t, w, s)) * 10.0 - 40.0
+    if lengths is None:
+        lengths = rng.integers(1, t + 1, b)
+        lengths[0], lengths[-1] = 1, t
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)   # noqa: E731
+    return (f32(log_pi)[None], f32(log_a)[None], f32(log_b).movedim(1, 0),
+            torch.from_numpy(np.asarray(lengths, np.int32)).to(dev)[:, None])
+
+
+@pytest.mark.parametrize("model", ["dense", "left_to_right"])
+@pytest.mark.parametrize("s", [1, 2, 5, 16, 17, 32])
+def test_viterbi_kernel_equals_the_loop_bit_for_bit(dev, s, model):
+    """Kernel ``viterbi_score`` against ``_viterbi_loop`` on the card, on
+    ``score_words``' exact broadcast ([1, W, S], [1, W, S, S], the
+    ``movedim`` view, [B, 1] lengths of 1, T and between): equal bits, and
+    ``viterbi_score`` takes the kernel (one ``viterbi.kernel``)."""
+    from dsp_tpu_torch.ops import viterbi as tvit
+    from dsp_tpu_torch.utils import profiling
+
+    args = _lattices(dev, s, 7, 3, 40, model, seed=s)
+    want = tvit._viterbi_loop(*args)
+    assert kvit.refusal(*args) is None
+    assert torch.equal(kvit.viterbi_score_fused(*args), want)
+    before = profiling.counts().get("viterbi.kernel", 0)
+    assert torch.equal(tvit.viterbi_score(*args), want)
+    assert profiling.counts()["viterbi.kernel"] == before + 1
+
+
+def test_viterbi_kernel_takes_long_lattices_many_pairs_and_nan(dev):
+    """T = 2,000; more lattices than a grid's rows (3-D ``log_b`` with
+    int64 lengths, and with none); NaN and infinities in ``log_b``, each
+    where the loop has it: equal bits everywhere."""
+    from dsp_tpu_torch.ops import viterbi as tvit
+
+    args = _lattices(dev, 5, 4, 3, 2000, "left_to_right", seed=1)
+    assert torch.equal(kvit.viterbi_score_fused(*args), tvit._viterbi_loop(*args))
+    n = ROWS_PAST_THE_GRID
+    pi, a, b, lens = _lattices(dev, 4, n, 1, 3, "dense", seed=2)
+    flat = (pi[0], a[0], b[:, :, 0], lens[:, 0].long())
+    got = kvit.viterbi_score_fused(*flat)
+    assert got.shape == (n,) and torch.equal(got, tvit._viterbi_loop(*flat))
+    full = kvit.viterbi_score_fused(*flat[:3], None)
+    assert torch.equal(full, tvit._viterbi_loop(*flat[:3], torch.tensor(3, device=dev)))
+    pi, a, b, lens = _lattices(dev, 16, 6, 2, 30, "dense", seed=3, lengths=[30, 30, 30, 20, 9, 30])
+    b = b.clone()
+    b[4, 0, 0, 3] = float("nan")
+    b[7, 1, 1, 0] = float("inf")
+    b[2, 2, :, :] = float("-inf")
+    b[25, 3, 0, 5] = float("nan")       # past utterance 3's 20 frames: not read
+    b[3, 5, 1, :] = float("inf")
+    got, want = kvit.viterbi_score_fused(pi, a, b, lens), tvit._viterbi_loop(pi, a, b, lens)
+    assert want.isnan().any() and want.isinf().any()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_viterbi_kernel_never_waits_and_counts_each_launch(dev):
+    """At the cell's shape per utterance (11 words, 16 states, T = 198):
+    no host sync, ``viterbi.kernel`` and ``_build.LAUNCHES`` one a call,
+    ``viterbi_steps`` T - 1 a call, no ``viterbi.graph``; what the kernel
+    does not take, its wrapper refuses and ``viterbi_score`` takes to the
+    graph route (``viterbi.graph`` one a call)."""
+    from dsp_tpu_torch.ops import viterbi as tvit
+    from dsp_tpu_torch.utils import profiling
+
+    args = _lattices(dev, 16, 8, 11, 198, "left_to_right", seed=4)
+    want = tvit._viterbi_loop(*args)
+    before, launched = profiling.counts(), _build.LAUNCHES["viterbi_score"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tvit.viterbi_score(*args) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counted = {k: v - before.get(k, 0) for k, v in profiling.counts().items()
+               if k.startswith("viterbi") and v != before.get(k, 0)}
+    assert counted == {"viterbi_steps": 3 * 197, "viterbi.kernel": 3}
+    assert _build.LAUNCHES["viterbi_score"] == launched + 3
+    assert all(torch.equal(g, want) for g in got)
+    wide = _lattices(dev, 33, 2, 2, 10, "dense", seed=5)
+    with pytest.raises(ValueError, match="S <= 32"):
+        kvit.viterbi_score_fused(*wide)
+    before = profiling.counts()
+    assert torch.equal(tvit.viterbi_score(*wide), tvit._viterbi_loop(*wide))
+    assert profiling.counts()["viterbi.graph"] - before.get("viterbi.graph", 0) == 1
 
 
 def test_hmm_recognize_batch_never_waits_and_classify_batch_reads_back_once(dev):
