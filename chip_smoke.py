@@ -197,9 +197,9 @@ each of which raises on failure (non-zero exit):
              kernel); the Viterbi kernel against ``_viterbi_loop``, equal
              bits, on the queries' emissions (S = 5) and at the benchmark
              cell's shape (1,024 x 11 x 16, T = 198), its CUDA-event time
-             there beside the graph route's, the loop's op by op and the
-             bound (``log_b`` read once).  Prints fit
-             seconds, accuracy, viterbi_decodes_per_sec (bench_all.py:144:
+             there beside the loop's op by op and the bound (``log_b`` read
+             once).  Prints fit seconds, accuracy,
+             viterbi_decodes_per_sec (bench_all.py:144:
              256 x 10 utterance-word decodes over the CUDA-event time of one
              ``score_words``) and the device ops and device time of one
              ``score_words`` and one ``fit_words_batched`` under
@@ -1953,11 +1953,11 @@ def viterbi_kernel_check(seed: int, dev, qf, params, report) -> dict:
     op by op), equal bits: at phase hmm's states on the classify's
     emissions, and at the benchmark cell's shape (1,024 clips x 11 words x
     16 left-to-right states, T = 198, every frame valid).  There, its
-    CUDA-event time beside the graph route's (the loop replayed, its
-    inputs copied in), the loop's op by op, and the bound: ``log_b`` read
-    once, or an add and a max a transition and a step and an add a state,
-    whichever binds.  Its launches are not the kernel table's: they are
-    read in the classify the benchmark cell runs."""
+    CUDA-event time beside the loop's op by op (the route of inputs the
+    kernel refuses), and the bound: ``log_b`` read once, or an add and a
+    max a transition and a step and an add a state, whichever binds.  Its
+    launches are not the kernel table's: they are read in the classify
+    the benchmark cell runs."""
     import numpy as np
     import torch
 
@@ -1965,7 +1965,6 @@ def viterbi_kernel_check(seed: int, dev, qf, params, report) -> dict:
     from dsp_tpu_torch.models import gmm_hmm as pg
     from dsp_tpu_torch.ops import viterbi as tvit
     from dsp_tpu_torch.scripts.roofline import bound
-    from dsp_tpu_torch.utils import graphs
 
     def same(what, args):
         """Largest |kernel - loop| over the scores; fails unless the bits
@@ -1996,20 +1995,16 @@ def viterbi_kernel_check(seed: int, dev, qf, params, report) -> dict:
             torch.full((b, 1), t, dtype=torch.int32, device=dev))
     err = max(err, same(f"{b} x {w} x {s}, T = {t}", args))
     ms = time_ms(lambda: kvit.viterbi_score_fused(*args))
-    replay = lambda: graphs.replayed("viterbi_score", tvit._viterbi_loop, *args)  # noqa: E731
-    replay()
-    replay()                                        # captured at the second call
-    graph_ms = time_ms(replay)
     plain_ms = time_ms(lambda: tvit._viterbi_loop(*args), reps=3)
     n_bytes = 4.0 * (t * b * w * s + w * s + w * s * s + b + b * w)
     bound_ms, bound_by = bound((t - 1) * b * w * (2.0 * s * s + s), n_bytes)
     print(f"hmm viterbi kernel: equal bits to the loop at S = {s_small} ({logb.shape[1]} x "
           f"{logb.shape[2]}, T = {logb.shape[0]}) and at {b} x {w} x {s}, T = {t}; "
-          f"{ms:.4f} ms at the cell's shape, graph route {graph_ms:.3f} ms, loop op by op "
+          f"{ms:.4f} ms at the cell's shape, loop op by op "
           f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB), "
           f"on {'; '.join(report['nvidia_smi'])}", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, graph_ms=graph_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def hmm_raw_scores(llr, start, ubm_ll):

@@ -13,8 +13,9 @@ exact maxes, NaN propagated as ``torch.amax`` does).
 where they are not on the card or :func:`refusal` names what the kernel
 does not take; it never falls back to the loop.  ``ops/viterbi.py``'s
 ``viterbi_score``, which asks :func:`refusal` itself to pick its route,
-launches through :func:`launch`, which checks nothing again.  Each launch
-counts ``viterbi.kernel`` in ``utils.profiling``.
+launches through :func:`launch`, which checks nothing again; the inputs
+it refuses run that loop.  ``_build.LAUNCHES["viterbi_score"]`` counts the
+launches.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ import ctypes
 import torch
 
 from dsp_tpu_torch.kernels import _build
-from dsp_tpu_torch.utils import profiling
 
 MAX_STATES = 32          # states a lattice: one lane each, one warp at most
 _LENGTH_KINDS = {torch.int32: 1, torch.int64: 2}
@@ -109,5 +109,4 @@ def launch(log_pi, log_a, log_b, length):
     t, n0, n1, s = b.shape
     _build.launch("viterbi_score", log_b.device, pi.data_ptr(), a.data_ptr(), b.data_ptr(),
                   ptr, kind, out.data_ptr(), n0 * n1, n1, t, s, strides)
-    profiling.count("viterbi.kernel")
     return out

@@ -12,7 +12,8 @@ transitions stay or advance) with diagonal-Gaussian mixture emissions.
 * **Decode is one batched recursion** (``ops/viterbi.py``): log-space
   Viterbi over [B, W, S] log-deltas scores a whole utterance batch against
   the whole vocabulary, in one launch of the kernel ``viterbi_score`` on
-  the card (``kernels/viterbi_score.py``) and as a loop on the CPU.
+  the card where it takes the inputs (``kernels/viterbi_score.py``: up to
+  32 states) and as a loop of small ops elsewhere.
   :func:`recognize_batch` runs the front end, the decode and the word
   choice on the clips' device with no host sync;
   ``GmmHmmRecognizer.classify_batch`` is the host clips padded and copied

@@ -14,13 +14,11 @@ On the card :func:`viterbi_score` runs the whole recursion as one launch
 of a CUDA kernel (``kernels/viterbi_score.py``, ``csrc/viterbi_score.cu``)
 wherever it takes the inputs (``kernels/viterbi_score.py:refusal``:
 float32, up to 32 states, ``log_b`` 3-D or 4-D, as ``score_words`` passes
-them), with the loop's
-bits; other inputs on the card replay the loop from a CUDA graph of each
-shape (``utils/graphs.py``), since the loop is ~5 small launches a step.
-Under a profiler the launch, the replay or the loop is the span
-``dsp.viterbi`` (``utils/profiling.stage``); every call counts its T - 1
-time steps in ``viterbi_steps``, a graph route's call ``viterbi.graph``
-and a kernel launch ``viterbi.kernel``.
+them), with the loop's bits; every other input, on the card or the CPU,
+runs the loop op by op on its own device.  Under a profiler the launch or
+the loop is the span ``dsp.viterbi`` (``utils/profiling.stage``), and every
+call counts its T - 1 time steps in ``viterbi_steps``; the kernel's
+launches are counted in ``kernels/_build.LAUNCHES``.
 
 Deviation the tests pin: :func:`viterbi_decode` takes leading batch dims
 (``log_b`` [..., T, S]) in place of the JAX package's ``vmap`` over a
@@ -34,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from dsp_tpu_torch.utils import graphs, profiling
+from dsp_tpu_torch.utils import profiling
 
 NEG_INF = -1e30
 
@@ -61,15 +59,12 @@ def viterbi_score(log_pi: torch.Tensor, log_a: torch.Tensor, log_b: torch.Tensor
     t = log_b.shape[0]
     profiling.count("viterbi_steps", t - 1)
     with profiling.stage("dsp.viterbi"):
-        if not log_b.is_cuda:
-            return _viterbi_loop(log_pi, log_a, log_b, _length(length, t, log_b))
-        from dsp_tpu_torch.kernels import viterbi_score as kernel
+        if log_b.is_cuda:
+            from dsp_tpu_torch.kernels import viterbi_score as kernel
 
-        if kernel.refusal(log_pi, log_a, log_b, length) is None:
-            return kernel.launch(log_pi, log_a, log_b, length)
-        profiling.count("viterbi.graph")
-        return graphs.replayed("viterbi_score", _viterbi_loop, log_pi, log_a, log_b,
-                               _length(length, t, log_b))
+            if kernel.refusal(log_pi, log_a, log_b, length) is None:
+                return kernel.launch(log_pi, log_a, log_b, length)
+        return _viterbi_loop(log_pi, log_a, log_b, _length(length, t, log_b))
 
 
 def _viterbi_loop(log_pi, log_a, log_b, length):

@@ -1,11 +1,12 @@
 """CUDA graphs of fixed-shape chains of small launches, replayed.
 
 A chain of many small kernels whose launches take the host longer than
-the card takes to run them (the GMM-HMM's Viterbi loop where its kernel
-does not take the inputs: ~5 launches a frame; the 8 kHz front end's
-endpoint detector and deltas) leaves the
-card idle and its rate set by the host's speed.  :func:`replayed` runs
-such a chain from a CUDA graph: the host issues one replay.
+the card takes to run them leaves the card idle and its rate set by the
+host's speed.  :func:`replayed` runs such a chain from a CUDA graph: the
+host issues one replay.  Its caller is the GMM-HMM's batch path
+(``models/gmm_hmm.py:recognize_batch``), whose front end at 8 kHz
+(``pipeline.extract_features``: endpoint detector, MFCC, deltas) is ~180
+small launches a batch.
 
 A chain is captured at its second call with the same key, input shapes
 and dtypes on one device (a one-off call runs it op by op, as a capture

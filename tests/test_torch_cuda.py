@@ -29,7 +29,8 @@ exact maxes), NaN and infinities where the loop has them; one E-step on
 the card within 1e-2 of the CPU's (max |a - b| / (1 + |b|);
 chip_smoke.py's HMM_STEP_TOL), transition counts, decode paths and labels
 equal, scores on the same features and parameters at rtol 1e-5; the
-kernel, the graph route and the lattice loops never wait for the card.
+kernel, the loop on what it refuses, the front end's replayed graphs and
+the lattice loops never wait for the card.
 HMM and cascade spotting (no kernel of their own; the cascade's rerank is
 kernel 3): the keyword/filler column update never waits for the card, its
 witnesses equal the CPU's and its LLRs agree at chip_smoke.py's
@@ -1271,44 +1272,87 @@ def test_hmm_lattice_loops_never_wait_for_the_card(dev):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def test_viterbi_score_replays_its_graph_bit_for_bit_and_never_waits(dev, monkeypatch):
-    """The card's ``viterbi_score`` on its graph route (``utils/graphs.py``:
-    op by op at a shape's first call, a CUDA graph captured at its second
-    and replayed after), taken by 33 states, past the kernel's 32, against
-    the loop run op by op on the same inputs: equal bits at every call, no
-    host sync, the caller's tensors free to change after a call, and the
-    least recently used shape dropped past ``GRAPHS_KEPT``."""
+def test_viterbi_score_runs_the_loop_on_what_the_kernel_refuses_and_never_waits(dev):
+    """The card's ``viterbi_score`` on inputs the kernel refuses (33 states,
+    past its 32; float64): ``_viterbi_loop``'s bits op by op on the card,
+    no host sync and no launch of the kernel."""
     from dsp_tpu_torch.ops import viterbi as tvit
+
+    wide = _lattices(dev, 33, 5, 3, 40, "dense", seed=3)
+    pi, a, b, lens = _lattices(dev, 16, 5, 3, 40, "left_to_right", seed=6)
+    double = (pi.double(), a.double(), b.double(), lens)
+    assert "S <= 32" in kvit.refusal(*wide) and "float32" in kvit.refusal(*double)
+    want = [tvit._viterbi_loop(*x) for x in (wide, double)]
+    launched = _build.LAUNCHES["viterbi_score"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tvit.viterbi_score(*x) for x in (wide, double)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.LAUNCHES["viterbi_score"] == launched
+    assert got[1].dtype == torch.float64
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_hmm_front_end_replays_its_graph_bit_for_bit_and_never_waits(dev, monkeypatch):
+    """``gmm_hmm.recognize_batch``'s front end on the card through
+    ``utils/graphs.py`` (op by op at a shape's first call, a CUDA graph
+    captured at its second and replayed after), at the 8 kHz config and
+    three batch sizes, against ``pipeline.extract_features`` and
+    ``score_words`` op by op on the same clips: equal bits at every call,
+    no host sync, the caller's tensors free to change after a call, and
+    the least recently used shape dropped past ``GRAPHS_KEPT``."""
+    from dsp_tpu_torch.models import gmm_hmm as pg
     from dsp_tpu_torch.utils import graphs
 
     monkeypatch.setattr(graphs, "_graphs", type(graphs._graphs)())
     monkeypatch.setattr(graphs, "_seen", type(graphs._seen)())
     monkeypatch.setattr(graphs, "GRAPHS_KEPT", 2)
-    rng = np.random.default_rng(3)
+    cfg = PipelineConfig(frontend=FrontendConfig(sample_rate=8000, frame_len=200, hop_len=80,
+                                                 n_fft=256, n_mels=23, n_mfcc=13),
+                         max_samples=16000)
+    w, s, m, f = 3, 16, 3, 39
+    rng = np.random.default_rng(7)
+    log_pi, log_a, i = np.full((w, s), -1e30), np.full((w, s, s), -1e30), np.arange(s)
+    log_pi[:, 0] = 0.0
+    log_a[:, i, i] = np.log(0.6)
+    log_a[:, i[:-1], i[1:]] = np.log(0.4)
+    log_a[:, -1, -1] = 0.0
+    params = pg.params_from_numpy((log_pi, log_a, rng.standard_normal((w, s, m, f)),
+                                   rng.uniform(-1.0, 1.0, (w, s, m, f)),
+                                   np.full((w, s, m), -np.log(m))), dev)
+    words, seed = ("zero", "oh", "one", "two", "three"), iter(range(100))
 
-    def inputs(t, b):
-        log_b = torch.from_numpy(rng.standard_normal((t, b, 3, 33)).astype(np.float32)).to(dev)
-        log_pi = torch.log_softmax(torch.from_numpy(rng.standard_normal((1, 3, 33))), -1)
-        log_a = torch.log_softmax(torch.from_numpy(rng.standard_normal((1, 3, 33, 33))), -1)
-        lengths = torch.from_numpy(rng.integers(1, t + 1, (b, 1)).astype(np.int32))
-        return log_pi.float().to(dev), log_a.float().to(dev), log_b, lengths.to(dev)
+    def clips(b):
+        return tpl.pad_signals([synth_word(words[k % 5], next(seed), sr=8000, max_samples=16000)
+                                for k in range(b)], cfg.max_samples, dev)
 
-    calls = [inputs(40, 5) for _ in range(3)]
-    want = [tvit._viterbi_loop(*x) for x in calls]
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        got = [tvit.viterbi_score(*x) for x in calls]
-        calls[1][2].fill_(0.0)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    def op_by_op(x, n):
+        feats = tpl.extract_features(x, n, cfg)
+        scores = pg.score_words(feats.feats, feats.length, params)
+        return scores.argmax(-1), scores
+
+    def check(calls):
+        want = [op_by_op(*x) for x in calls]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        got = []
+        try:
+            for x, n in calls:
+                got.append(pg.recognize_batch(x, n, params, cfg))
+                x.fill_(0.0)
+                n.fill_(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for (gi, gs), (wi, ws) in zip(got, want):
+            assert torch.equal(gi, wi) and torch.equal(gs, ws)
+
+    check([clips(3) for _ in range(3)])
     assert len(graphs._graphs) == 1 and not graphs._seen
-    for shape in ((40, 6), (41, 5), (40, 5)):
-        for _ in range(2):
-            x = inputs(*shape)
-            assert torch.equal(tvit.viterbi_score(*x), tvit._viterbi_loop(*x))
-    assert [k[4][0] for k in graphs._graphs] == [(41, 5, 3, 33), (40, 5, 3, 33)]
+    for b in (4, 5):
+        check([clips(b) for _ in range(2)])
+    assert [k[2][0] for k in graphs._graphs] == [(4, 16000), (5, 16000)]
 
 
 def _lattices(dev, s, b, w, t, model, seed, lengths=None):
@@ -1342,17 +1386,16 @@ def test_viterbi_kernel_equals_the_loop_bit_for_bit(dev, s, model):
     """Kernel ``viterbi_score`` against ``_viterbi_loop`` on the card, on
     ``score_words``' exact broadcast ([1, W, S], [1, W, S, S], the
     ``movedim`` view, [B, 1] lengths of 1, T and between): equal bits, and
-    ``viterbi_score`` takes the kernel (one ``viterbi.kernel``)."""
+    ``viterbi_score`` takes the kernel (one ``_build.LAUNCHES`` entry)."""
     from dsp_tpu_torch.ops import viterbi as tvit
-    from dsp_tpu_torch.utils import profiling
 
     args = _lattices(dev, s, 7, 3, 40, model, seed=s)
     want = tvit._viterbi_loop(*args)
     assert kvit.refusal(*args) is None
     assert torch.equal(kvit.viterbi_score_fused(*args), want)
-    before = profiling.counts().get("viterbi.kernel", 0)
+    before = _build.LAUNCHES["viterbi_score"]
     assert torch.equal(tvit.viterbi_score(*args), want)
-    assert profiling.counts()["viterbi.kernel"] == before + 1
+    assert _build.LAUNCHES["viterbi_score"] == before + 1
 
 
 def test_viterbi_kernel_takes_long_lattices_many_pairs_and_nan(dev):
@@ -1384,10 +1427,8 @@ def test_viterbi_kernel_takes_long_lattices_many_pairs_and_nan(dev):
 
 def test_viterbi_kernel_never_waits_and_counts_each_launch(dev):
     """At the cell's shape per utterance (11 words, 16 states, T = 198):
-    no host sync, ``viterbi.kernel`` and ``_build.LAUNCHES`` one a call,
-    ``viterbi_steps`` T - 1 a call, no ``viterbi.graph``; what the kernel
-    does not take, its wrapper refuses and ``viterbi_score`` takes to the
-    graph route (``viterbi.graph`` one a call)."""
+    no host sync, ``_build.LAUNCHES`` one a call and ``viterbi_steps``
+    T - 1 a call; what the kernel does not take, its wrapper refuses."""
     from dsp_tpu_torch.ops import viterbi as tvit
     from dsp_tpu_torch.utils import profiling
 
@@ -1402,15 +1443,12 @@ def test_viterbi_kernel_never_waits_and_counts_each_launch(dev):
         torch.cuda.set_sync_debug_mode("default")
     counted = {k: v - before.get(k, 0) for k, v in profiling.counts().items()
                if k.startswith("viterbi") and v != before.get(k, 0)}
-    assert counted == {"viterbi_steps": 3 * 197, "viterbi.kernel": 3}
+    assert counted == {"viterbi_steps": 3 * 197}
     assert _build.LAUNCHES["viterbi_score"] == launched + 3
     assert all(torch.equal(g, want) for g in got)
     wide = _lattices(dev, 33, 2, 2, 10, "dense", seed=5)
     with pytest.raises(ValueError, match="S <= 32"):
         kvit.viterbi_score_fused(*wide)
-    before = profiling.counts()
-    assert torch.equal(tvit.viterbi_score(*wide), tvit._viterbi_loop(*wide))
-    assert profiling.counts()["viterbi.graph"] - before.get("viterbi.graph", 0) == 1
 
 
 def test_hmm_recognize_batch_never_waits_and_classify_batch_reads_back_once(dev):

@@ -2,15 +2,15 @@
 its route, checked without a card: which inputs the CUDA kernel takes
 (``kernels/viterbi_score.py:refusal``), the views it reads them through
 (``pair_views``: the same lattices as the inputs), and that the CPU runs
-the plain loop whatever the inputs, counts neither ``viterbi.kernel`` nor
-``viterbi.graph``, and that the kernel's wrapper refuses tensors off the
-card.
+the plain loop whatever the inputs and launches no kernel, and that the
+kernel's wrapper refuses tensors off the card.
 The kernel itself is held to the loop bit for bit on the card
 (``tests/test_torch_cuda.py``)."""
 
 import pytest
 import torch
 
+from dsp_tpu_torch.kernels import _build
 from dsp_tpu_torch.kernels import viterbi_score as kvit
 from dsp_tpu_torch.ops import viterbi as tvit
 from dsp_tpu_torch.utils import profiling
@@ -91,10 +91,10 @@ def test_pair_views_hold_the_same_lattices_without_a_copy(name):
 
 def test_the_cpu_runs_the_loop_and_counts_no_route(monkeypatch):
     """On the CPU ``viterbi_score`` runs ``_viterbi_loop`` (its bits) once
-    a call, counts ``viterbi_steps`` T - 1 a call and neither
-    ``viterbi.kernel`` nor ``viterbi.graph``; the kernel's wrapper refuses
-    tensors off the card (the CPU's, or another device type's) and launches
-    nothing."""
+    a call, counts ``viterbi_steps`` T - 1 a call and leaves
+    ``_build.LAUNCHES["viterbi_score"]`` as it was; the kernel's wrapper
+    refuses tensors off the card (the CPU's, or another device type's) and
+    launches nothing."""
     calls = []
     loop = tvit._viterbi_loop
 
@@ -104,7 +104,7 @@ def test_the_cpu_runs_the_loop_and_counts_no_route(monkeypatch):
 
     monkeypatch.setattr(tvit, "_viterbi_loop", counted)
     args, _ = _case("score_words")
-    before = profiling.counts()
+    before, launched = profiling.counts(), _build.LAUNCHES["viterbi_score"]
     got = tvit.viterbi_score(*args)
     for device in ("cpu", "meta"):
         with pytest.raises(ValueError, match=f"unsupported device {device}"):
@@ -113,4 +113,4 @@ def test_the_cpu_runs_the_loop_and_counts_no_route(monkeypatch):
     assert len(calls) == 1
     assert torch.equal(got, loop(*args))
     assert counted_now.get("viterbi_steps") == args[2].shape[0] - 1
-    assert counted_now.get("viterbi.kernel", 0) == counted_now.get("viterbi.graph", 0) == 0
+    assert _build.LAUNCHES["viterbi_score"] == launched
