@@ -167,7 +167,8 @@ each of which raises on failure (non-zero exit):
              ``torch.cuda.set_sync_debug_mode("error")``: no call waits for
              the card.
 13. hmm    — the GMM-HMM recognizer (BASELINE config 3) at full width,
-             PyTorch on the card but for the decode's kernel
+             PyTorch on the card but for the emissions' kernel
+             ``gmm_emissions`` and the decode's kernel
              ``viterbi_score``: the default ``HmmConfig`` (5
              states, 3 mixtures, 10 EM iterations, F = 39, T = 198) fitted
              on 10 digits x 10 utterances, segmental (fitted twice, both
@@ -188,17 +189,24 @@ each of which raises on failure (non-zero exit):
              n-best top-1 to the label; a ``noise_adapt=True`` classify of
              the queries under sigma 0.05 noise against the CPU's; a
              save/load round trip (parameters, threshold and labels
-             equal); the Viterbi kernel's launches in the default front
-             end's classify (the benchmark cell's path; counts reset just
-             before, read just after, none fails: the kernel table's
-             count); one classify through ``FrontendConfig(impl=
-             "pallas")`` with launch counts reset just before and read just
-             after (kernel 2 and the Viterbi kernel must launch, no other
-             kernel); the Viterbi kernel against ``_viterbi_loop``, equal
-             bits, on the queries' emissions (S = 5) and at the benchmark
-             cell's shape (1,024 x 11 x 16, T = 198), its CUDA-event time
-             there beside the loop's op by op and the bound (``log_b`` read
-             once).  Prints fit seconds, accuracy,
+             equal); the Viterbi and emission kernels' launches in the
+             default front end's classify (the benchmark cell's path;
+             counts reset just before, read just after, none of either
+             fails: the kernel table's count); one classify through
+             ``FrontendConfig(impl="pallas")`` with launch counts reset just
+             before and read just after (kernel 2, the emission kernel and
+             the Viterbi kernel must launch, no other kernel); the Viterbi
+             kernel against ``_viterbi_loop``, equal bits, on the queries'
+             emissions (S = 5) and at the benchmark cell's shape (1,024 x
+             11 x 16, T = 198), its CUDA-event time there beside the loop's
+             op by op and the bound (``log_b`` read once); the emission
+             kernel ``gmm_emissions`` at the cell's shape (the queries'
+             features four times over, 11 words x 16 states x 3 Gaussians
+             drawn around them) against the plain chain in float64 (within
+             ``EMISSION_TOL`` of 1 + |log b|) and in float32 (the kernel's
+             error no larger), its CUDA-event time beside the plain
+             float32 chain's and the bound (fp32 operations, 3F + 3 a
+             Gaussian and row).  Prints fit seconds, accuracy,
              viterbi_decodes_per_sec (bench_all.py:144:
              256 x 10 utterance-word decodes over the CUDA-event time of one
              ``score_words``) and the device ops and device time of one
@@ -224,7 +232,7 @@ each of which raises on failure (non-zero exit):
              chunk.  ``CascadeSpotter`` with phase spotter's bank (zero to
              four x 20, calibrated threshold) over its 64 streams: kernel
              3's count reset just before ``spot`` and read just after (> 0,
-             no other kernel); the window batches that pass hands to
+             no other kernel but stage 1's emission kernel); the window batches that pass hands to
              ``rerank_windows`` are kept, and kernel 3 on each whole batch is
              held against the plain scan (in slices under
              ``_COST_BUDGET_ELEMS``) by ``compare_spot`` at rtol 1e-4
@@ -477,8 +485,9 @@ each of which raises on failure (non-zero exit):
              ``bench_all.main()`` at the JAX sizes: the eleven rows' lines
              in the JAX order, each row's launches as counted from the
              source (1 + passes x calls a pass of kernel 1 in configs 0, 1,
-             4 and ``connected``, of kernel 3 in ``spot``, of the Viterbi
-             kernel in config 3, none elsewhere).
+             4 and ``connected``, of kernel 3 in ``spot``, of the emission
+             and Viterbi kernels in config 3, of the emission kernel in
+             ``spot-hmm``, none elsewhere).
              Then each row at ``BENCH_ALL_CUT`` once on the card and once on
              the CPU from the same host inputs: labels equal (configs 0, 1,
              4, ``connected``, ``ltw``); config 2's MFCC at rtol/atol 1e-3;
@@ -731,8 +740,11 @@ MEASURE_CHILD_TIMEOUT_S = 300   # the process that profiles them
 BENCH_LAUNCHES = 4 * (1 + 5)    # bench.py: 1024 / 256 chunks x (warm-up + 5 passes)
 BENCH_CAPTURED = 4              # BENCH_DISPATCH=single: one capture of the 4 chunks
 BENCH_ALL_CUT = dict(batch=8, templates_per_word=2, clips=4, sc2_per_word=1)   # vs the CPU
-BENCH_ROW_KERNELS = {0: "dtw_banded", 1: "dtw_banded", 3: "viterbi_score", 4: "dtw_banded",
-                     "connected": "dtw_banded", "spot": "spot_subseq"}
+# the kernels each bench_all row launches, once a step
+BENCH_ROW_KERNELS = {0: ("dtw_banded",), 1: ("dtw_banded",),
+                     3: ("gmm_emissions", "viterbi_score"), 4: ("dtw_banded",),
+                     "connected": ("dtw_banded",), "spot": ("spot_subseq",),
+                     "spot-hmm": ("gmm_emissions",)}
 BENCH_LABEL_ROWS = (0, 1, 4, "connected", "ltw")
 BENCH_MFCC_TOL = dict(rtol=1e-3, atol=1e-3)    # the streaming front end (phase streaming)
 BENCH_SCORE_RTOL = 1e-4     # score_words, each device on its own features (test_torch_gmm_hmm)
@@ -1746,8 +1758,8 @@ def params_err(got, want) -> float:
 def hmm_phase(seed: int, dev, report) -> dict:
     """Phase hmm: BASELINE config 3 on the card against the CPU; returns
     the launches of kernel 2 in the fused front-end's classify and of the
-    Viterbi kernel in the default front-end's (the benchmark cell's path:
-    plain front end, ``score_words``, the kernel)."""
+    emission and Viterbi kernels in the default front-end's (the benchmark
+    cell's path: plain front end, ``score_words``, the two kernels)."""
     import numpy as np
     import torch
 
@@ -1838,9 +1850,10 @@ def hmm_phase(seed: int, dev, report) -> dict:
     _build.reset_launches()
     labels, scores = rec.classify_batch(sigs, return_scores=True)
     torch.cuda.synchronize()
-    n_vit = _build.LAUNCHES["viterbi_score"]
-    if n_vit == 0:
-        fail("hmm: the default front-end's classify did not launch viterbi_score")
+    n_vit, n_emit = _build.LAUNCHES["viterbi_score"], _build.LAUNCHES["gmm_emissions"]
+    if n_vit == 0 or n_emit == 0:
+        fail(f"hmm: the default front-end's classify launched viterbi_score {n_vit} times, "
+             f"gmm_emissions {n_emit}")
     h_labels, h_scores = host.classify_batch(sigs, return_scores=True)
     ties = same_labels(labels, h_labels, h_scores, "labels against the CPU")
     score_err = float(np.max(np.abs(scores - h_scores) / np.abs(h_scores)))
@@ -1890,6 +1903,7 @@ def hmm_phase(seed: int, dev, report) -> dict:
     if acc < 0.9:
         fail(f"hmm: accuracy {acc}")
     out["viterbi_kernel"] = viterbi_kernel_check(seed, dev, qf, rec.params, report)
+    out["emission_kernel"] = emission_kernel_check(seed, dev, qf, report)
 
     # noise adaptation: a noisy batch, the word models and UBM PMC-adapted
     rng = np.random.default_rng([seed, 11])
@@ -1923,17 +1937,19 @@ def hmm_phase(seed: int, dev, report) -> dict:
     f_labels = fused.classify_batch(queries)
     torch.cuda.synchronize()
     n_mfcc, f_vit = _build.LAUNCHES["mfcc_fused"], _build.LAUNCHES["viterbi_score"]
+    f_emit = _build.LAUNCHES["gmm_emissions"]
     others = {k: v for k, v in _build.LAUNCHES.items()
-              if v and k not in ("mfcc_fused", "viterbi_score")}
-    if n_mfcc == 0 or f_vit == 0 or others:
+              if v and k not in ("mfcc_fused", "viterbi_score", "gmm_emissions")}
+    if n_mfcc == 0 or f_vit == 0 or f_emit == 0 or others:
         fail(f"hmm: the fused front-end's classify launched mfcc_fused {n_mfcc} times, "
-             f"viterbi_score {f_vit} and {others}")
+             f"viterbi_score {f_vit}, gmm_emissions {f_emit} and {others}")
     f_ties = same_labels(f_labels, labels[:HMM_QUERIES], scores[:HMM_QUERIES],
                          "fused front-end labels against the default front-end's")
     print(f"hmm noise_adapt at sigma {HMM_NOISE_SIGMA}: accuracy {n_acc:.4f} (without "
           f"{p_acc:.4f}), labels as the CPU's ({n_ties} at near-ties); save/load round "
           f"trip equal; FrontendConfig(impl='pallas'): mfcc_fused launched {n_mfcc} "
-          f"times, viterbi_score {f_vit} (the default front-end's classify {n_vit}), "
+          f"times, viterbi_score {f_vit}, gmm_emissions {f_emit} (the default "
+          f"front-end's classify {n_vit} and {n_emit}), "
           f"labels as the default front-end's ({f_ties} at near-ties)", flush=True)
     out.update(accuracy=acc, labels_at_near_ties=ties, score_max_rel_err_vs_cpu=score_err,
                reject_threshold=thr, reject_threshold_cpu=h_thr,
@@ -1945,7 +1961,7 @@ def hmm_phase(seed: int, dev, report) -> dict:
                noise_adapt_accuracy=n_acc, noisy_accuracy_without=p_acc,
                noise_adapt_labels_at_near_ties=n_ties, fused_mfcc_launches=n_mfcc,
                fused_labels_at_near_ties=f_ties)
-    return {"mfcc_fused": n_mfcc, "viterbi_score": n_vit}
+    return {"mfcc_fused": n_mfcc, "viterbi_score": n_vit, "gmm_emissions": n_emit}
 
 
 def viterbi_kernel_check(seed: int, dev, qf, params, report) -> dict:
@@ -2005,6 +2021,76 @@ def viterbi_kernel_check(seed: int, dev, qf, params, report) -> dict:
           f"on {'; '.join(report['nvidia_smi'])}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+EMISSION_TOL = 1e-5     # the emission kernel against float64 (tests/test_torch_cuda.py)
+
+
+def emission_kernel_check(seed: int, dev, qf, report) -> dict:
+    """Kernel ``gmm_emissions`` at the benchmark cell's shape: the queries'
+    features four times over (1,024 x 198 rows of F = 39) against 11
+    words x 16 states x 3 Gaussians whose means are frames of them (and a
+    tenth of a feature's spread), log-variances the features' own +- 0.5
+    and mixture weights a log-softmax.  Against the plain chain
+    (``gmm_loglik_flat`` and ``torch.logsumexp``) in float64: within
+    ``EMISSION_TOL`` of (1 + |log b|); against it in float32 (the route of
+    inputs the kernel refuses, the expanded form): apart by no more than
+    that chain's own error and ``EMISSION_TOL``.  Its CUDA-event time beside
+    the float32 chain's, and the bound: the benchmark's fp32 operations
+    (``benchmark/hmm_roofline.py:emission_flops``, 3F + 3 a Gaussian and
+    row) or the rows, parameters and ``log_b`` once, whichever binds.  Its
+    launches are not the kernel table's: they are read in the classify
+    the benchmark cell runs."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.kernels import gmm_emissions as kgmm
+    from dsp_tpu_torch.models import gmm_hmm as pg
+    from dsp_tpu_torch.scripts.roofline import bound
+
+    w, s, m = 11, 16, 3
+    x = qf.feats.repeat(1024 // qf.feats.shape[0], 1, 1).contiguous()
+    b, t, f = x.shape
+    rng = np.random.default_rng([seed, 17])
+    frames = qf.feats.reshape(-1, f).cpu().numpy().astype(np.float64)
+    spread = frames.std(0)
+    means = frames[rng.integers(0, len(frames), w * s * m)].reshape(w, s, m, f) \
+        + 0.1 * spread * rng.standard_normal((w, s, m, f))
+    log_var = np.log(spread ** 2) + rng.uniform(-0.5, 0.5, (w, s, m, f))
+    log_mix = rng.standard_normal((w, s, m))
+    log_mix -= np.log(np.exp(log_mix).sum(-1, keepdims=True))
+    params = tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
+                   for a in (means, log_var, log_mix))
+
+    def plain(xx, *p):
+        ll = pg.gmm_loglik_flat(xx, p[0].reshape(-1, f), p[1].reshape(-1, f))
+        return torch.logsumexp(ll.reshape(b, t, w, s, m) + p[2], dim=-1)
+
+    got = kgmm.gmm_emissions_fused(x, *params)
+    plain32 = plain(x, *params)
+    ref = plain(x.double(), *(a.double() for a in params))
+    torch.cuda.synchronize()
+    scale = 1.0 + ref.abs()
+    err = float(((got.double() - ref).abs() / scale).max())
+    abs_err = float((got.double() - ref).abs().max())
+    plain_err = float(((plain32.double() - ref).abs() / scale).max())
+    apart = float(((got.double() - plain32.double()).abs() / scale).max())
+    del ref, scale
+    if err > EMISSION_TOL or apart > plain_err + EMISSION_TOL:
+        fail(f"hmm emission kernel: {err:.3e} from float64 (held at {EMISSION_TOL}), "
+             f"{apart:.3e} from the float32 chain, whose own error is {plain_err:.3e}")
+    ms = time_ms(lambda: kgmm.gmm_emissions_fused(x, *params))
+    plain_ms = time_ms(lambda: plain(x, *params), reps=3)
+    flops = float(b) * t * w * s * m * (3.0 * f + 3.0)
+    n_bytes = 4.0 * (b * t * f + b * t * w * s + w * s * m * (2 * f + 1))
+    bound_ms, bound_by = bound(flops, n_bytes)
+    print(f"hmm emission kernel at {b} x {t} rows x {w} x {s} x {m} Gaussians, F = {f}: "
+          f"{err:.3e} from the float64 chain (the float32 chain {plain_err:.3e}, the kernel "
+          f"{apart:.3e} from it); {ms:.4f} ms, float32 chain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP, "
+          f"{n_bytes / 1e6:.1f} MB), on {'; '.join(report['nvidia_smi'])}", flush=True)
+    return dict(max_abs_err=abs_err, max_rel_err=err, plain_rel_err=plain_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def hmm_raw_scores(llr, start, ubm_ll):
@@ -2276,7 +2362,8 @@ def cascade_phase(seed: int, dev, report) -> int:
         launches = _build.LAUNCHES["spot_subseq"]
     finally:
         sp_ops.rerank_windows = rerank
-    others = {k: v for k, v in _build.LAUNCHES.items() if v and k != "spot_subseq"}
+    others = {k: v for k, v in _build.LAUNCHES.items()
+              if v and k not in ("spot_subseq", "gmm_emissions")}
     if launches == 0 or others or not batches:
         fail(f"the cascade launched kernel 3 {launches} times and {others}, "
              f"{len(batches)} rerank batches")
@@ -4284,8 +4371,7 @@ def bench_phase(dev, report) -> dict:
     if [ln["config"] for ln in all_lines] != list(rows_run) or len(rows_run) != 11:
         fail(f"bench_all printed rows {[ln['config'] for ln in all_lines]}")
     for config, calls in rows_run.items():
-        kernel = BENCH_ROW_KERNELS.get(config)
-        want = {kernel: calls} if kernel else {}
+        want = dict.fromkeys(BENCH_ROW_KERNELS.get(config, ()), calls)
         if launches[f"bench_all {config}"] != want:
             fail(f"bench_all {config}: launches {launches[f'bench_all {config}']}, "
                  f"expected {want}")
@@ -4297,8 +4383,7 @@ def bench_phase(dev, report) -> dict:
                                  bench_all.rows("cpu", **BENCH_ALL_CUT)):
         config = card_row.meta["config"]
         got = card(f"cut {config}", lambda: card_row.step(*card_row.args))
-        kernel = BENCH_ROW_KERNELS.get(config)
-        if launches[f"cut {config}"] != ({kernel: 1} if kernel else {}):
+        if launches[f"cut {config}"] != dict.fromkeys(BENCH_ROW_KERNELS.get(config, ()), 1):
             fail(f"bench_all {config} at the cut: launches {launches[f'cut {config}']}")
         gaps[config] = bench_row_gap(config, card_row, cpu_row, got,
                                      cpu_row.step(*cpu_row.args))
@@ -4912,6 +4997,7 @@ def main() -> int:
     report["streaming"]["launches"] = run("streaming", streaming_phase, args.seed, dev, report)
     report["hmm"]["launches"] = run("hmm", hmm_phase, args.seed, dev, report)
     launches["viterbi_score"] = report["hmm"]["launches"]["viterbi_score"]
+    launches["gmm_emissions"] = report["hmm"]["launches"]["gmm_emissions"]
     report["cascade"]["launches"] = {
         "spot_subseq": run("cascade", cascade_phase, args.seed, dev, report)}
     launches["spot_subseq"] += report["cascade"]["launches"]["spot_subseq"]
@@ -4968,6 +5054,10 @@ def main() -> int:
         entry("viterbi_score", "dsp_tpu_torch/csrc/viterbi_score.cu",
               "none (dsp_tpu/ops/viterbi.py:viterbi_score, lax.scan)",
               report["hmm"]["viterbi_kernel"]),
+        # no TPU kernel: the JAX package's emissions are products XLA fused
+        entry("gmm_emissions", "dsp_tpu_torch/csrc/gmm_emissions.cu",
+              "none (dsp_tpu/models/gmm_hmm.py emissions, XLA)",
+              report["hmm"]["emission_kernel"]),
         entry("dp_diet", mb_src, "scripts/mb_wavefront.py:78", mb["dp_diet"]),
         entry("dma_fetch", mb_src, "scripts/mb_wavefront.py:125", mb["dma_fetch"]),
         entry("anatomy", mb_src, "scripts/mb_wavefront.py:194", mb["anatomy"]),

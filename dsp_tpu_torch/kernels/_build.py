@@ -54,6 +54,7 @@ _SIGNATURES = {
     "dtw_fused": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
     "dtw_wavefront": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "viterbi_score": ((_P, _P, _P, _P, _I, _P, _L, _L, _I, _I, _P, _P), _I),
+    "gmm_emissions": ((_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P), _I),
     "mb_dp_diet": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "mb_dma_fetch": ((_P, _P, _P, _P, _U, _I, _I, _I, _I, _P), _I),
     "mb_anatomy": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),

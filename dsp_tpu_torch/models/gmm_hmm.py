@@ -3,12 +3,16 @@
 BASELINE config 3: one left-to-right HMM a word (start in state 0,
 transitions stay or advance) with diagonal-Gaussian mixture emissions.
 
-* **Emission scoring is a matrix product.**  The Gaussian log-likelihood
-  expands as ``-0.5 (x^2 . v^-1 - 2 x . (mu v^-1) + c + F log 2 pi)``, so
-  scoring a feature batch against every (word, state, mixture) at once is
-  one ``[B*T, F] @ [F, W*S*M]`` product; no [., ., F] broadcast tensor is
+* **Emission scoring is a matrix product** in the plain version.  The
+  Gaussian log-likelihood expands as
+  ``-0.5 (x^2 . v^-1 - 2 x . (mu v^-1) + c + F log 2 pi)``, so scoring a
+  feature batch against every (word, state, mixture) at once is one
+  ``[B*T, F] @ [F, W*S*M]`` product; no [., ., F] broadcast tensor is
   built.  The expanded form is kept (not ``(x - mu)^2``) so that scores
-  match the JAX package's.
+  match the JAX package's.  On the card :func:`emission_logb` is one
+  launch of the kernel ``gmm_emissions`` (``kernels/gmm_emissions.py``):
+  the direct form ``(x - mu)^2 / v`` and the log-sum-exp over mixtures in
+  registers, ``log_b`` its only write.  Training keeps the products.
 * **Decode is one batched recursion** (``ops/viterbi.py``): log-space
   Viterbi over [B, W, S] log-deltas scores a whole utterance batch against
   the whole vocabulary, in one launch of the kernel ``viterbi_score`` on
@@ -132,10 +136,20 @@ def gmm_loglik_flat(x: torch.Tensor, means: torch.Tensor,
 
 
 def emission_logb(x: torch.Tensor, params: HmmParams) -> torch.Tensor:
-    """x [..., F] + params [*lead, S, M, F] -> logB [..., *lead, S]."""
+    """x [..., F] + params [*lead, S, M, F] -> logB [..., *lead, S].
+
+    On the card, one launch of the kernel ``gmm_emissions``
+    (``kernels/gmm_emissions.py``) wherever it takes the inputs (float32,
+    contiguous, M <= 8, F <= 64); every other input runs the plain chain
+    below on its own device."""
     lead = params.means.shape[:-1]                                # (*, S, M)
     f = params.means.shape[-1]
     with profiling.stage("dsp.emissions"):
+        if x.is_cuda:
+            from dsp_tpu_torch.kernels import gmm_emissions as kernel
+
+            if kernel.refusal(x, params.means, params.log_var, params.log_mix) is None:
+                return kernel.launch(x, params.means, params.log_var, params.log_mix)
         ll = gmm_loglik_flat(x, params.means.reshape(-1, f),
                              params.log_var.reshape(-1, f))       # [..., K]
         ll = ll.reshape(*x.shape[:-1], *lead)                     # [..., *, S, M]

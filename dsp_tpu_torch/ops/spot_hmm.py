@@ -8,8 +8,10 @@ per-frame Viterbi log-likelihood ratio against the universal background
 GMM (``models/gmm_hmm.py:fit_ubm``), so a fitted recognizer spots its
 words with no extra training.
 
-* Emissions for every (frame, word, state) are the float32 GEMMs of
-  ``models/gmm_hmm.py:emission_logb``, the ones scoring uses.
+* Emissions for every (frame, word, state) are
+  ``models/gmm_hmm.py:emission_logb``'s, the ones scoring uses: one
+  launch of the kernel ``gmm_emissions`` on the card, float32 GEMMs on
+  the CPU.
 * The DP is frame-synchronous over the stream with a [..., W, S] carry
   and no dependency inside a frame (left-right, no skips: every
   predecessor lies at frame j-1), so a frame is a few elementwise
@@ -164,8 +166,9 @@ def spot_hmm_chunk(state: SpotHmmState, chunk: torch.Tensor, n_valid,
 
     The DP is invariant to where chunks begin and end (the same
     sequential recurrence either way), so feeding one chunk shape is
-    bit-exact under any tiling.  Across other chunk shapes the emission
-    GEMMs may round apart (~1e-4 nats in the JAX package), and against
+    bit-exact under any tiling.  Across other chunk shapes the CPU's
+    emission GEMMs may round apart (~1e-4 nats in the JAX package; the
+    card's kernel scores each row alone), and against
     the offline readout the running UBM sum associates otherwise than
     its cumsum: witnesses stay equal, LLRs agree to the tolerances
     ``tests/test_torch_spot_hmm.py`` states."""

@@ -23,9 +23,12 @@ one add per cell).  Wavefront microbenchmark kernels (``mb_*``): equal bits
 to their plain versions (dp_diet: exact mins and one add a cell; anatomy:
 product and sum rounded apart, as the plain version rounds them; trivial,
 transpose and skew move values), the fetch's accumulator at rtol 1e-6.
-GMM-HMM (the decode's kernel ``viterbi_score``; training has none): the
-kernel's scores equal the plain loop's bit for bit (one fp32 add a sum,
-exact maxes), NaN and infinities where the loop has them; one E-step on
+GMM-HMM (the decode's kernel ``viterbi_score`` and the emissions' kernel
+``gmm_emissions``; training has none): the decode kernel's scores equal
+the plain loop's bit for bit (one fp32 add a sum, exact maxes), NaN and
+infinities where the loop has them; the emission kernel's ``log_b``
+within 1e-5 of (1 + |log b|) of the plain chain in float64 (its direct
+float32 sums round to ~1e-7), NaN and infinities where that has them; one E-step on
 the card within 1e-2 of the CPU's (max |a - b| / (1 + |b|);
 chip_smoke.py's HMM_STEP_TOL), transition counts, decode paths and labels
 equal, scores on the same features and parameters at rtol 1e-5; the
@@ -1449,6 +1452,148 @@ def test_viterbi_kernel_never_waits_and_counts_each_launch(dev):
     wide = _lattices(dev, 33, 2, 2, 10, "dense", seed=5)
     with pytest.raises(ValueError, match="S <= 32"):
         kvit.viterbi_score_fused(*wide)
+
+
+def _emission_inputs(dev, lead_x, w, s, m, f=39, seed=0):
+    """Rows x [*lead_x, F] and parameters [W, S, M, F] on the card, float32:
+    features and means N(0, 3^2), log-variances in log 9 +- 1, mixture
+    weights a log-softmax (log-likelihoods of -60 to -700 nats)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)   # noqa: E731
+    log_mix = rng.standard_normal((w, s, m))
+    log_mix -= np.log(np.exp(log_mix).sum(-1, keepdims=True))
+    return (f32(rng.standard_normal((*lead_x, f)) * 3.0),
+            f32(rng.standard_normal((w, s, m, f)) * 3.0),
+            f32(rng.uniform(-1.0, 1.0, (w, s, m, f)) + np.log(9.0)), f32(log_mix))
+
+
+def _plain_emissions(x, means, log_var, log_mix):
+    """The plain chain (``gmm_loglik_flat`` and ``torch.logsumexp``) in the
+    inputs' precision and on their device: ``emission_logb``'s route for
+    what the kernel refuses."""
+    from dsp_tpu_torch.models import gmm_hmm as pg
+
+    f = means.shape[-1]
+    ll = pg.gmm_loglik_flat(x, means.reshape(-1, f), log_var.reshape(-1, f))
+    return torch.logsumexp(ll.reshape(*x.shape[:-1], *means.shape[:-1]) + log_mix, dim=-1)
+
+
+# The kernel sums 39 positive terms (x - mu)^2 / var in order in float32 and
+# adds two constants: ~1e-7 relative to the log-likelihood.  1e-5 of
+# (1 + |log b|) leaves that a hundredfold and still fails any misplaced row,
+# state or mixture, which is off by nats.
+EMISSION_TOL = 1e-5
+
+
+@pytest.mark.parametrize("lead_x, w, s, m, f", [
+    ((1024, 198), 11, 16, 3, 39),       # the aurora2-hmm.dev1024 request
+    ((3, 101), 4, 16, 3, 39),           # 303 rows: no multiple of the 256-row tile
+    ((5, 60), 3, 1, 3, 39),             # one state
+    ((5, 60), 3, 5, 3, 39),             # five states: stored one by one
+    ((5, 60), 3, 16, 1, 39),            # one mixture
+    ((5, 60), 3, 6, 8, 39),             # the most mixtures, tiles of 2 states
+    ((5, 60), 3, 5, 7, 39),             # 7 mixtures, 5 states
+    ((4, 198), 1, 16, 3, 39),           # one word
+    ((24,), 10, 5, 3, 39),              # spot_hmm_chunk's [C, F] chunk
+    ((2, 300), 2, 40, 3, 39),           # three stages of states in a block
+    ((7, 33), 3, 4, 2, 64),             # the most features
+    ((7, 33), 3, 4, 2, 13),
+])
+def test_gmm_emission_kernel_matches_the_float64_plain_chain(dev, lead_x, w, s, m, f):
+    """Kernel ``gmm_emissions`` against the plain chain in float64 on the
+    same inputs, within ``EMISSION_TOL`` of (1 + |log b|); ``emission_logb``
+    takes the kernel (one ``_build.LAUNCHES`` entry) with its bits."""
+    from dsp_tpu_torch.kernels import gmm_emissions as kgmm
+    from dsp_tpu_torch.models import gmm_hmm as pg
+
+    args = _emission_inputs(dev, lead_x, w, s, m, f, seed=s * 10 + m)
+    assert kgmm.refusal(*args) is None
+    got = kgmm.gmm_emissions_fused(*args)
+    want = _plain_emissions(*(a.double() for a in args))
+    assert got.shape == want.shape == (*lead_x, w, s)
+    err = float(((got.double() - want).abs() / (1.0 + want.abs())).max())
+    assert err <= EMISSION_TOL, err
+    before = _build.LAUNCHES["gmm_emissions"]
+    assert torch.equal(pg.emission_logb(args[0], pg.HmmParams(None, None, *args[1:])), got)
+    assert _build.LAUNCHES["gmm_emissions"] == before + 1
+
+
+def test_gmm_emission_kernel_keeps_infinities_and_nan_where_the_plain_chain_has_them(dev):
+    """A -inf ``log_mix`` entry drops its Gaussian; a state whose every
+    ``log_mix`` is -inf gives -inf; a NaN in a row makes that row's every
+    state NaN (``torch.logsumexp``'s rules): the same pattern as the
+    float64 plain chain, the rest within ``EMISSION_TOL``."""
+    from dsp_tpu_torch.kernels import gmm_emissions as kgmm
+
+    x, means, log_var, log_mix = _emission_inputs(dev, (6, 50), 3, 5, 3, seed=9)
+    x[2, 17, 4] = float("nan")
+    log_mix[1, 2, 0] = float("-inf")
+    log_mix[2, 4, :] = float("-inf")
+    got = kgmm.gmm_emissions_fused(x, means, log_var, log_mix)
+    want = _plain_emissions(*(a.double() for a in (x, means, log_var, log_mix)))
+    assert want[2, 17].isnan().all() and want.isnan().sum() == 15
+    dropped = want[..., 2, 4]
+    assert (dropped[~dropped.isnan()] == float("-inf")).all()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()].double(), want[want.isinf()])
+    fin = want.isfinite()
+    assert float(((got.double()[fin] - want[fin]).abs() / (1.0 + want[fin].abs())).max()) \
+        <= EMISSION_TOL
+
+
+def test_gmm_emission_kernel_launches_once_a_score_words_and_never_waits(dev):
+    """``score_words`` at the cell's widths (11 words x 16 states x 3
+    Gaussians, T = 198): one ``gmm_emissions`` and one ``viterbi_score``
+    launch a call and no host sync; its scores equal ``viterbi_score`` on
+    the kernel's ``log_b``."""
+    from dsp_tpu_torch.models import gmm_hmm as pg
+    from dsp_tpu_torch.ops import viterbi as tvit
+
+    x, means, log_var, log_mix = _emission_inputs(dev, (8, 198), 11, 16, 3, seed=4)
+    log_pi, log_a, _, _ = _lattices(dev, 16, 8, 11, 198, "left_to_right", seed=4)
+    params = pg.HmmParams(log_pi[0], log_a[0], means, log_var, log_mix)
+    lengths = torch.tensor([198, 1, 60, 120, 197, 2, 198, 150], dtype=torch.int32,
+                           device=dev)
+    logb = pg.emission_logb(x, params)
+    want = tvit.viterbi_score(log_pi, log_a, logb.movedim(1, 0), lengths[:, None])
+    before = {k: _build.LAUNCHES[k] for k in ("gmm_emissions", "viterbi_score")}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [pg.score_words(x, lengths, params) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert {k: _build.LAUNCHES[k] - n for k, n in before.items()} == \
+        {"gmm_emissions": 3, "viterbi_score": 3}
+    assert all(torch.equal(g, want) for g in got)
+
+
+def test_emission_logb_runs_the_plain_chain_on_what_the_kernel_refuses(dev):
+    """float64 inputs and 9 mixtures (past the kernel's 8): the plain chain
+    op by op on the card, its bits, no ``gmm_emissions`` launch and no
+    host sync; the wrapper refuses both."""
+    from dsp_tpu_torch.kernels import gmm_emissions as kgmm
+    from dsp_tpu_torch.models import gmm_hmm as pg
+
+    double = tuple(a.double() for a in _emission_inputs(dev, (4, 30), 3, 5, 3, seed=5))
+    wide = _emission_inputs(dev, (4, 30), 3, 5, 9, seed=6)
+    assert "float32" in kgmm.refusal(*double) and "M <= 8" in kgmm.refusal(*wide)
+    want = [_plain_emissions(*a) for a in (double, wide)]
+    launched = _build.LAUNCHES["gmm_emissions"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [pg.emission_logb(a[0], pg.HmmParams(None, None, *a[1:]))
+               for a in (double, wide)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.LAUNCHES["gmm_emissions"] == launched
+    assert got[0].dtype == torch.float64
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for a, words in ((double, "float32"), (wide, "M <= 8")):
+        with pytest.raises(ValueError, match=words):
+            kgmm.gmm_emissions_fused(*a)
 
 
 def test_hmm_recognize_batch_never_waits_and_classify_batch_reads_back_once(dev):
