@@ -26,6 +26,13 @@ transitions stay or advance) with diagonal-Gaussian mixture emissions.
   small launches a batch took the host longer than the card took to run
   them.  Under a profiler the emissions are the span ``dsp.emissions``,
   the word choice ``dsp.argmax`` and the readback ``dsp.readback``.
+* **Connected decode on the device** (:func:`recognize_level_batch`):
+  the words and a silence unit ``sil`` (``GmmHmmRecognizer.fit_silence``,
+  HTK's 3 states with skips) in one :class:`HmmNetwork` of two
+  topologies, scored with one :func:`emission_logb` a topology, through
+  the level DP and a batched backtrace (``ops/connected_viterbi.py``) with
+  no host sync; ``classify_connected(method="level")`` reads its ids back
+  once.  On the card its three chains replay CUDA graphs.
 * **Training** is segmental (Viterbi) EM or Baum-Welch (``HmmConfig.
   train_mode``) from a uniform segmentation, with a universal background
   GMM (UBM) fitted over every frame, the MAP prior when ``map_tau > 0``
@@ -39,7 +46,10 @@ gave chance-level decoding and broken fitted models on the TPU, the JAX
 package's ``Precision.HIGHEST`` notes).  Every product here is a float32
 ``torch.matmul`` / ``torch.einsum``, and the package turns TF32 off for
 all of them on the card (``dsp_tpu_torch/__init__.py``); this module
-relies on that and adds no autocast.
+relies on that and adds no autocast.  On the CPU the products go through
+``utils/products.py`` (2-D products of fixed row tiles, a word's slice at
+a time), so that a word fitted alone equals its row of a batched fit and
+padding rows change no score.
 
 Deviations the tests pin: the initial jitter is a standard-normal draw
 from a ``torch.Generator`` on the CPU seeded with ``HmmConfig.seed`` (+ the
@@ -57,6 +67,7 @@ decode.  Checkpoints are the JAX package's ``.npz``, field for field.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 from typing import NamedTuple
@@ -71,7 +82,7 @@ from dsp_tpu_torch.models.knn_dtw import (REJECT, _check_mesh, _to_host,
                                           frontend_signature, grammar_masks)
 from dsp_tpu_torch.ops import frontend as fe
 from dsp_tpu_torch.ops.viterbi import viterbi_decode, viterbi_score
-from dsp_tpu_torch.utils import graphs, profiling
+from dsp_tpu_torch.utils import graphs, products, profiling
 
 NEG_INF = -1e30
 LOG_2PI = float(np.log(2.0 * np.pi))
@@ -127,8 +138,8 @@ def gmm_loglik_flat(x: torch.Tensor, means: torch.Tensor,
     """
     f = x.shape[-1]
     inv_var = torch.exp(-log_var)                                 # [..., K, F]
-    a = torch.matmul(x * x, inv_var.transpose(-1, -2))            # [..., K]
-    b = torch.matmul(x, (means * inv_var).transpose(-1, -2))
+    a = products.matmul(x * x, inv_var.transpose(-1, -2))         # [..., K]
+    b = products.matmul(x, (means * inv_var).transpose(-1, -2))
     c = torch.sum(means * means * inv_var + log_var, dim=-1)      # [..., K]
     if means.dim() > 2:
         c = c[..., None, :]
@@ -203,6 +214,98 @@ def recognize_batch(signals: torch.Tensor, n_samples: torch.Tensor, params: HmmP
         return scores.argmax(-1), scores
 
 
+# ------------------------------------------------------- connected decode
+SIL = "sil"       # the silence model's unit label
+
+
+class HmmNetwork(NamedTuple):
+    """The units of a connected decode: models of several topologies in one
+    network of S state slots a unit.  ``groups`` are stacked HmmParams
+    ([W_g, S_g, M_g, F] each) in unit order; a group of S_g states takes
+    the last S_g slots of its units, and ``log_pi`` / ``log_a`` hold
+    NEG_INF in the others, so every unit enters and exits in its own
+    states (:func:`network`)."""
+
+    log_pi: torch.Tensor    # [U, S]
+    log_a: torch.Tensor     # [U, S, S]
+    groups: tuple           # HmmParams a topology, in unit order
+
+
+def network(*groups: HmmParams) -> HmmNetwork:
+    """Stacked models of one or more topologies -> one :class:`HmmNetwork`
+    of S = the most states of any group."""
+    s = max(g.log_pi.shape[-1] for g in groups)
+    pis, as_ = [], []
+    for g in groups:
+        w, sg = g.log_pi.shape
+        pi = torch.full((w, s), NEG_INF, dtype=torch.float32, device=g.log_pi.device)
+        pi[:, s - sg:] = g.log_pi
+        a = torch.full((w, s, s), NEG_INF, dtype=torch.float32, device=g.log_a.device)
+        a[:, s - sg:, s - sg:] = g.log_a
+        pis.append(pi)
+        as_.append(a)
+    return HmmNetwork(torch.cat(pis), torch.cat(as_),
+                      tuple(HmmParams(*(t.contiguous() for t in g)) for g in groups))
+
+
+def network_logb(feats: torch.Tensor, net: HmmNetwork) -> torch.Tensor:
+    """feats [B, T, F] -> frame-major log_b [T, B, U, S] of the network: one
+    :func:`emission_logb` a topology (no model's Gaussians padded), placed
+    in its units' slots; NEG_INF in the slots a unit does not use."""
+    b, t, _ = feats.shape
+    u, s = net.log_pi.shape
+    out = torch.full((t, b, u, s), NEG_INF, dtype=torch.float32, device=feats.device)
+    u0 = 0
+    for g in net.groups:
+        w, sg = g.log_pi.shape
+        out[:, :, u0:u0 + w, s - sg:] = torch.movedim(emission_logb(feats, g), 1, 0)
+        u0 += w
+    return out
+
+
+def _recording_features(signals, n_samples, cfg, t_max):
+    with profiling.stage("dsp.frontend"):
+        return pl.extract_recording_features(signals, n_samples, cfg, t_max)
+
+
+def recognize_level_batch(signals: torch.Tensor, n_samples: torch.Tensor, net: HmmNetwork,
+                          cfg: PipelineConfig, masks, max_levels: int,
+                          word_penalty: float = 0.0):
+    """Padded recordings [B, N] and their lengths [B] -> (unit ids [B, L]
+    int32, -1 past each count, counts [B] int32, final scores [B, L]) on
+    their device, with no host sync: the connected decode of every
+    recording through the units of ``net`` under the grammar ``masks``
+    (``(start [U], pairs [U, U], end [U])`` bool tensors on the device).
+
+    The whole-recording front end (``pipeline.extract_recording_features``
+    at ``cfg``), :func:`network_logb` (one ``gmm_emissions`` launch a
+    topology on the card), the level DP (``ops/connected_viterbi.level_dp``;
+    ``word_penalty`` subtracted a unit) and the batched backtrace
+    (``backtrace_batch``, equal to ``level_building.backtrack_grammar``).
+    On the card the front end, the whole DP and the backtrace replay CUDA
+    graphs (``utils/graphs.py``);
+    CPU tensors run op by op.  Counts ``connected_steps`` (L x T a
+    call)."""
+    from dsp_tpu_torch.ops import connected_viterbi as cv
+
+    f = cfg.frontend
+    t_max = max(1, 1 + (signals.shape[-1] - f.frame_len) // f.hop_len)
+    keep = (fe.make_matrices(f, signals.device),
+            fe.fold_matrices(f, signals.device) if f.n_fft < f.frame_len else None)
+    feats = graphs.replayed(("recording_features", cfg, t_max),
+                            functools.partial(_recording_features, cfg=cfg, t_max=t_max),
+                            signals, n_samples, keep=keep, span="dsp.frontend")
+    logb = network_logb(feats.feats, net)
+    start, pairs, end = masks
+    profiling.count("connected_steps", max_levels * t_max)
+    scores, starts = graphs.replayed(
+        ("level_dp", max_levels, word_penalty),
+        functools.partial(cv.level_dp, max_levels=max_levels, word_penalty=word_penalty),
+        logb, net.log_pi, net.log_a, start, pairs, span="dsp.connected")
+    return graphs.replayed(("backtrace_batch",), cv.backtrace_batch, scores, starts,
+                           feats.length, pairs, end, span="dsp.backtrace")
+
+
 def _read_back(ids: torch.Tensor, scores: torch.Tensor):
     """(ids [B], scores [B, W]) -> numpy (ids int64, scores float32) with
     one copy, so the host waits on the card once: the ids ride as a
@@ -223,6 +326,21 @@ def score_ubm(feats: torch.Tensor, lengths: torch.Tensor, ubm) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- training
+def _frame_sums(eq: str, r: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, r, x)``: weights r [*W, N, T, *K] and x [*W, N, T,
+    F] summed over (N, T) -> [*W, *K, F].  On the CPU it is
+    ``utils.products.matmul``, one word's slice a product, so a word fitted
+    alone and its row of a batched fit sum alike."""
+    if r.device.type != "cpu":
+        return torch.einsum(eq, r, x)
+    lead = x.shape[:-3]
+    nt, f = x.shape[-3] * x.shape[-2], x.shape[-1]
+    k = r.shape[len(lead) + 2:]
+    out = products.matmul(r.reshape(*lead, nt, -1).transpose(-1, -2),
+                          x.reshape(*lead, nt, f))
+    return out.reshape(*lead, *k, f)
+
+
 def _valid(t: int, lengths: torch.Tensor) -> torch.Tensor:
     return torch.arange(t, device=lengths.device) < lengths[..., None]
 
@@ -275,8 +393,8 @@ def init_params(feats: torch.Tensor, lengths: torch.Tensor, cfg: HmmConfig,
     gamma = (torch.nn.functional.one_hot(align, s).to(feats.dtype)
              * valid[..., None])                                  # [*W, N, T, S]
     tot = torch.clamp(gamma.sum((-3, -2))[..., None], min=1e-6)   # [*W, S, 1]
-    mean_s = torch.einsum("...nts,...ntf->...sf", gamma, feats) / tot
-    var_s = torch.einsum("...nts,...ntf->...sf", gamma, feats * feats) / tot - mean_s**2
+    mean_s = _frame_sums("...nts,...ntf->...sf", gamma, feats) / tot
+    var_s = _frame_sums("...nts,...ntf->...sf", gamma, feats * feats) / tot - mean_s**2
     var_s = torch.clamp(var_s, min=cfg.var_floor)
 
     # spread M components around the state mean along the state stddev
@@ -308,8 +426,8 @@ def _gmm_stats(feats: torch.Tensor, valid: torch.Tensor, gamma: torch.Tensor,
     resp = torch.softmax(mix_ll, dim=-1)                          # within-state
     r = resp * (gamma * valid[..., None])[..., None]              # [*W, N, T, S, M]
     tot = r.sum((-4, -3))                                         # [*W, S, M]
-    sx = torch.einsum("...ntsm,...ntf->...smf", r, feats)
-    sxx = torch.einsum("...ntsm,...ntf->...smf", r, feats * feats)
+    sx = _frame_sums("...ntsm,...ntf->...smf", r, feats)
+    sxx = _frame_sums("...ntsm,...ntf->...smf", r, feats * feats)
     return tot, sx, sxx
 
 
@@ -491,6 +609,18 @@ def fit_word(feats: torch.Tensor, lengths: torch.Tensor,
     return HmmParams(*(a.to(feats.device) for a in params))
 
 
+def add_skips(params: HmmParams, prob: float = 0.1) -> HmmParams:
+    """The skips of HTK's tutorial silence model on a fitted 3-state (or
+    longer) model: from the first emitting state to the third and back
+    (HTK's 2 -> 4 and 4 -> 2), each of probability ``prob``, each row then
+    renormalised; transitions of probability 0 stay at NEG_INF."""
+    a = torch.exp(params.log_a)
+    a[..., 0, 2] += prob
+    a[..., 2, 0] += prob
+    a = a / a.sum(-1, keepdim=True)
+    return params._replace(log_a=torch.where(a > 0, torch.log(a), NEG_INF).contiguous())
+
+
 def stack_params(params_list) -> HmmParams:
     return HmmParams(*(torch.stack([getattr(p, f) for p in params_list])
                        for f in HmmParams._fields))
@@ -593,6 +723,11 @@ class GmmHmmRecognizer:
     ('data', 'bank') ``DeviceMesh``) decodes data-parallel over every rank
     of it; ``fit(mesh=)`` trains over a mesh.  ``noise_adapt`` does not
     compose with a mesh.
+
+    Beside the word models the recognizer may hold a silence unit ``sil``
+    (:meth:`fit_silence`, any topology), which only the connected decode
+    (``classify_connected(method="level")``) uses, as the last unit of its
+    network: no isolated path scores it, and no label it returns is it.
     """
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(),
@@ -609,6 +744,7 @@ class GmmHmmRecognizer:
         #   training frames: the MAP prior and the rejection LLR's filler
         self.noise_adapt = noise_adapt
         self.reject_threshold: float | None = None   # calibrate_rejection
+        self.sil: HmmParams | None = None   # the silence unit, [1, S, M, F] (fit_silence)
 
     def device_params(self) -> HmmParams:
         """The stacked word models [W, ...] on the recognizer's device, in
@@ -616,6 +752,34 @@ class GmmHmmRecognizer:
         if self.params is None:
             raise ValueError("model not fitted")
         return self.params
+
+    def unit_labels(self) -> list[str]:
+        """The connected decode's units: the words, then ``sil`` if held."""
+        return self.labels + ([SIL] if self.sil is not None else [])
+
+    def network(self) -> HmmNetwork:
+        """The connected decode's :class:`HmmNetwork` over
+        :meth:`unit_labels`: what :func:`recognize_level_batch` takes."""
+        params = self.device_params()
+        return network(params) if self.sil is None else network(params, self.sil)
+
+    def fit_silence(self, signals, hmm: HmmConfig | None = None, skip: float = 0.1) -> None:
+        """Fit the silence unit ``sil`` on host recordings of silence (the
+        pauses before, between and after the words of a string): the
+        segmental EM of :func:`fit_word` at ``hmm`` (default: the words'
+        configuration at HTK's 3 states and 6 Gaussians, its draw seeded
+        after the words'), over each recording whole (no endpoint
+        detector), then the skips of :func:`add_skips` at ``skip``."""
+        if hmm is None:
+            hmm = dataclasses.replace(self.hmm, n_states=3, n_mix=6,
+                                      seed=self.hmm.seed + len(self.labels))
+        cfg = dataclasses.replace(self.cfg, use_vad=False)
+        f = cfg.frontend
+        n_len = max(len(np.asarray(s)) for s in signals)
+        x, n = pl.pad_signals(signals, n_len, self.device)
+        feats = pl.extract_recording_features(
+            x, n, cfg, max(1, 1 + (n_len - f.frame_len) // f.hop_len))
+        self.sil = add_skips(stack_params([fit_word(feats.feats, feats.length, hmm)]), skip)
 
     def extract(self, signals) -> pl.Features:
         """Host list of signals -> Features on the recognizer's device."""
@@ -668,8 +832,19 @@ class GmmHmmRecognizer:
         """(word params, ubm) for scoring ``signals``: PMC-adapted together
         when ``noise_adapt`` is on, since the rejection LLR compares word
         scores against the UBM in one compensated feature space."""
-        if not self.noise_adapt:
+        adapt = self._mean_adapter(signals)
+        if adapt is None:
             return self.params, self.ubm
+        ubm = self.ubm
+        if ubm is not None:
+            ubm = (adapt(ubm[0]), ubm[1], ubm[2])
+        return self.params._replace(means=adapt(self.params.means)), ubm
+
+    def _mean_adapter(self, signals):
+        """None where ``noise_adapt`` is off; else the PMC map of a model's
+        means onto the noise floor of ``signals`` (estimated once)."""
+        if not self.noise_adapt:
+            return None
         from dsp_tpu_torch.ops.noise_adapt import (estimate_noise_cepstrum,
                                                    pmc_adapt_means, pmc_supported)
 
@@ -685,11 +860,7 @@ class GmmHmmRecognizer:
         n_len = max(1, max(len(np.asarray(s)) for s in signals))
         x, n = pl.pad_signals(signals, quantum * -(-n_len // quantum), self.device)
         noise_c, _ = estimate_noise_cepstrum(x, n, mats, f, self.cfg.vad)
-        means = pmc_adapt_means(self.params.means, noise_c, mats, f)
-        ubm = self.ubm
-        if ubm is not None:
-            ubm = (pmc_adapt_means(ubm[0], noise_c, mats, f), ubm[1], ubm[2])
-        return self.params._replace(means=means), ubm
+        return lambda means: pmc_adapt_means(means, noise_c, mats, f)
 
     def classify_batch(self, signals, return_scores: bool = False, reject=None):
         """List of signals -> labels (and Viterbi log-liks [B, W], numpy).
@@ -814,10 +985,12 @@ class GmmHmmRecognizer:
         return pl.nbest_from_scores(scores, self.labels, n, higher_better=True)
 
     def resolve_grammar(self, grammar):
-        """A grammar argument -> word-level masks, as
+        """A grammar argument -> unit-level masks, as
         ``KnnDtwRecognizer.resolve_grammar``; the HMM family has one model
-        a label, so a unit is a word (masks in ``self.labels`` order)."""
-        return grammar_masks(grammar, self.labels, self.labels, "trained")
+        a label, so a unit is a word, or ``sil`` where the recognizer holds
+        it (masks in :meth:`unit_labels` order)."""
+        units = self.unit_labels()
+        return grammar_masks(grammar, units, units, "trained")
 
     def classify_connected(self, signals, max_segments: int = 8,
                            method: str = "vad", word_penalty: float = 0.0,
@@ -828,13 +1001,16 @@ class GmmHmmRecognizer:
         (``pipeline.decode_connected``) feeds every segment through the
         batched Viterbi scorer of :meth:`classify_batch`; needs silence
         between words.  ``method="level"``: the level-synchronous connected
-        Viterbi (``ops/connected_viterbi.py``) through the word-HMM network,
-        so gapless recordings decode; ``max_segments`` caps the word count
-        and ``word_penalty`` (>= 0, subtracted a word) biases it.
-        ``grammar`` (``"level"`` only) constrains the DP to a word syntax
+        Viterbi (``ops/connected_viterbi.py``) through the network of the
+        word HMMs and ``sil`` where held (:meth:`unit_labels`), on the
+        recognizer's device (:func:`recognize_level_batch`), so gapless
+        recordings decode; ``max_segments`` caps the unit count and
+        ``word_penalty`` (>= 0, subtracted a unit) biases it.  ``grammar``
+        (``"level"`` only) constrains the DP to a unit syntax
         (:meth:`resolve_grammar`); a recording the grammar cannot explain
-        gives ``[]``.  Both compose with ``noise_adapt`` (models adapted
-        to the recordings' own noise floor)."""
+        gives ``[]``.  ``sil`` is never a returned label.  Both compose
+        with ``noise_adapt`` (models adapted to the recordings' own noise
+        floor)."""
         if self.params is None:
             raise ValueError("model not fitted")
         if grammar is not None and method != "level":
@@ -842,45 +1018,50 @@ class GmmHmmRecognizer:
                 "grammar constraints require method='level' (the VAD "
                 "splitter classifies segments independently — there is "
                 "no joint sequence to constrain)")
-        params = self._scoring_models(signals)[0] if len(signals) else self.params
         if method == "level":
-            from dsp_tpu_torch.ops import level_building as lb
-            from dsp_tpu_torch.ops.connected_viterbi import (
-                connected_viterbi, connected_viterbi_grammar)
-
-            backtrack_fn = None
-            if grammar is None:
-                def dp_fn(feats):
-                    scores, words, starts = connected_viterbi(
-                        feats.feats, feats.length, params, max_segments,
-                        word_penalty)
-                    # the MIN convention of level building: NEG_INF -> BIG
-                    return -scores, words, starts
-            else:
-                start_m, pair_m, end_m = self.resolve_grammar(grammar)
-                start_t = torch.as_tensor(start_m, device=self.device)
-                pair_t = torch.as_tensor(pair_m, device=self.device)
-
-                def dp_fn(feats):
-                    scores, starts = connected_viterbi_grammar(
-                        feats.feats, feats.length, params, start_t, pair_t,
-                        max_segments, word_penalty)
-                    return -scores, starts
-
-                def backtrack_fn(costs, starts, t_valid):
-                    return lb.backtrack_grammar(costs, starts, pair_m, end_m,
-                                                t_valid)
-
-            id_lists, _ = pl.decode_level_generic(
-                signals, self.cfg, dp_fn, torch.arange(len(self.labels)),
-                backtrack_fn, self.device)
-            return [[self.labels[i] for i in ids] for ids in id_lists]
+            return self._classify_levels(signals, max_segments, word_penalty, grammar)
+        params = self._scoring_models(signals)[0] if len(signals) else self.params
         if method != "vad":
             raise ValueError(f"unknown connected method {method!r} (vad | level)")
         return pl.decode_connected(
             signals, self.cfg, max_segments,
             lambda flat: score_words(flat.feats, flat.length, params).argmax(-1),
             lambda ids: [self.labels[int(i)] for i in ids], self.device)[0]
+
+    def _classify_levels(self, signals, max_levels: int, word_penalty: float, grammar):
+        """``classify_connected(method="level")``: the recordings grouped by
+        padded length (whole multiples of ``cfg.max_samples``), each group
+        padded and copied (``pipeline.pad_signals``), decoded by
+        :func:`recognize_level_batch` and its ids and counts read back in
+        one copy (``dsp.readback``); ``sil`` is dropped from the labels.
+        The grammar's masks go to the device in one copy, a ``host_syncs``
+        of its own there."""
+        units = self.unit_labels()
+        if grammar is None:
+            masks = (np.ones(len(units), bool), np.ones((len(units),) * 2, bool),
+                     np.ones(len(units), bool))
+        else:
+            masks = self.resolve_grammar(grammar)
+        both = torch.as_tensor(np.concatenate([masks[0][None], masks[1], masks[2][None]]),
+                               device=self.device)          # one copy, and one wait
+        if both.device.type != "cpu":
+            profiling.count("host_syncs")
+        masks = (both[0], both[1:-1], both[-1])
+        adapt = self._mean_adapter(signals) if len(signals) else None
+        models = [self.params] + ([self.sil] if self.sil is not None else [])
+        if adapt is not None:
+            models = [m._replace(means=adapt(m.means)) for m in models]
+        net = network(*models)
+        out: list = [None] * len(signals)
+        for pad_len, idxs in pl.group_by_padded_len(signals, self.cfg.max_samples).items():
+            x, n = pl.pad_signals([signals[i] for i in idxs], pad_len, self.device)
+            ids, counts, _ = recognize_level_batch(x, n, net, self.cfg, masks, max_levels,
+                                                   word_penalty)
+            with profiling.stage("dsp.readback"):
+                got = _to_host(torch.cat([ids, counts[:, None]], dim=1)).numpy()
+            for row, i in enumerate(idxs):
+                out[i] = [units[k] for k in got[row, :got[row, -1]] if units[k] != SIL]
+        return out
 
     def recognize(self, signal, reject=None) -> str:
         return self.classify_batch([signal], reject=reject)[0]
@@ -899,13 +1080,16 @@ class GmmHmmRecognizer:
 
     # ---------------------------------------------------------- checkpoint
     def save(self, path: str) -> None:
-        """Write the model in the JAX package's ``.npz`` format."""
+        """Write the model in the JAX package's ``.npz`` format (the silence
+        unit, which that package lacks, as ``sil_<field>`` arrays)."""
         if self.params is None:
             raise ValueError("model not fitted")
         extra = {}
         if self.ubm is not None:
             extra = {f"ubm_{n}": a.cpu().numpy() for n, a in
                      zip(("means", "log_var", "log_mix"), self.ubm)}
+        if self.sil is not None:
+            extra.update({f"sil_{n}": a for n, a in params_to_numpy(self.sil)._asdict().items()})
         np.savez(path, labels=json.dumps(self.labels),
                  frontend=json.dumps(frontend_signature(self.cfg)),
                  reject_threshold=(np.nan if self.reject_threshold is None
@@ -925,6 +1109,9 @@ class GmmHmmRecognizer:
         if "ubm_means" in data.files:
             rec.ubm = ubm_from_numpy([data[f"ubm_{n}"] for n in
                                       ("means", "log_var", "log_mix")], rec.device)
+        if "sil_log_pi" in data.files:
+            rec.sil = params_from_numpy({f: data[f"sil_{f}"] for f in HmmParams._fields},
+                                        rec.device)
         if "reject_threshold" in data.files:
             rt = float(data["reject_threshold"])
             rec.reject_threshold = rt if np.isfinite(rt) else None

@@ -17,7 +17,10 @@ copied here) and must equal ``dsp_tpu.ops.frontend._matrices_np`` exactly
 (tests/test_torch_config.py).
 
 Every function takes tensors with the batch dimensions written out in
-front; the time axis is -2 for feature tensors and -1 for signals.
+front; the time axis is -2 for feature tensors and -1 for signals.  The
+products go through ``utils/products.py``: on the CPU a frame's features
+are then the same bits however many frames share the call (a stream fed
+in chunks of any size equals the whole).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from dsp_tpu_torch.config import FrontendConfig
+from dsp_tpu_torch.utils import products
 
 
 class FrontendMatrices(NamedTuple):
@@ -156,8 +160,8 @@ def power_spectrum_fft(wframes: torch.Tensor, n_fft: int) -> torch.Tensor:
 def power_spectrum_dft(wframes: torch.Tensor, mats: FrontendMatrices,
                        n_fft: int) -> torch.Tensor:
     """rFFT power as two fp32 GEMMs (TF32 is off package-wide)."""
-    re = torch.matmul(wframes, mats.dft_cos)
-    im = torch.matmul(wframes, mats.dft_sin)
+    re = products.matmul(wframes, mats.dft_cos)
+    im = products.matmul(wframes, mats.dft_sin)
     return (re * re + im * im) / float(n_fft)
 
 
@@ -191,7 +195,7 @@ def power_spectrum(frames_: torch.Tensor, mats: FrontendMatrices,
     window, cos, sin = fold_matrices(cfg, frames_.device)
     wx = torch.nn.functional.pad(frames_.to(torch.float64) * window, (0, -length % n_fft))
     folded = wx.reshape(*wx.shape[:-1], -1, n_fft).sum(dim=-2)
-    re, im = torch.matmul(folded, cos), torch.matmul(folded, sin)
+    re, im = products.matmul(folded, cos), products.matmul(folded, sin)
     return ((re * re + im * im) / float(n_fft)).to(frames_.dtype)
 
 
@@ -224,9 +228,9 @@ def mfcc_from_pspec(pspec: torch.Tensor, frames_: torch.Tensor,
                     cfg: FrontendConfig = FrontendConfig()) -> torch.Tensor:
     """Power spectrogram [..., T, K] (+ raw frames for the energy
     coefficient) -> MFCC [..., T, C]."""
-    mel_e = torch.matmul(pspec, mats.mel_fb_t)
+    mel_e = products.matmul(pspec, mats.mel_fb_t)
     log_mel = torch.log(torch.clamp(mel_e, min=cfg.log_floor))
-    ceps = torch.matmul(log_mel, mats.dct_t) * mats.lifter
+    ceps = products.matmul(log_mel, mats.dct_t) * mats.lifter
     if cfg.use_energy:
         frame_e = (frames_ * frames_).sum(dim=-1)
         c0 = torch.log(torch.clamp(frame_e, min=cfg.log_floor))

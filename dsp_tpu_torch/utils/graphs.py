@@ -3,10 +3,12 @@
 A chain of many small kernels whose launches take the host longer than
 the card takes to run them leaves the card idle and its rate set by the
 host's speed.  :func:`replayed` runs such a chain from a CUDA graph: the
-host issues one replay.  Its caller is the GMM-HMM's batch path
-(``models/gmm_hmm.py:recognize_batch``), whose front end at 8 kHz
+host issues one replay.  Its callers are the GMM-HMM's batch paths:
+``models/gmm_hmm.py:recognize_batch``, whose front end at 8 kHz
 (``pipeline.extract_features``: endpoint detector, MFCC, deltas) is ~180
-small launches a batch.
+small launches a batch, and ``recognize_level_batch``, whose
+whole-recording front end, level DP (~11 launches a frame and level:
+~59,000 at 598 frames and 9 levels) and backtrace replay graphs.
 
 A chain is captured at its second call with the same key, input shapes
 and dtypes on one device (a one-off call runs it op by op, as a capture

@@ -1646,6 +1646,105 @@ def test_hmm_recognize_batch_never_waits_and_classify_batch_reads_back_once(dev)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
 
+def _connected_rec(dev):
+    """Three digits of Aurora 2's topology (16 states x 3 Gaussians, 8 kHz)
+    and a 3-state, 6-Gaussian ``sil`` fitted on the card, a CPU twin on
+    the same models, strings of 1-3 digits padded to 3 s, and the digit
+    loop with ``sil`` at both ends."""
+    from dsp_tpu_torch import GmmHmmRecognizer
+    from dsp_tpu_torch.config import HmmConfig
+    from dsp_tpu_torch.models import gmm_hmm as pg
+
+    fe8 = FrontendConfig(sample_rate=8000, frame_len=200, hop_len=80, n_fft=256, n_mels=23,
+                         n_mfcc=13)
+    words = ("zero", "oh", "one")
+    rec = GmmHmmRecognizer(PipelineConfig(frontend=fe8, max_samples=16000),
+                           HmmConfig(n_states=16, n_mix=3), device=dev)
+    rec.fit({w: [synth_word(w, i, sr=8000, max_samples=16000) for i in range(4)]
+             for w in words})
+    rng = np.random.default_rng(3)
+    rec.fit_silence([0.005 * rng.standard_normal(4000).astype(np.float32) for _ in range(8)])
+    host = GmmHmmRecognizer(rec.cfg, rec.hmm, device="cpu")
+    host.labels = rec.labels
+    host.params, host.sil = (pg.HmmParams(*(a.cpu() for a in p)) for p in (rec.params, rec.sil))
+    sigs = [synth_connected([words[(i + j) % 3] for j in range(1 + i % 3)], 40 + i, sr=8000,
+                            gap_ms=(0.0, 100.0), lead_ms=(100.0, 500.0)) for i in range(6)]
+    grammar = {"start": "sil", "end": "sil", "forbidden": [["sil", "sil"]]}
+    cfg = PipelineConfig(frontend=fe8, max_samples=24000, use_vad=False)
+    return rec, host, sigs, grammar, cfg
+
+
+def test_connected_level_batch_on_the_card_never_waits_and_matches_the_cpu(dev):
+    """``recognize_level_batch`` on the card: op by op, captured, then
+    replayed (``utils/graphs.py``) with no host sync and the same bits each
+    time; two ``gmm_emissions`` launches a call (one a topology); ids and
+    counts equal to the CPU's on the same models and final scores at rtol
+    1e-5; the batched backtrace equal to ``backtrack_grammar`` on the
+    card's planes read back."""
+    from dsp_tpu_torch.models import gmm_hmm as pg
+    from dsp_tpu_torch.ops import connected_viterbi as cv
+
+    rec, host, sigs, grammar, cfg = _connected_rec(dev)
+    masks = rec.resolve_grammar(grammar)
+    x, n = tpl.pad_signals(sigs, cfg.max_samples, dev)
+    net, levels = rec.network(), 6
+    m_dev = tuple(torch.as_tensor(m, device=dev) for m in masks)
+    before = _build.LAUNCHES.get("gmm_emissions", 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runs = [pg.recognize_level_batch(x, n, net, cfg, m_dev, levels) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.LAUNCHES["gmm_emissions"] - before == 6
+    ids, counts, final = runs[0]
+    assert all(all(torch.equal(a, b) for a, b in zip(r, runs[0])) for r in runs[1:])
+    want = pg.recognize_level_batch(x.cpu(), n.cpu(), host.network(), cfg,
+                                    tuple(torch.as_tensor(m) for m in masks), levels)
+    assert torch.equal(ids.cpu(), want[0]) and torch.equal(counts.cpu(), want[1])
+    live = want[2] > -1e29
+    assert torch.equal(final.cpu() > -1e29, live) and bool((counts > 0).all())
+    np.testing.assert_allclose(final.cpu()[live].numpy(), want[2][live].numpy(), rtol=1e-5)
+    feats = tpl.extract_recording_features(x, n, cfg, 298)
+    scores, starts = cv.level_dp(pg.network_logb(feats.feats, net), net.log_pi, net.log_a,
+                                 m_dev[0], m_dev[1], levels)
+    lens = feats.length.cpu().numpy()
+    for b in range(len(sigs)):
+        seq, cost = tlb.backtrack_grammar(-scores[b].cpu().numpy(), starts[b].cpu().numpy(),
+                                          masks[1], masks[2], int(lens[b]))
+        assert seq == ids[b, :counts[b]].tolist()
+        assert cost == -final[b, counts[b] - 1].item()
+
+
+def test_classify_connected_level_reads_back_once_on_the_card(dev):
+    """``classify_connected(method="level")`` on the card waits on the
+    grammar's one copy, and on its two copies and its one readback a group
+    of padded length, as ``host_syncs`` counts, and
+    gives the CPU's labels, ``sil`` dropped."""
+    import warnings
+
+    from dsp_tpu_torch.utils import profiling
+
+    rec, host, sigs, grammar, _ = _connected_rec(dev)
+    before = profiling.counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            labels = rec.classify_connected(sigs, max_segments=6, method="level",
+                                            grammar=grammar)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    waits_expected = 1 + 3 * len(tpl.group_by_padded_len(sigs, rec.cfg.max_samples))
+    assert profiling.counts()["host_syncs"] - before.get("host_syncs", 0) == waits_expected
+    assert len(waits) == waits_expected
+    assert labels == host.classify_connected(sigs, max_segments=6, method="level",
+                                             grammar=grammar)
+    assert all(labels) and not any("sil" in ls for ls in labels)
+
+
 def _hmm_pair(dev):
     """A small GMM-HMM fitted on the card, and a CPU recognizer on its
     parameters and UBM."""
